@@ -1,4 +1,4 @@
-"""Kernels A and B against their plain PyTorch versions, on the card.
+"""Kernels A, B, C and C' against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips where torch.cuda.is_available() is False
 (CUDA kernels have no CPU or interpret mode). On a machine with a GPU:
@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from ppde_tpu_torch.models import cnn
-from ppde_tpu_torch.ops import cnn_fused, potts_fused
+from ppde_tpu_torch.models import cnn, esm2
+from ppde_tpu_torch.ops import attention_fused, cnn_fused, potts_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -129,3 +129,118 @@ def test_cnn_kernel_at_gfp_width(dev):
         fit, dx = cnn_fused.ensemble_apply_and_grad(ens, x, dtype)
         fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, dtype)
         _check_cnn(fit, dx, fit0, dx0, dtype)
+
+
+def _qkv(Z, T, hd, dtype, dev, seed=0, n=3):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(
+        (rng.standard_normal((Z, T, hd)) * 0.5).astype(np.float32)).to(
+            dev, dtype) for _ in range(n)]
+
+
+def _attn_tol(dtype):
+    # float32: sums in another order; bf16: one rounding of w and ds (the
+    # JAX package's own bound in tests/test_attention_pallas.py)
+    return (dict(rtol=1e-4, atol=1e-5) if dtype == F32
+            else dict(rtol=3e-2, atol=3e-2))
+
+
+ATTN_SHAPES = [(4, 16, 8), (7, 33, 16), (6, 237, 24), (8, 64, 32),
+               (3, 130, 64), (2, 1, 24), (2, 512, 64), (5, 65, 48)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("Z,T,hd", ATTN_SHAPES)
+def test_attention_fwd_kernel_matches_plain(dev, dtype, Z, T, hd):
+    q, k, v = _qkv(Z, T, hd, dtype, dev, seed=T)
+    n0 = attention_fused.launches_fwd
+    o = attention_fused.flash_attention(q, k, v)
+    assert attention_fused.launches_fwd == n0 + 1
+    torch.cuda.synchronize()
+    o0 = attention_fused.attention_plain(q, k, v)
+    torch.testing.assert_close(o.float(), o0.float(), **_attn_tol(dtype))
+    assert torch.equal(o, attention_fused.flash_attention(q, k, v))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("Z,T,hd", ATTN_SHAPES)
+def test_attention_bwd_kernel_matches_plain(dev, dtype, Z, T, hd):
+    q, k, v, dout = _qkv(Z, T, hd, dtype, dev, seed=T + 1, n=4)
+    n0 = attention_fused.launches_bwd
+    got = attention_fused.flash_attention_bwd(q, k, v, dout)
+    assert attention_fused.launches_bwd == n0 + 1
+    torch.cuda.synchronize()
+    want = attention_fused.attention_bwd_plain(q, k, v, dout)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(a.float(), b.float(), msg=lambda m: (
+            f"{name}: {m}"), **_attn_tol(dtype))
+    again = attention_fused.flash_attention_bwd(q, k, v, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_attention_function_matches_autograd_of_plain(dev, dtype):
+    """The autograd.Function (kernel C forward, C' backward) against
+    autograd through attention_plain, as torch.autograd.gradcheck would
+    hold it (float64 is not a type the kernels take)."""
+    Z, T, hd = 4, 33, 16
+    q, k, v, wgt = _qkv(Z, T, hd, dtype, dev, seed=5, n=4)
+
+    def grads(fn):
+        qs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        loss = (fn(*qs).float() * wgt.float()).sum()
+        return torch.autograd.grad(loss, qs)
+
+    n0 = attention_fused.launches_bwd
+    got = grads(attention_fused.flash_attention)
+    assert attention_fused.launches_bwd == n0 + 1
+    want = grads(attention_fused.attention_plain)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **_attn_tol(dtype))
+
+
+def test_attention_kernel_rejects_bad_input(dev):
+    q, k, v = _qkv(2, 8, 8, F32, dev)
+    with pytest.raises(TypeError):
+        attention_fused.flash_attention(q, k.to(BF16), v)
+    with pytest.raises(ValueError):
+        attention_fused.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2))
+    big = torch.zeros((1, attention_fused.T_MAX + 1, 8), device=dev)
+    with pytest.raises(ValueError):
+        attention_fused.flash_attention(big, big, big)
+    wide = torch.zeros((1, 8, attention_fused.HD_MAX + 8), device=dev)
+    with pytest.raises(ValueError):
+        attention_fused.flash_attention(wide, wide, wide)
+
+
+@pytest.mark.parametrize("dtype,tol", [
+    (F32, dict(rtol=1e-4, atol=1e-4)),
+    # bf16 weights: the card's matrix products and the kernels sum in
+    # another order than the CPU's, one bf16 rounding per layer output
+    (BF16, dict(rtol=5e-2, atol=5e-2)),
+])
+def test_esm2_tiny_on_card_matches_cpu(dev, dtype, tol):
+    """A tiny ESM2 (2 layers, dim 32, 4 heads): pseudo-log-likelihood and
+    its input gradient on the card (kernels C, C') against the CPU."""
+    esm2.CONFIGS["tiny"] = dict(layers=2, dim=32, heads=4, ffn=64)
+    params = esm2.init(torch.Generator().manual_seed(0), "tiny", dtype=dtype,
+                       scale=0.2)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(4, 24, (3, 21)))
+    x = torch.nn.functional.one_hot(toks, esm2.ESM_VOCAB).float()
+
+    def pll_and_grad(p, xin):
+        xg = xin.clone().requires_grad_(True)
+        y = esm2.pseudo_log_likelihood(p, xg, heads=4)
+        (g,) = torch.autograd.grad(y.sum(), xg)
+        return y.detach(), g
+
+    y0, g0 = pll_and_grad(params, x)
+    n_f, n_b = attention_fused.launches_fwd, attention_fused.launches_bwd
+    on_card = esm2._map_leaves(params, lambda _, a: a.to(dev))
+    y1, g1 = pll_and_grad(on_card, x.to(dev))
+    assert attention_fused.launches_fwd == n_f + 2
+    assert attention_fused.launches_bwd == n_b + 2
+    torch.testing.assert_close(y1.cpu(), y0, **tol)
+    torch.testing.assert_close(g1.cpu(), g0, **tol)

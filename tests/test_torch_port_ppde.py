@@ -6,7 +6,9 @@ specification; the whole slice (energy, kernels' plain versions, sampler,
 segmented driver) with the JAX package's own draws replayed into the port;
 and the Boltzmann gold tests on the port's own generator. Tolerances:
 float32 on the CPU, energies at rtol 1e-5 / atol 1e-4 (sums in another
-order than XLA's)."""
+order than XLA's); with the tiny transformer expert in the energy, rtol 1e-5
+/ atol 5e-4 (its pseudo-log-likelihood is a sum of 20 log-probabilities of
+size 3 each)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,11 +16,11 @@ import pytest
 import torch
 
 from ppde_tpu import codec as jcodec, energy as jenergy, utils as jutils
-from ppde_tpu.models import cnn as jcnn, potts as jpotts
+from ppde_tpu.models import cnn as jcnn, esm2 as jesm2, potts as jpotts
 from ppde_tpu.samplers import base as jbase
 from ppde_tpu.samplers.protein import ppde as jppde
 from ppde_tpu_torch import convert, energy, utils
-from ppde_tpu_torch.models import potts
+from ppde_tpu_torch.models import esm2, potts
 from ppde_tpu_torch.samplers import base
 from ppde_tpu_torch.samplers.protein import ppde
 
@@ -152,25 +154,28 @@ class JaxDraws:
         return self._next()
 
 
-@pytest.mark.parametrize("cfg_kw", [
-    dict(pas_length=2, nmut_threshold=4),
-    dict(pas_length=3, paper_results=True),
-])
-def test_slice_matches_jax_with_injected_draws(cfg_kw):
-    """~20 steps of 8 chains: the same draws give the same tokens, accepts
-    and best states; the energy histories agree within float32 tolerance."""
-    n, steps, log_every = 8, 20, 10
+def _slice_energies(jtr=None, ttr=None, chunk_size=None):
+    """The same product-of-experts energy in both packages (Potts + CNN
+    ensemble, optionally a transformer expert) and the initial population."""
     jp = jpotts.synthetic(WT, min_pos=2, max_pos=17, seed=0,
                           coupling_scale=0.1, field_scale=0.5)
     je = jcnn.init_ensemble(jax.random.PRNGKey(0), 3, input_size=len(WT))
     wt_oh = jcodec.seqs_to_onehot([WT])
-    jen = jenergy.protein_poe(jp, je, 1.0, jnp.asarray(wt_oh))
+    jen = jenergy.protein_poe(jp, je, 1.0, jnp.asarray(wt_oh),
+                              transformer=jtr, chunk_size=chunk_size)
     ten = energy.protein_poe(
         convert.potts_from_numpy(
             *jax.tree.map(np.asarray, (jp.W, jp.h, jp.wt_H)), jp.seq_len,
             jp.min_pos, jp.max_pos, device="cpu"),
         convert.cnn_ensemble_from_numpy(jax.tree.map(np.asarray, je), "cpu"),
-        1.0, torch.from_numpy(wt_oh))
+        1.0, torch.from_numpy(wt_oh), transformer=ttr,
+        chunk_size=chunk_size)
+    return jen, ten, wt_oh
+
+
+def _check_slice(jen, ten, wt_oh, cfg_kw, n, steps, log_every, e_tol):
+    """Run both packages' samplers on the JAX package's draws: the same
+    tokens, accepts and best states; energy histories within e_tol."""
     pop = np.repeat(wt_oh, n, 0)
     key = jax.random.PRNGKey(7)
     cfg_j, cfg_t = jppde.PPDEConfig(**cfg_kw), ppde.PPDEConfig(**cfg_kw)
@@ -189,7 +194,40 @@ def test_slice_matches_jax_with_injected_draws(cfg_kw):
     for a, b in ((rt.energy_history, rj.energy_history),
                  (rt.fitness_history, rj.fitness_history),
                  (rt.best_energy, rj.best_energy)):
-        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-4)
+        np.testing.assert_allclose(a, np.asarray(b), **e_tol)
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(pas_length=2, nmut_threshold=4),
+    dict(pas_length=3, paper_results=True),
+])
+def test_slice_matches_jax_with_injected_draws(cfg_kw):
+    """~20 steps of 8 chains: the same draws give the same tokens, accepts
+    and best states; the energy histories agree within float32 tolerance."""
+    jen, ten, wt_oh = _slice_energies()
+    _check_slice(jen, ten, wt_oh, cfg_kw, n=8, steps=20, log_every=10,
+                 e_tol=dict(rtol=1e-5, atol=1e-4))
+
+
+@pytest.mark.parametrize("chunk_size", [None, 3])
+def test_slice_matches_jax_with_transformer_expert(chunk_size, tmp_path):
+    """The transformer path as a whole (ESM2 with its attention through the
+    wrapper's plain version, the chunked gradient, energy, sampler, segments):
+    a tiny float32 expert, 8 steps of 6 chains, JAX's draws replayed."""
+    tiny = dict(layers=2, dim=32, heads=4, ffn=64)
+    jesm2.CONFIGS["tiny"] = tiny
+    esm2.CONFIGS["tiny"] = tiny
+    path = str(tmp_path / "tiny.npz")
+    # weights of scale 0.1: large enough to move the energy, small enough
+    # that the sampler accepts some proposals and rejects others
+    jesm2.save_npz_checkpoint(path, jesm2.init(
+        jax.random.PRNGKey(1), "tiny", dtype=jnp.float32, scale=0.1))
+    jtr = jesm2.load_expert("tiny", WT, weights_path=path, dtype=jnp.float32)
+    ttr = esm2.load_expert("tiny", WT, weights_path=path,
+                           dtype=torch.float32, device="cpu")
+    jen, ten, wt_oh = _slice_energies(jtr, ttr, chunk_size)
+    _check_slice(jen, ten, wt_oh, dict(pas_length=2, nmut_threshold=4), n=6,
+                 steps=8, log_every=4, e_tol=dict(rtol=1e-5, atol=5e-4))
 
 
 # ---------------------------------------------------------------------------
