@@ -7,10 +7,13 @@ Phases (any failed check raises; the script then exits non-zero and prints
 no result line):
   1. the card (nvidia-smi name and power limit) and the kernels' build;
   2. kernel A (fused Potts energy + gradient) against its plain version at
-     GFP width (P = 4864), B in {128, 1024, 1000}, float32 and bfloat16;
+     GFP width (P = 4864), B in {128, 1024, 1000}, float32 and bfloat16 (the
+     symmetric couplings, and a copy made asymmetric: the kernel must give
+     xf @ W, not xf @ W.T), timed beside torch.addmm;
   3. kernel B (fused CNN-ensemble fitness + input gradient) against its
      plain version at GFP width (M=3, C=237, L=237), same batches and types,
-     both max-pool backward modes, plus an input with exact ties;
+     both max-pool backward modes, plus an input with exact ties; weights
+     prepared once, as the sampler has them, and in the stacked layout;
   4. the PPDE-PAS sampler on GFP with the Potts + CNN-ensemble energy
      (synthetic seeded Potts, seeded 3-member ensemble, bf16, lambda=15,
      pas_length=2, nmut_threshold=10): 128 chains and 1024 chains. The
@@ -68,15 +71,32 @@ def check(cond, msg):
         raise CheckFailed(msg)
 
 
-def time_ms(fn, reps):
-    """Mean milliseconds of fn over reps launches, by CUDA events, after one
-    warm-up call."""
+def reps_for(ms):
+    """Repetitions of a timed call: at least 20 below 1 ms, 10 above."""
+    return 20 if ms < 1.0 else 10
+
+
+def time_ms(fn, reps=None):
+    """Mean device milliseconds of fn over reps launches (default: by
+    ``reps_for`` of a first estimate), by CUDA events, after a warm-up call.
+    The device is kept busy while the host enqueues the launches, so a
+    wrapper whose host side is slower than its kernels is still timed by its
+    kernels."""
     import torch
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0  # enqueue time of one call
+    torch.cuda.synchronize()
+    if reps is None:
+        reps = reps_for((time.perf_counter() - t0) * 1e3)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # spin the device (about 1.7 cycles a nanosecond) for as long as the
+    # host needs to enqueue all reps, at most 0.3 s
+    torch.cuda._sleep(int(min(host_s * reps * 1.2, 0.3) * 1.7e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -98,18 +118,30 @@ def random_onehot(torch, gen, B, L, dev):
 
 
 def phase_potts(torch, potts, potts_fused, dev):
-    """Kernel A vs plain at GFP width."""
+    """Kernel A vs plain at GFP width: float32 and bf16 on the model's
+    symmetric couplings, and bf16 on a W that is not symmetric."""
     p32 = potts.synthetic(GFP_WT, seed=0, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(11)
     P = p32.padded_dim
     out = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, w_kind in ((torch.float32, "symmetric"),
+                          (torch.bfloat16, "symmetric"),
+                          (torch.bfloat16, "upper triangle")):
         W, h = p32.W.to(dtype), p32.h.to(dtype)
+        if w_kind == "upper triangle":
+            W = torch.triu(W).contiguous()
+        check(torch.equal(W, W.T) == (w_kind == "symmetric"),
+              f"W is not as asked: {w_kind}")
+        dn = str(dtype).split(".")[-1]
         s = W.element_size()
         for B in BATCHES:
             x = random_onehot(torch, gen, B, len(GFP_WT), dev)
-            xf = potts._pad_flat(p32, x)
-            H, g = potts_fused.energy_and_grad(W, h, xf)
+            xf = potts._pad_flat(p32, x, dtype)  # as the sampler's path does
+
+            def kernel():
+                return potts_fused.energy_and_grad(W, h, xf)
+
+            H, g = kernel()
             H0, g0 = potts_fused.energy_and_grad_plain(W, h, xf)
             torch.cuda.synchronize()
             err_g = (g - g0).abs().max().item()
@@ -117,32 +149,33 @@ def phase_potts(torch, potts, potts_fused, dev):
             rel_H = ((H - H0).abs() / H0.abs().clamp_min(1.0)).max().item()
             # float32 sums in another order; products with one-hots exact
             check(torch.allclose(g, g0, rtol=1e-5, atol=1e-4),
-                  f"kernel A grad B={B} {dtype}: max abs err {err_g}")
+                  f"kernel A grad B={B} {dn} {w_kind}: max abs err {err_g}")
             check(torch.allclose(H, H0, rtol=1e-5, atol=1e-3),
-                  f"kernel A energy B={B} {dtype}: max abs err {err_H}")
-            H2, _ = potts_fused.energy_and_grad(W, h, xf)
-            check(torch.equal(H, H2), "kernel A energy is not deterministic")
-            reps = 20 if B <= 128 else 5
-            ms = time_ms(lambda: potts_fused.energy_and_grad(W, h, xf), reps)
+                  f"kernel A energy B={B} {dn} {w_kind}: max abs err "
+                  f"{err_H}")
+            H2, g2 = kernel()
+            check(torch.equal(H, H2) and torch.equal(g, g2),
+                  "kernel A is not deterministic")
+            ms = time_ms(kernel)
             plain = time_ms(
-                lambda: potts_fused.energy_and_grad_plain(W, h, xf), reps)
-            xs = xf.to(dtype)
-            lib = time_ms(lambda: torch.addmm(h, xs, W), reps)
+                lambda: potts_fused.energy_and_grad_plain(W, h, xf))
+            lib = time_ms(lambda: torch.addmm(h, xf, W))
             # bytes: each input read once (xf, W, h), outputs written once
             # (grad, H); operations: the multiply-adds this one-hot input
             # needs (2 per nonzero of xf per column of W)
             nnz = int(torch.count_nonzero(xf).item())
             n_bytes = (B * P + P * P + P) * s + (B * P + B) * 4
-            bms, by = bound_ms(n_bytes, 2 * nnz * P + 4 * B * P,
-                               str(dtype).split(".")[-1])
-            out.append({"B": B, "dtype": str(dtype).split(".")[-1],
+            bms, by = bound_ms(n_bytes, 2 * nnz * P + 4 * B * P, dn)
+            out.append({"B": B, "dtype": dn,
+                        "W": w_kind,
                         "max_abs_err_grad": err_g, "max_abs_err_H": err_H,
                         "max_rel_err_H": rel_H, "tol": "rtol 1e-5, atol "
                         "1e-4 (grad) / 1e-3 (H)", "kernel_ms": ms,
                         "plain_ms": plain, "library_ms_addmm_grad_only": lib,
+                        "kernel_over_addmm": ms / lib,
                         "bound_ms": bms, "bound_by": by,
-                        "dense_ops_bound_ms": 2 * B * P * P / PEAK_OPS[
-                            str(dtype).split(".")[-1]] * 1e3})
+                        "dense_ops_bound_ms": 2 * B * P * P / PEAK_OPS[dn]
+                        * 1e3})
             print("kernel A", json.dumps(out[-1]), flush=True)
     return out
 
@@ -197,31 +230,33 @@ def phase_cnn(torch, cnn, cnn_fused, dev):
         dn = str(dtype).split(".")[-1]
         s = 2 if dtype == torch.bfloat16 else 4
         w_bytes = M * (K * V * C + C * C2 + C2) * s + M * (C + C2 + 1) * 4
+        prep = cnn_fused.prepare_ensemble(ens, dtype)
         for pool in ("split", "first"):
             for name, x in inputs:
                 B = x.shape[0]
-                fit, dx = cnn_fused.ensemble_apply_and_grad(ens, x, dtype,
+                fit, dx = cnn_fused.ensemble_apply_and_grad(prep, x, None,
                                                             pool)
                 fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(
                     ens, x, dtype, pool)
                 torch.cuda.synchronize()
                 res = cnn_compare(torch, fit, dx, fit0, dx0, dn)
                 check(res["ok"], f"kernel B B={name} {dn} {pool}: {res}")
+                # again from the stacked layout (prepared on the spot): the
+                # same bits, and the kernel repeats itself
                 fit2, dx2 = cnn_fused.ensemble_apply_and_grad(ens, x, dtype,
                                                               pool)
                 check(torch.equal(fit, fit2) and torch.equal(dx, dx2),
                       "kernel B is not deterministic")
                 if name == "128-ties" and pool == "first":
                     _, dx_split = cnn_fused.ensemble_apply_and_grad(
-                        ens, x, dtype, "split")
+                        prep, x, None, "split")
                     check(not torch.allclose(dx, dx_split),
                           "tie input: split and first routing agree")
-                reps = 3 if B <= 128 else 2
                 ms = time_ms(lambda: cnn_fused.ensemble_apply_and_grad(
-                    ens, x, dtype, pool), reps)
+                    prep, x, None, pool))
                 plain = time_ms(
                     lambda: cnn_fused.ensemble_apply_and_grad_plain(
-                        ens, x, dtype, pool), reps)
+                        ens, x, dtype, pool))
                 n_bytes = B * L * V * s + w_bytes + B * 4 + B * L * V * 4
                 bms, by = bound_ms(n_bytes, cnn_ops(torch, cnn, x, M, C, C2,
                                                     K), dn)
@@ -466,8 +501,11 @@ def main() -> int:
     print(f"kernel build {build_s:.2f} s", flush=True)
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+            # registers and spills of every kernel; ptxas' performance
+            # remarks (C75xx) except the routine one on wgmma's registers
+            if ("Used " in line or "spill" in line
+                    or ("(C75" in line and "(C7519)" not in line)):
+                print(f"ptxas {name}: {line.strip()[:200]}", flush=True)
 
     t = time.perf_counter()
     pa = phase_potts(torch, potts, potts_fused, dev)
@@ -498,7 +536,8 @@ def main() -> int:
 
     # one headline case per kernel: the 1024-chain population in bf16 for A
     # and B, the chunk-16 call of the transformer path in bf16 for C and C'
-    a = next(r for r in pa if r["B"] == 1024 and r["dtype"] == "bfloat16")
+    a = next(r for r in pa if r["B"] == 1024 and r["dtype"] == "bfloat16"
+             and r["W"] == "symmetric")
     b = next(r for r in pb if r["B"] == 1024 and r["dtype"] == "bfloat16"
              and r["pool_bwd"] == "split")
     c = next(r for r in pc if (r["Z"], r["T"], r["hd"]) == ATTN_CASES[0]

@@ -20,35 +20,47 @@
 // gradient equally over tied rows; "first" to the first tied row only
 // (torch.max semantics).
 //
-// What bounds it on the H100: the tensor-core operations of the products
-// (about 2*B*T*M*(K*V*C + C*C2) for the forward pass); the bytes moved (x,
-// dx and the weights) are small.
+// What bounds it on the H100: the tensor-core operations of the embed
+// product (2*B*M*T*C*C2; the conv on one-hot patches and the routed
+// backward need far fewer); the bytes moved (x, dx, the weights) are small.
+// What holds a kernel back in practice is everything around that product:
+// with one block per SM (H1 alone fills over half of its shared memory) the
+// plain instructions of the conv, the pool and the gather run at a low
+// rate, so the design spends its effort on cutting them.
 //
-// Design. The TPU kernel keeps all of a batch tile's activations on chip.
-// At GFP width one sample's H1 is 233x237 and its H2 233x474 values, more
-// than a block's 227 KB of shared memory in float32. One block handles one
-// (sample, member):
-//   * the max-pool's statistics come first: per channel the max, and a
-//     bitmask over t of the rows that route the gradient (the tied rows for
-//     "split", the first for "first");
-//   * G2 has one nonzero per (channel, routed row), so G1 is gathered from
-//     rows of emb_w^T instead of a dense G2 @ emb_w^T; then dP = G1 @ enc_w^T
-//     and its col2im accumulate in shared memory.
-// The conv is an implicit GEMM: patch row t is x_flat[t*V : t*V + K*V], so
-// the im2col matrix is the one-hot row itself read with a stride of V.
+// Design of the bfloat16 kernel (namespace tc; the sampler's path).
+//   * Schedule of _kernel_m: a persistent block stays on one member and
+//     walks samples b = blockIdx.x, blockIdx.x + gridDim.x, ...; the grid is
+//     (SMs / M) x M blocks of 512 threads (four warpgroups of 64 rows).
+//   * Weights are prepared once on the host (ops/cnn_fused.prepare_ensemble)
+//     as tiles in the layout wgmma reads (rows of 128 bytes, 128-byte
+//     swizzle). The tiles a sample needs - enc_w (conv), emb_w chunk by
+//     chunk, enc_w again (dP) - stream through a ring of 4 shared-memory
+//     slots by cp.async.bulk, completion counted on mbarriers; a slot is
+//     refilled (4 tiles ahead) as soon as every warp has released it, so the
+//     loads of the next tiles and of the next sample overlap the work.
+//   * Conv: H1[t] = rnd(relu(b + sum over the nonzero letters of the patch
+//     of a row of enc_w)): for a one-hot sample K rows of the tile in the
+//     ring, 8 channels a lane, no product over the zeros.
+//   * Embed: H1 (bf16, swizzled, all T <= 256 rows) is the shared-memory A
+//     operand of wgmma m64n96k16; the column maxima come straight from the
+//     accumulators (max, + bias, relu and rounding commute), and only the
+//     warps that hold a column's maximum look for the rows that reach it:
+//     per row a bitmask of routed channels.
+//   * Backward: each lane lists the channels of one row; a quarter warp
+//     gathers the rows of emb_w^T of one row of G1, every load started before
+//     the first is used, and writes G1 over H1. dP = G1 @ enc_w^T runs on
+//     wgmma m64n104k16, is staged as float32 over G1, and col2im is one sum
+//     of K terms per entry of dx in a fixed order.
+//   * One accumulator array serves both products: wgmma pins accumulators to
+//     fixed registers, and a second array would cost its size in registers
+//     for the whole kernel (the first cuts spilled for that reason).
 // Blocks of different members write separate [M, B, L*V] partials, and a
-// second kernel adds them in member order: no atomics on values, and the
-// result is deterministic.
-//
-// Two schedules, chosen by the type:
-//   bfloat16 (tc::): tensor cores (mma.sync m16n8k16, float32 accumulate).
-//     All T <= 256 rows of a sample are one tile: H1 stays in shared memory
-//     as bf16, each staged weight tile serves 256 rows, and H2 is reduced
-//     to its column maxima straight from the accumulators.
-//   float32 (simt::): FMAs from shared memory over 64-row tiles in two
-//     passes (pass 1: H1, H2 and the max statistics; pass 2: H1 again).
-// wgmma/TMA pipelines and the member-per-block schedule of _kernel_m are
-// later work.
+// second kernel adds them in member order: no atomics on values (the integer
+// atomics on the pool's masks and counts commute), so results repeat bit for
+// bit. The float32 kernel (namespace simt; no sampler path runs it) is the
+// first cut's: one block per (sample, member), FMAs from shared memory over
+// 64-row tiles in two passes, weights in the plain layout.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -75,12 +87,6 @@ __device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, __nv_bfloat16 v) {
-  *p = v;
-}
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // exact: v is already rounded to bf16
-}
 template <typename T>
 __device__ __forceinline__ T zero_of();
 template <>
@@ -235,249 +241,773 @@ __device__ void finish_pool(const Args a, int b, int m, const float* mx,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores, one 256-row tile per sample
+// bfloat16: a persistent block per (member, stride of samples); weights
+// stream through a ring of shared-memory slots; products on wgmma
 // ---------------------------------------------------------------------------
 namespace tc {
 
-constexpr int THREADS = 512;  // 16 warps
-constexpr int BKS = 32;       // depth of one weight stage
-constexpr int KPS = BKS + 8;  // bf16 row stride of the staged weights
-constexpr int DPR = 64;       // rows of one dP tile
+using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int THREADS = 512;             // four warpgroups
+constexpr int ROWS = 256;                // rows t of a sample: T <= ROWS
+constexpr int MB = ROWS / 64 / (THREADS / 128);  // 64-row blocks of each
+constexpr int KB = 64;                   // depth of a tile: 128-byte rows
+constexpr int MAX_C = 256;               // conv channels: 4 tiles deep
+constexpr int MAX_C2 = 512;              // embed channels
+constexpr int NCH = 96;                  // embed columns per chunk (wgmma n)
+constexpr int NDP = 104;                 // K*V padded (wgmma n of dP)
+constexpr int SLOTS = 4;                 // ring of weight tiles
+constexpr int EMB_BYTES = NCH * KB * 2;       // an emb_w tile [96][64]
+constexpr int ENC_BYTES = NDP * KB * 2;       // an enc_w tile [104][64]
+constexpr int SLOT_BYTES = ENC_BYTES;         // the larger of the two
+constexpr int H1_TILE = ROWS * KB * 2;        // an H1 tile [256][64]
+constexpr int RMW = MAX_C2 / 32 + 1;     // words per row of the routed mask
+                                         // (odd: rows fall in all banks)
+constexpr int RPW = ROWS / (THREADS / 32);  // rows a warp gathers
+constexpr int LISTCAP = 64;              // routed pairs a warp lists at once
+constexpr int DPS = NDP + 4;             // row stride of the staged dP
+constexpr int GB = 8;                    // rows of emb_w^T in flight per lane
 
-// d += a (16x16, row) * b (16x8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc = A[rows, :kpad] @ Bm(:, n0 : n0 + NB): warp w owns rows
-// (w / WN) * MT * 16 + [0, MT * 16) and columns
-// (w % WN) * NT * 8 + [0, NT * 8) of the output tile. A is bf16 in shared
-// memory (row stride lda, even); Bm(k, n) = Bg[k*bsk + n*bsn] (zero beyond
-// kvalid / nvalid) is staged BKS deep into ws.
-template <int MT, int NT, int WN>
-__device__ __forceinline__ void gemm(float (&acc)[MT][NT][4],
-                                     const __nv_bfloat16* A, int lda,
-                                     int kpad,
-                                     const __nv_bfloat16* __restrict__ Bg,
-                                     long bsk, long bsn, int kvalid, int n0,
-                                     int nvalid, __nv_bfloat16* ws) {
-  static_assert(WN * NT * 8 == NB, "a tile spans NB columns");
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp / WN, wn = warp % WN;
-#pragma unroll
-  for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-  for (int k0 = 0; k0 < kpad; k0 += BKS) {
-    stage_weights<BKS, true, THREADS>(ws, KPS, Bg, bsk, bsn, k0, kvalid, n0,
-                                      nvalid);
-    __syncthreads();
-    const int ks_end = min(BKS, kpad - k0);  // kpad is a multiple of 16
-    for (int ks = 0; ks < ks_end; ks += 16) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        const __nv_bfloat16* p =
-            A + (wm * MT * 16 + mi * 16 + g) * lda + k0 + ks + tig * 2;
-        a[mi][0] = ld32(p);
-        a[mi][1] = ld32(p + 8 * lda);
-        a[mi][2] = ld32(p + 8);
-        a[mi][3] = ld32(p + 8 * lda + 8);
-      }
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni) {
-        const __nv_bfloat16* q =
-            ws + (wn * NT * 8 + ni * 8 + g) * KPS + ks + tig * 2;
-        const uint32_t b0 = ld32(q), b1 = ld32(q + 8);
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi) mma_bf16(acc[mi][ni], a[mi], b0, b1);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Shared-memory layout in bytes (16-byte aligned pieces).
-struct Layout {
-  int xs_len, ldh, xs, h1, ws, dxs, dp, mx, scale, first, mask, pmax, red,
-      total;
-  __host__ __device__ Layout(int L, int V, int K, int C, int C2) {
-    const int KVp = round_up(K * V, 16);
-    ldh = round_up(C, 16) + 8;  // conflict-free fragment loads
-    xs_len = round_up((MAXT - 1) * V + KVp, 8);
-    xs = 0;                                        // x (bf16), zero-padded
-    h1 = xs + xs_len * 2;                          // H1, then G1 [MAXT, ldh]
-    ws = h1 + MAXT * ldh * 2;                      // weights [NB, KPS]
-    dxs = ws + NB * KPS * 2;                       // dx (f32) [L*V]
-    dp = dxs + round_up(L * V, 4) * 4;             // dP tile [DPR, K*V]
-    mx = dp + DPR * round_up(K * V, 4) * 4;        // per channel: max,
-    scale = mx + round_up(C2, 4) * 4;              //   routed gradient,
-    first = scale + round_up(C2, 4) * 4;           //   first row,
-    mask = first + round_up(C2, 4) * 4;            //   routed-row bitmask
-    pmax = mask + C2 * MW * 4;                     // per-warp column maxima
-    red = pmax + (THREADS / 32 / 2) * NB * 4;      // block reduction
-    total = red + THREADS * 4;
-  }
+struct TcArgs {
+  const bf16* x;        // [B, L*V]
+  const bf16* enc_blob; // [M, 4, 104, 64]   tiles of enc_w, [j][c]
+  const bf16* emb_blob; // [M, nchunk, 4, 96, 64]  tiles of emb_w^T, [c2][c]
+  const bf16* embwT;    // [M, C2, 256]      rows of emb_w^T, zero-padded
+  const float* encb;    // [M, 256]
+  const float* embb;    // [M, nchunk * 96]
+  const bf16* decw;     // [M, C2]
+  const float* decb;    // [M]
+  float* pred;          // [M, B]      scratch
+  float* dxm;           // [M, B, L*V] scratch
+  int B, L, V, K, C, C2, M, pool_first, nchunk;
 };
 
+constexpr int MAX_LV = 5248;             // elements of one sample: L * V
+constexpr int MAX_L = 320;               // positions of one sample
+
+// Shared memory in bytes: fixed offsets from the block's (1024-aligned)
+// dynamic shared memory, so that every access has a constant address.
+namespace lay {
+constexpr int h1 = 0;  // H1, then G1: 4 tiles [256][64]; then dP f32 [256][DPS]
+constexpr int ring = h1 + 4 * H1_TILE;              // weight tiles
+constexpr int rowmask = ring + SLOTS * SLOT_BYTES;  // routed channels by row
+constexpr int mx = rowmask + ROWS * RMW * 4;        // per channel: max,
+constexpr int scale = mx + (MAX_C2 + NCH) * 4;      //   routed gradient,
+constexpr int first = scale + (MAX_C2 + NCH) * 4;   //   first row of the max,
+constexpr int cnt = first + (MAX_C2 + NCH) * 4;     //   rows that reach it
+constexpr int xr = cnt + (MAX_C2 + NCH) * 4;  // x (bf16); later maxima, lists
+constexpr int nz = xr + MAX_LV * 2;                 // nonzero letters by position
+constexpr int tok = nz + MAX_L * 4;           // (letter, value) of one-hot ones
+constexpr int bars = tok + MAX_L * 8;               // 2 * SLOTS mbarriers
+constexpr int red = bars + 2 * SLOTS * 8;           // partial sums of pred
+constexpr int embb = red + THREADS / 32 * 4;        // embed biases,
+constexpr int decw = embb + (MAX_C2 + NCH) * 4;     //   decoder weights (f32),
+constexpr int encb = decw + MAX_C2 * 4;             //   conv biases
+constexpr int relaxed = encb + MAX_C * 4;     // 1: a position is not one-hot
+constexpr int hit = relaxed + 16;  // per warp: columns whose max it may hold
+constexpr int total = hit + THREADS / 32 * (NCH / 32) * 4;
+static_assert(MAX_LV * 2 >= THREADS / 32 * LISTCAP * 4 &&
+                  MAX_LV * 2 >= THREADS / 32 * NCH * 4,
+              "the x region also holds the column maxima and the pair lists");
+static_assert(total <= 232448, "more than a block's shared memory");
+}  // namespace lay
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE_%=;\n"
+      "bra WAIT_%=;\n"
+      "DONE_%=:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+// generic-proxy writes to shared memory become visible to wgmma
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// K-major bf16 tile with 128-byte rows in the 128-byte swizzle
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+// d[64 x N] += a[64 x 16] * b[N x 16]^T from shared memory (wgmma96: N = 96,
+// the first 48 of d; else N = 104); the _first form overwrites d and only
+// writes it, so that the accumulators are dead between two chains
+__device__ __forceinline__ void wgmma96_k16(float (&d)[52], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db));
+}
+__device__ __forceinline__ void wgmma96_k16_first(float (&d)[52], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "%48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47])
+      : "l"(da), "l"(db));
+}
+__device__ __forceinline__ void wgmma_k16(float (&d)[52], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51}, "
+      "%52, %53, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "l"(da), "l"(db));
+}
+__device__ __forceinline__ void wgmma_k16_first(float (&d)[52], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51}, "
+      "%52, %53, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]), "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]), "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]), "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]), "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51])
+      : "l"(da), "l"(db));
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// 4 bytes global -> shared, asynchronously
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ float rb(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+// the two bf16 values of a 32-bit word, as float32
+__device__ __forceinline__ float bf_lo(unsigned w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(unsigned w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+// byte offset of 16-byte chunk `chunk` of row r in a swizzled tile
+__device__ __forceinline__ int sw(int r, int chunk) {
+  return r * 128 + ((chunk ^ (r & 7)) << 4);
+}
+
+// Built with -DCNN_PHASE_CLOCKS (tools/profile_port_step.py --phases), thread
+// 0 of block (0, 0) adds the clocks each phase of a sample took into
+// g_phase_clocks; otherwise PHASE_TICK is empty.
+#ifdef CNN_PHASE_CLOCKS
+__device__ long long g_phase_clocks[8];
+#define PHASE_TICK(i)                                              \
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {    \
+    const long long now_ = clock64();                              \
+    g_phase_clocks[i] += now_ - phase_t0;                          \
+    phase_t0 = now_;                                               \
+  }
+#else
+#define PHASE_TICK(i)
+#endif
+
 __global__ void __launch_bounds__(THREADS, 1)
-fit_grad_kernel(const Args a) {
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(a.L, a.V, a.K, a.C, a.C2);
-  bf16* xs = reinterpret_cast<bf16*>(smem + lay.xs);
-  bf16* h1 = reinterpret_cast<bf16*>(smem + lay.h1);
-  bf16* ws = reinterpret_cast<bf16*>(smem + lay.ws);
-  float* dxs = reinterpret_cast<float*>(smem + lay.dxs);
-  float* dp = reinterpret_cast<float*>(smem + lay.dp);
-  float* mx = reinterpret_cast<float*>(smem + lay.mx);
-  float* scale = reinterpret_cast<float*>(smem + lay.scale);
-  int* first = reinterpret_cast<int*>(smem + lay.first);
-  unsigned* mask = reinterpret_cast<unsigned*>(smem + lay.mask);
-  float* pmax = reinterpret_cast<float*>(smem + lay.pmax);
-  float* red = reinterpret_cast<float*>(smem + lay.red);
+fit_grad_kernel(const TcArgs a) {
+#ifdef CNN_PHASE_CLOCKS
+  long long phase_t0 = clock64();
+#endif
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  if (smem_u32(smem_raw) & 1023u) __trap();  // the swizzle needs this base
+  unsigned char* h1 = smem + lay::h1;
+  unsigned char* ring = smem + lay::ring;
+  unsigned* rowmask = reinterpret_cast<unsigned*>(smem + lay::rowmask);
+  float* mx = reinterpret_cast<float*>(smem + lay::mx);
+  float* scale = reinterpret_cast<float*>(smem + lay::scale);
+  int* first = reinterpret_cast<int*>(smem + lay::first);
+  int* cntc = reinterpret_cast<int*>(smem + lay::cnt);
+  bf16* xs = reinterpret_cast<bf16*>(smem + lay::xr);
+  float* pmax = reinterpret_cast<float*>(smem + lay::xr);
+  unsigned* lists = reinterpret_cast<unsigned*>(smem + lay::xr);
+  unsigned* nzm = reinterpret_cast<unsigned*>(smem + lay::nz);
+  int2* tokv = reinterpret_cast<int2*>(smem + lay::tok);
+  float* embb = reinterpret_cast<float*>(smem + lay::embb);
+  float* decw = reinterpret_cast<float*>(smem + lay::decw);
+  float* encb = reinterpret_cast<float*>(smem + lay::encb);
+  int* relaxed = reinterpret_cast<int*>(smem + lay::relaxed);
+  unsigned* hitm = reinterpret_cast<unsigned*>(smem + lay::hit);
+  float* red = reinterpret_cast<float*>(smem + lay::red);
+  const uint32_t full0 = smem_u32(smem + lay::bars), empty0 = full0 + SLOTS * 8;
+  const uint32_t ring_u = smem_u32(ring), h1_u = smem_u32(h1);
 
-  const int b = blockIdx.x, m = blockIdx.y, tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32, g = lane >> 2, tig = lane & 3;
-  const int n_t = a.L - a.K + 1, LV = a.L * a.V, KV = a.K * a.V;
-  const int ldc = round_up(a.C, 16), ldh = lay.ldh;
-  const bf16* x = static_cast<const bf16*>(a.x) + (size_t)b * LV;
-  const bf16* encw = static_cast<const bf16*>(a.encw) + (size_t)m * KV * a.C;
-  const bf16* embw = static_cast<const bf16*>(a.embw) + (size_t)m * a.C * a.C2;
-  const bf16* embwT =
-      static_cast<const bf16*>(a.embwT) + (size_t)m * a.C2 * a.C;
-  const float* encb = a.encb + (size_t)m * a.C;
-  const float* embb = a.embb + (size_t)m * a.C2;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int m = blockIdx.y;
+  const int n_t = a.L - a.K + 1, LV = a.L * a.V;
+  const int nkb = (a.C + KB - 1) / KB, ksteps = (a.C + 15) / 16;
 
-  for (int i = tid; i < lay.xs_len; i += THREADS)
-    xs[i] = i < LV ? x[i] : zero_of<bf16>();
-  for (int i = tid; i < LV; i += THREADS) dxs[i] = 0.f;
-  for (int c = tid; c < a.C2; c += THREADS) first[c] = INT_MAX;
-  for (int i = tid; i < a.C2 * MW; i += THREADS) mask[i] = 0u;
-  __syncthreads();
+  const int g = lane >> 2, tig = lane & 3, wg = warp / 4, wq = warp & 3;
+  // this thread's rows: r0 + mb * 64 + {0, 8}
+  const int r0 = wg * 64 * MB + wq * 16 + g;
+  const bf16* embwT = a.embwT + (size_t)m * a.C2 * MAX_C;
 
-  // H1 for all MAXT rows (rows t >= T read zero patches; never pooled)
-  constexpr int WN = 2, MT = 2, NT = 8;  // 8 x 2 warps of 32 x 64
-  const int wm = warp / WN, wn = warp % WN;
-  for (int n0 = 0; n0 < ldc; n0 += NB) {
-    float acc[MT][NT][4];
-    gemm<MT, NT, WN>(acc, xs, a.V, round_up(KV, 16), encw, a.C, 1, KV, n0,
-                     a.C, ws);
-#pragma unroll
-    for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wm * 32 + mi * 16 + g + (e >> 1) * 8;
-          const int c = n0 + wn * 64 + ni * 8 + tig * 2 + (e & 1);
-          if (c < ldh) {
-            const float v =
-                c < a.C ? rnd<bf16>(fmaxf(acc[mi][ni][e] + encb[c], 0.f))
-                        : 0.f;
-            h1[r * ldh + c] = __float2bfloat16(v);
-          }
-        }
+  // The weight tiles every sample needs, in the order they are used: nkb
+  // tiles of enc_w (conv), nchunk * nkb of emb_w, nkb of enc_w again (dP).
+  // Tile i lives in slot i % SLOTS. Thread 0 refills a slot with tile
+  // i + SLOTS as soon as every warp has released tile i.
+  const int per_sample = nkb * (2 + a.nchunk);
+  const uint32_t n_tiles =
+      (uint32_t)((a.B - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) *
+      per_sample;
+  auto slot_of = [](uint32_t i) { return i % SLOTS; };
+  // Every thread computes the copy's operands; only `leader` starts it,
+  // by predicated instructions: no branch diverges next to the wgmmas.
+  auto refill = [&](uint32_t i, bool leader) {
+    const int r = (int)(i % per_sample), e = r - nkb * (1 + a.nchunk);
+    const bool is_enc = r < nkb || e >= 0;
+    const int ch = (r - nkb) / nkb, kb = (r - nkb) % nkb;
+    const char* src =
+        is_enc ? reinterpret_cast<const char*>(a.enc_blob) +
+                     ((size_t)m * 4 + (e >= 0 ? e : r)) * ENC_BYTES
+               : reinterpret_cast<const char*>(a.emb_blob) +
+                     (((size_t)m * a.nchunk + ch) * 4 + kb) * EMB_BYTES;
+    const int bytes = is_enc ? ENC_BYTES : EMB_BYTES;
+    const uint32_t bar = full0 + slot_of(i) * 8;
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+        "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+        "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%2], [%3], %1, [%0];\n}\n" ::"r"(bar),
+        "r"(bytes), "r"(ring_u + slot_of(i) * SLOT_BYTES), "l"(src),
+        "r"((int)(leader && i < n_tiles))
+        : "memory");
+  };
+  auto wait_full = [&](uint32_t i) {
+    mbar_wait(full0 + slot_of(i) * 8, (i / SLOTS) & 1);
+  };
+  // This warp is done with tile i: lane 0 arrives. Warp 0 waits until all
+  // warps have, then its lane 0 refills the slot with tile i + SLOTS.
+  const bool refiller = __shfl_sync(0xffffffffu, warp, 0) == 0;
+  auto done = [&](uint32_t i) {
+    __syncwarp();
+    const uint32_t bar = empty0 + slot_of(i) * 8;
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.eq.b32 p, %1, 0;\n"
+        "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+        "r"(lane)
+        : "memory");
+    if (refiller) {
+      mbar_wait(bar, (i / SLOTS) & 1);
+      refill(i + SLOTS, lane == 0);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(full0 + s * 8, 1);
+      mbar_init(empty0 + s * 8, THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
+  for (uint32_t i = 0; i < SLOTS; ++i) refill(i, tid == 0);
+  for (int c = tid; c < a.nchunk * NCH; c += THREADS)
+    embb[c] = a.embb[(size_t)m * a.nchunk * NCH + c];
+  for (int c = tid; c < a.C2; c += THREADS)
+    decw[c] = __bfloat162float(a.decw[(size_t)m * a.C2 + c]);
+  for (int c = tid; c < MAX_C; c += THREADS) encb[c] = a.encb[m * MAX_C + c];
+  auto fetch_x = [&](int b) {  // sample b into xs, asynchronously
+    const uint32_t* src =
+        reinterpret_cast<const uint32_t*>(a.x + (size_t)b * LV);
+    const uint32_t dst = smem_u32(xs);
+    for (int i = tid; i < LV / 2; i += THREADS)
+      cp_async4(dst + i * 4, src + i);
+  };
+  fetch_x(blockIdx.x);
+  __syncthreads();
 
-  // H2 in column chunks, reduced to column maxima from the accumulators;
-  // then every row that reaches its column's max marks the bitmask
-  for (int c0 = 0; c0 < a.C2; c0 += NB) {
-    float acc[MT][NT][4];
-    gemm<MT, NT, WN>(acc, h1, ldh, ldc, embw, a.C2, 1, a.C, c0, a.C2, ws);
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = wn * 64 + ni * 8 + tig * 2 + j, c = c0 + col;
-        float best = -1.f;  // below every relu output
-#pragma unroll
-        for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int r = wm * 32 + mi * 16 + g + hf * 8;
-            float v = -1.f;
-            if (r < n_t && c < a.C2)
-              v = rnd<bf16>(fmaxf(acc[mi][ni][hf * 2 + j] + embb[c], 0.f));
-            acc[mi][ni][hf * 2 + j] = v;
-            best = fmaxf(best, v);
-          }
-        best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 4));
-        best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 8));
-        best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 16));
-        if (g == 0) pmax[wm * NB + col] = best;
+  uint32_t n = 0;  // tiles consumed so far
+  // One accumulator array for both products (embed: the first 48 of each
+  // row block; dP: all 52): wgmma pins its accumulators to fixed registers,
+  // and two arrays would hold twice as many for the whole kernel.
+  float acc[MB][NDP / 2];
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    // -- the sample (fetched ahead); clear the pool's statistics --
+    {
+      for (int i = tid; i < ROWS * RMW; i += THREADS) rowmask[i] = 0u;
+      for (int c = tid; c < MAX_C2; c += THREADS) {
+        cntc[c] = 0;
+        first[c] = INT_MAX;
       }
-    __syncthreads();
-    if (tid < NB && c0 + tid < a.C2) {
-      float best = -1.f;
-      for (int w = 0; w < THREADS / 32 / WN; ++w)
-        best = fmaxf(best, pmax[w * NB + tid]);
-      mx[c0 + tid] = best;
+      if (tid == 0) *relaxed = 0;
+      cp_async_wait_all();
     }
     __syncthreads();
+    // each position's nonzero letters; one-hot positions get (letter, value)
+    for (int l = warp; l < a.L; l += THREADS / 32) {
+      const float xv =
+          lane < a.V ? __bfloat162float(xs[l * a.V + lane]) : 0.f;
+      const unsigned bal = __ballot_sync(0xffffffffu, xv != 0.f);
+      const int v = __ffs(bal) - 1;
+      const float val = __shfl_sync(0xffffffffu, xv, v < 0 ? 0 : v);
+      if (lane == 0) {
+        nzm[l] = bal;
+        tokv[l] = make_int2(v, __float_as_int(val));
+        if (__popc(bal) != 1) *relaxed = 1;
+      }
+    }
+    __syncthreads();
+
+    PHASE_TICK(0)  // sample fetched, statistics cleared, letters listed
+    // -- H1 = rnd(relu(conv + b)), tile by tile of 64 channels: for every
+    // nonzero letter of the patch one row of enc_w from the tile in the
+    // ring. Four rows at a time per warp; a one-hot sample takes the
+    // straight path, whose loads do not wait on each other --
+    const bool onehot = *relaxed == 0;
+    for (int kb = 0; kb < nkb; ++kb) {
+      wait_full(n);
+      const unsigned char* tile = ring + slot_of(n) * SLOT_BYTES;
+      const int rsub = lane >> 3, ch8 = lane & 7;  // row of 4, chunk of 8
+      const int c = kb * KB + ch8 * 8;             // this lane's 8 channels
+      float bias[8];
 #pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
+      for (int q = 0; q < 8; ++q) bias[q] = encb[c + q];
+      for (int t = warp * 4 + rsub; t < ROWS; t += 4 * (THREADS / 32)) {
+        float sacc[8];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int c = c0 + wn * 64 + ni * 8 + tig * 2 + j;
-        if (c >= a.C2) continue;
-        const float best = mx[c];
+        for (int q = 0; q < 8; ++q) sacc[q] = 0.f;
+        auto add = [&](int j, float xv) {
+          const uint4 w = *reinterpret_cast<const uint4*>(tile + sw(j, ch8));
+          const unsigned ww[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-        for (int mi = 0; mi < MT; ++mi)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int r = wm * 32 + mi * 16 + g + hf * 8;
-            if (acc[mi][ni][hf * 2 + j] == best) {  // invalid rows hold -1
-              atomicOr(&mask[c * MW + (r >> 5)], 1u << (r & 31));
-              atomicMin(&first[c], r);
+          for (int q = 0; q < 4; ++q) {
+            sacc[2 * q] = fmaf(xv, bf_lo(ww[q]), sacc[2 * q]);
+            sacc[2 * q + 1] = fmaf(xv, bf_hi(ww[q]), sacc[2 * q + 1]);
+          }
+        };
+        if (t < n_t) {
+          if (onehot) {
+#pragma unroll 5
+            for (int k = 0; k < a.K; ++k) {
+              const int2 tv = tokv[t + k];
+              add(k * a.V + tv.x, __int_as_float(tv.y));
+            }
+          } else {
+            for (int k = 0; k < a.K; ++k) {
+              unsigned mk = nzm[t + k];
+              while (mk) {
+                const int v = __ffs(mk) - 1;
+                mk &= mk - 1;
+                add(k * a.V + v, __bfloat162float(xs[(t + k) * a.V + v]));
+              }
             }
           }
-      }
-    __syncthreads();
-  }
-
-  finish_pool<THREADS, bf16>(a, b, m, mx, first, mask, scale, red);
-  __syncthreads();
-
-  // G1 over H1, in place
-  gather_g1<THREADS>(h1, h1, ldh, MAXT, 0, n_t, a.C, a.C2, mask, scale,
-                     embwT);
-  __syncthreads();
-
-  // dP = G1 @ enc_w^T (enc_w^T(k = c, n = j) = enc_w[j*C + c]) and col2im,
-  // DPR rows at a time; 4 x 4 warps of 16 x 32
-  const int ldp = round_up(KV, 4);
-  for (int r0 = 0; r0 < n_t; r0 += DPR) {
-    float acc[1][4][4];
-    gemm<1, 4, 4>(acc, h1 + r0 * ldh, ldh, ldc, encw, 1, a.C, a.C, 0, KV,
-                  ws);
+        }
+        unsigned o[4];
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = (warp / 4) * 16 + g + (e >> 1) * 8;
-        const int j = (warp % 4) * 32 + ni * 8 + tig * 2 + (e & 1);
-        if (j < KV) dp[r * ldp + j] = acc[0][ni][e];
+        for (int q = 0; q < 4; ++q) {
+          const bool ok0 = t < n_t && c + 2 * q < a.C;
+          const bool ok1 = t < n_t && c + 2 * q + 1 < a.C;
+          const __nv_bfloat162 r2 = __floats2bfloat162_rn(
+              ok0 ? fmaxf(sacc[2 * q] + bias[2 * q], 0.f) : 0.f,
+              ok1 ? fmaxf(sacc[2 * q + 1] + bias[2 * q + 1], 0.f) : 0.f);
+          o[q] = (unsigned)__bfloat16_as_ushort(r2.x) |
+                 ((unsigned)__bfloat16_as_ushort(r2.y) << 16);
+        }
+        *reinterpret_cast<uint4*>(h1 + kb * H1_TILE + sw(t, ch8)) =
+            make_uint4(o[0], o[1], o[2], o[3]);
       }
+      done(n);
+      ++n;
+    }
+    for (int kb = nkb; kb < 4; ++kb)  // tiles beyond C: zero (G1 reads them)
+      for (int i = tid; i < H1_TILE / 16; i += THREADS)
+        reinterpret_cast<uint4*>(h1 + kb * H1_TILE)[i] =
+            make_uint4(0u, 0u, 0u, 0u);
+    fence_async_proxy();
     __syncthreads();
-    col2im_rows<THREADS>(dxs, dp, ldp, r0, min(r0 + DPR, n_t), a.V, KV);
+
+    PHASE_TICK(1)  // conv
+    // -- H2 = rnd(relu(H1 @ emb_w + b)) in chunks of 96 columns; column
+    // maxima and routed rows straight from the accumulators --
+    for (int ch = 0; ch < a.nchunk; ++ch) {
+      for (int kb = 0; kb < nkb; ++kb) {
+        wait_full(n);
+        wgmma_fence();
+        const uint64_t db = wgmma_desc(ring_u + slot_of(n) * SLOT_BYTES);
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          const uint64_t da = wgmma_desc(h1_u + kb * H1_TILE +
+                                         (wg * MB + mb) * 64 * 128);
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            if (kb * 4 + ks < ksteps) {
+              if (kb == 0 && ks == 0) wgmma96_k16_first(acc[mb], da, db);
+              else wgmma96_k16(acc[mb], da + 2 * ks, db + 2 * ks);
+            }
+        }
+        wgmma_commit();
+        if (kb > 0) {
+          wgmma_wait<1>();
+          done(n - 1);
+        }
+        ++n;
+      }
+      wgmma_wait<0>();
+      done(n - 1);
+      PHASE_TICK(2)  // embed product (all chunks)
+
+      // the largest sum of each column: adding the bias, the relu and the
+      // rounding are monotone, so they are applied to the maximum alone
+      bool ok[MB][2];
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          ok[mb][hf] = r0 + mb * 64 + hf * 8 < n_t;
+#pragma unroll
+      for (int ni = 0; ni < NCH / 8; ++ni)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float best = -INFINITY;
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf)
+              best = fmaxf(best, ok[mb][hf] ? acc[mb][ni * 4 + hf * 2 + j]
+                                            : -INFINITY);
+          best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 4));
+          best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 8));
+          best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 16));
+          if (g == 0) pmax[warp * NCH + ni * 8 + tig * 2 + j] = best;
+        }
+      __syncthreads();
+      // A sum x > 0 rounds (to nearest, ties to even) to the bf16 value with
+      // bits b exactly when its own bits lie in [b - 0x8000 + odd,
+      // b + 0x8000 - odd], odd the lowest kept bit of b. One thread per
+      // column takes the maximum over the warps and notes which warps hold
+      // a sum that rounds to it (columns past C2 have zero weights: max 0).
+      if (tid < NCH) {
+        const float bias = embb[ch * NCH + tid];
+        float raw = -INFINITY;
+        for (int w = 0; w < THREADS / 32; ++w)
+          raw = fmaxf(raw, pmax[w * NCH + tid]);
+        const float best = rb(fmaxf(raw + bias, 0.f));
+        mx[ch * NCH + tid] = best;
+        const unsigned bb = __float_as_uint(best), odd = (bb >> 16) & 1u;
+        const unsigned lo = bb - 0x8000u + odd, span = 0x10000u - 2u * odd;
+        for (int w = 0; w < THREADS / 32; ++w) {
+          const bool hit =
+              best > 0.f &&  // a dead channel routes nothing
+              __float_as_uint(pmax[w * NCH + tid] + bias) - lo <= span;
+          const unsigned bal = __ballot_sync(0xffffffffu, hit);
+          if (lane == 0) hitm[w * (NCH / 32) + warp] = bal;
+        }
+      }
+      __syncthreads();
+      // the rows that reach the maximum after rounding, in the warps noted
+#pragma unroll
+      for (int wd = 0; wd < NCH / 32; ++wd) {
+        const unsigned hits = hitm[warp * (NCH / 32) + wd];
+        if (hits == 0u) continue;  // warp-uniform
+#pragma unroll
+        for (int n4 = 0; n4 < 4; ++n4)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int ni = wd * 4 + n4, col = ni * 8 + tig * 2 + j;
+            if (!((hits >> (col & 31)) & 1u)) continue;
+            const int c2 = ch * NCH + col;
+            const float best = mx[c2], bias = embb[c2];
+            const unsigned bb = __float_as_uint(best), odd = (bb >> 16) & 1u;
+            const unsigned lo = bb - 0x8000u + odd, span = 0x10000u - 2u * odd;
+#pragma unroll
+            for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+              for (int hf = 0; hf < 2; ++hf) {
+                const unsigned u =
+                    __float_as_uint(acc[mb][ni * 4 + hf * 2 + j] + bias);
+                if (ok[mb][hf] && u - lo <= span) {
+                  const int r = r0 + mb * 64 + hf * 8;
+                  if (a.pool_first) {
+                    atomicMin(&first[c2], r);
+                  } else {
+                    atomicAdd(&cntc[c2], 1);
+                    atomicOr(&rowmask[r * RMW + (c2 >> 5)], 1u << (c2 & 31));
+                  }
+                }
+              }
+          }
+      }
+      PHASE_TICK(3)  // pool: maxima and routed rows (all chunks)
+    }
     __syncthreads();
+
+    // -- pred_m and the routed gradient per channel --
+    {
+      float s = 0.f;
+      for (int c = tid; c < a.C2; c += THREADS) {
+        const float d = decw[c];
+        const float best = mx[c];
+        s += best * d;
+        const int cn = a.pool_first ? 1 : cntc[c];
+        scale[c] = best > 0.f ? rb(d / (float)cn) : 0.f;
+        if (a.pool_first && best > 0.f)
+          atomicOr(&rowmask[first[c] * RMW + (c >> 5)], 1u << (c & 31));
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) red[warp] = s;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < THREADS / 32; ++w) s += red[w];
+      a.pred[(size_t)m * a.B + b] = s + a.decb[m];
+    }
+
+    PHASE_TICK(4)  // pred and routed gradients
+    // -- G1 = rnd([H1 > 0] * sum_{c routed to t} scale[c] * emb_w^T[c]),
+    // written over H1; a warp takes RPW consecutive rows. Each lane lists
+    // the channels of one row. With at most four a row (no wide ties), a
+    // quarter of the warp takes a row, four rows at a time, every row of
+    // emb_w^T loaded before the first is used; channels ascending --
+    {
+      const int tbase = warp * RPW;
+      int mine = 0;           // channels routed to row tbase + lane
+      unsigned c01 = 0u, c23 = 0u;  // the first four, 16 bits each
+      if (lane < RPW && tbase + lane < n_t)
+        for (int w = 0; w < (a.C2 + 31) / 32; ++w) {
+          unsigned bits = rowmask[(tbase + lane) * RMW + w];
+          while (bits) {
+            const unsigned c = w * 32 + __ffs(bits) - 1;
+            bits &= bits - 1;
+            if (mine < 2) c01 |= c << (16 * mine);
+            else if (mine < 4) c23 |= c << (16 * (mine - 2));
+            ++mine;
+          }
+        }
+      if (!__any_sync(0xffffffffu, mine > 4)) {
+        const int q = lane >> 3, l8 = lane & 7;  // row of four, chunk of 8
+        for (int i = 0; i < RPW; i += 4) {
+          const int cnt = __shfl_sync(0xffffffffu, mine, i + q);
+          const unsigned p01 = __shfl_sync(0xffffffffu, c01, i + q);
+          const unsigned p23 = __shfl_sync(0xffffffffu, c23, i + q);
+          const int tt = tbase + i + q;
+          float acc[32];
+#pragma unroll
+          for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+#pragma unroll
+          for (int jp = 0; jp < 2; ++jp) {  // pairs 0, 1 then 2, 3
+            if (!__any_sync(0xffffffffu, cnt > 2 * jp)) break;
+            const unsigned pp = jp ? p23 : p01;
+            uint4 rows[2][4];
+            float sc[2];
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              // past this row's last channel: channel 0 times zero
+              const bool on = 2 * jp + j < cnt;
+              const unsigned c = on ? (pp >> (16 * j)) & 0xffffu : 0u;
+              sc[j] = on ? scale[c] : 0.f;
+#pragma unroll
+              for (int kb = 0; kb < 4; ++kb)
+                rows[j][kb] = __ldg(reinterpret_cast<const uint4*>(
+                    embwT + (size_t)c * MAX_C + kb * KB + l8 * 8));
+            }
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int kb = 0; kb < 4; ++kb) {
+                const unsigned rw[4] = {rows[j][kb].x, rows[j][kb].y,
+                                        rows[j][kb].z, rows[j][kb].w};
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                  acc[kb * 8 + 2 * e] =
+                      fmaf(sc[j], bf_lo(rw[e]), acc[kb * 8 + 2 * e]);
+                  acc[kb * 8 + 2 * e + 1] =
+                      fmaf(sc[j], bf_hi(rw[e]), acc[kb * 8 + 2 * e + 1]);
+                }
+              }
+          }
+#pragma unroll
+          for (int kb = 0; kb < 4; ++kb) {
+            unsigned char* p = h1 + kb * H1_TILE + sw(tt, l8);
+            const uint4 hv = *reinterpret_cast<const uint4*>(p);
+            const unsigned hw[4] = {hv.x, hv.y, hv.z, hv.w};
+            unsigned o[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const __nv_bfloat162 r2 = __floats2bfloat162_rn(
+                  bf_lo(hw[e]) > 0.f ? acc[kb * 8 + 2 * e] : 0.f,
+                  bf_hi(hw[e]) > 0.f ? acc[kb * 8 + 2 * e + 1] : 0.f);
+              o[e] = (unsigned)__bfloat16_as_ushort(r2.x) |
+                     ((unsigned)__bfloat16_as_ushort(r2.y) << 16);
+            }
+            *reinterpret_cast<uint4*>(p) = make_uint4(o[0], o[1], o[2], o[3]);
+          }
+        }
+      } else {
+      // wide ties: the warp lists its rows' (row, channel) pairs, rows and
+      // channels ascending, then loads GB rows of emb_w^T at a time
+      unsigned* list = lists + warp * LISTCAP;
+      float acc[8];
+      int cur_t = -1;
+      auto flush = [&](int t) {  // this lane's columns lane*8 .. lane*8+7
+        unsigned char* p = h1 + (lane >> 3) * H1_TILE + sw(t, lane & 7);
+        const uint4 hv = *reinterpret_cast<const uint4*>(p);
+        const unsigned hw[4] = {hv.x, hv.y, hv.z, hv.w};
+        unsigned o[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float lo = bf_lo(hw[q]) > 0.f ? acc[2 * q] : 0.f;
+          const float hi = bf_hi(hw[q]) > 0.f ? acc[2 * q + 1] : 0.f;
+          const __nv_bfloat162 r2 = __floats2bfloat162_rn(lo, hi);
+          o[q] = (unsigned)__bfloat16_as_ushort(r2.x) |
+                 ((unsigned)__bfloat16_as_ushort(r2.y) << 16);
+        }
+        *reinterpret_cast<uint4*>(p) = make_uint4(o[0], o[1], o[2], o[3]);
+      };
+      int t = tbase - 1;  // the row being enumerated
+      unsigned word = 0u, nzw = 0u, bits = 0u;
+      int w = 0;
+      bool more = true;
+      while (more) {
+        int cnt = 0;
+        while (cnt < LISTCAP) {  // warp-uniform enumeration
+          if (bits) {
+            const int c = w * 32 + __ffs(bits) - 1;
+            bits &= bits - 1;
+            if (lane == 0) list[cnt] = ((unsigned)t << 16) | (unsigned)c;
+            ++cnt;
+          } else if (nzw) {
+            w = __ffs(nzw) - 1;
+            nzw &= nzw - 1;
+            bits = __shfl_sync(0xffffffffu, word, w);
+          } else {
+            ++t;
+            if (t >= tbase + RPW) {
+              more = false;
+              break;
+            }
+            word = t < n_t && lane < RMW ? rowmask[t * RMW + lane] : 0u;
+            nzw = __ballot_sync(0xffffffffu, word != 0u);
+            if (nzw == 0u)  // nothing routed here: G1's row is zero
+              *reinterpret_cast<uint4*>(h1 + (lane >> 3) * H1_TILE +
+                                        sw(t, lane & 7)) =
+                  make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+        __syncwarp();
+        for (int i0 = 0; i0 < cnt; i0 += GB) {
+          uint4 rows[GB];
+#pragma unroll
+          for (int i = 0; i < GB; ++i)  // past the end: the last pair again
+            rows[i] = __ldg(reinterpret_cast<const uint4*>(
+                embwT +
+                (size_t)(list[min(i0 + i, cnt - 1)] & 0xffffu) * MAX_C +
+                lane * 8));
+#pragma unroll
+          for (int i = 0; i < GB; ++i)
+            if (i0 + i < cnt) {
+              const unsigned e = list[i0 + i];
+              const int tt = (int)(e >> 16);
+              if (tt != cur_t) {
+                if (cur_t >= 0) flush(cur_t);
+                cur_t = tt;
+#pragma unroll
+                for (int q = 0; q < 8; ++q) acc[q] = 0.f;
+              }
+              const float sc = scale[e & 0xffffu];
+              const unsigned rw[4] = {rows[i].x, rows[i].y, rows[i].z,
+                                      rows[i].w};
+#pragma unroll
+              for (int q = 0; q < 4; ++q) {
+                acc[2 * q] = fmaf(sc, bf_lo(rw[q]), acc[2 * q]);
+                acc[2 * q + 1] = fmaf(sc, bf_hi(rw[q]), acc[2 * q + 1]);
+              }
+            }
+        }
+        __syncwarp();
+      }
+      if (cur_t >= 0) flush(cur_t);
+      }
+    }
+    fence_async_proxy();
+    __syncthreads();
+
+    PHASE_TICK(5)  // gather of G1
+    // -- dP = G1 @ enc_w^T on the tensor cores, staged as float32 over G1;
+    // then col2im: dx[pos, v] = sum_k dP[pos - k, k*V + v], k ascending,
+    // one thread per entry (no two threads meet, every sum has one order) --
+    {
+      if (b + (int)gridDim.x < a.B) fetch_x(b + gridDim.x);  // xs is free
+      for (int kb = 0; kb < nkb; ++kb) wait_full(n + kb);
+      wgmma_fence();
+      for (int kb = 0; kb < nkb; ++kb) {
+        const uint64_t db = wgmma_desc(ring_u + slot_of(n + kb) * SLOT_BYTES);
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          const uint64_t da = wgmma_desc(h1_u + kb * H1_TILE +
+                                         (wg * MB + mb) * 64 * 128);
+#pragma unroll
+          for (int ks = 0; ks < 4; ++ks)
+            if (kb * 4 + ks < ksteps) {
+              if (kb == 0 && ks == 0) wgmma_k16_first(acc[mb], da, db);
+              else wgmma_k16(acc[mb], da + 2 * ks, db + 2 * ks);
+            }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncthreads();  // every warpgroup has read G1: dP may overwrite it
+      for (int kb = 0; kb < nkb; ++kb) done(n + kb);
+      n += nkb;
+      float* dps = reinterpret_cast<float*>(h1);
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+          for (int ni = 0; ni < NDP / 8; ++ni)
+            *reinterpret_cast<float2*>(dps + (r0 + mb * 64 + hf * 8) * DPS +
+                                       ni * 8 + tig * 2) =
+                make_float2(acc[mb][ni * 4 + hf * 2],
+                            acc[mb][ni * 4 + hf * 2 + 1]);
+      __syncthreads();
+      PHASE_TICK(6)  // dP product and staging
+      float* out = a.dxm + ((size_t)m * a.B + b) * LV;
+      for (int f = tid; f < LV; f += THREADS) {
+        const int pos = f / a.V, v = f - pos * a.V;
+        float sum = 0.f;
+        for (int k = 0; k < a.K; ++k) {
+          const int t = pos - k;
+          if (t >= 0 && t < n_t) sum += dps[t * DPS + k * a.V + v];
+        }
+        out[f] = sum;
+      }
+    }
+    __syncthreads();  // dP is read before the next sample's conv writes H1
+    PHASE_TICK(7)  // col2im and store
   }
-  float* out = a.dxm + ((size_t)m * a.B + b) * LV;
-  for (int i = tid; i < LV; i += THREADS) out[i] = dxs[i];
 }
 
 }  // namespace tc
@@ -689,24 +1219,23 @@ __global__ void cnn_member_reduce(const float* __restrict__ pred,
 }
 
 size_t smem_bytes(int L, int V, int K, int C, int C2, int dtype) {
-  if (dtype == 1) return (size_t)tc::Layout(L, V, K, C, C2).total;
+  if (dtype == 1) return (size_t)tc::lay::total;
   return (size_t)simt::Layout(L, V, K, C, C2).total * sizeof(float);
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int threads, size_t smem, Args a, float* fit,
-           float* dx, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(a.B, a.M), threads, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long n = (long)a.B * a.L * a.V;
-  const long work = n > a.B ? n : a.B;
+int member_reduce(const float* pred, const float* dxm, float* fit, float* dx,
+                  int M, int B, long n, cudaStream_t stream) {
+  const long work = n > B ? n : B;
   cnn_member_reduce<<<(unsigned)((work + 255) / 256), 256, 0, stream>>>(
-      a.pred, a.dxm, fit, dx, a.M, a.B, n);
+      pred, dxm, fit, dx, M, B, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// what the bf16 kernel takes
+bool tc_ok(int L, int V, int K, int C, int C2) {
+  return L >= K && L - K + 1 <= tc::ROWS && K * V <= tc::NDP && V % 2 == 0 &&
+         V <= 32 && C <= tc::MAX_C && C2 <= tc::MAX_C2 &&
+         L * V <= tc::MAX_LV && L <= tc::MAX_L;
 }
 
 }  // namespace
@@ -719,22 +1248,44 @@ long cnn_smem_bytes(int L, int V, int K, int C, int C2, int dtype) {
   return (long)smem_bytes(L, V, K, C, C2, dtype);
 }
 
-// Limits: K*V (the dP tile's width), C (conv channels), T = L-K+1.
+// Limits of the float32 kernel: K*V (the dP tile's width), C (conv
+// channels), T = L-K+1.
 int cnn_max_kv() { return NB; }
 int cnn_max_c() { return 32 * CPL; }
 int cnn_max_t() { return MAXT; }
 
-// dtype: 0 = float32, 1 = bfloat16 (x, enc_w, emb_w, emb_w^T, dec_w);
-// biases float32. Returns a cudaError_t.
+// 1 if the bf16 kernel takes these sizes: T = L-K+1 <= 256, K*V <= 104, V
+// even and <= 32, C <= 256, C2 <= 512, L*V <= 5248, L <= 320.
+int cnn_bf16_ok(int L, int V, int K, int C, int C2) {
+  return tc_ok(L, V, K, C, C2) ? 1 : 0;
+}
+#ifdef CNN_PHASE_CLOCKS
+// Copies the 8 phase clocks of block (0, 0) to out (reset != 0: zeroes
+// them instead). Returns a cudaError_t.
+int cnn_phase_clocks(long long* out, int reset) {
+  long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (reset)
+    return static_cast<int>(
+        cudaMemcpyToSymbol(tc::g_phase_clocks, zero, sizeof(zero)));
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(out, tc::g_phase_clocks, sizeof(zero)));
+}
+#endif
+
+// Columns of one embed chunk: emb_blob holds ceil(C2 / this) chunks.
+int cnn_bf16_chunk() { return tc::NCH; }
+
+// float32 (x, enc_w, emb_w, emb_w^T, dec_w and the biases). Returns a
+// cudaError_t.
 int cnn_ensemble_fit_and_grad(const void* x, const void* encw,
                               const void* encb, const void* embw,
                               const void* embwT, const void* embb,
                               const void* decw, const void* decb, void* pred,
                               void* dxm, void* fit, void* dx, int B, int L,
                               int V, int K, int C, int C2, int M,
-                              int pool_first, int dtype, void* stream) {
+                              int pool_first, void* stream) {
   if (B <= 0 || M <= 0 || L < K || K * V > NB || C > 32 * CPL ||
-      L - K + 1 > MAXT || V % 2 || (dtype != 0 && dtype != 1))
+      L - K + 1 > MAXT || V % 2)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{x,
          encw,
@@ -748,12 +1299,64 @@ int cnn_ensemble_fit_and_grad(const void* x, const void* encw,
          static_cast<float*>(dxm),
          B, L, V, K, C, C2, M, pool_first};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* f = static_cast<float*>(fit);
-  float* d = static_cast<float*>(dx);
-  const size_t smem = smem_bytes(L, V, K, C, C2, dtype);
-  if (dtype == 1)
-    return launch(tc::fit_grad_kernel, tc::THREADS, smem, a, f, d, s);
-  return launch(simt::fit_grad_kernel, simt::THREADS, smem, a, f, d, s);
+  const size_t smem = smem_bytes(L, V, K, C, C2, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      simt::fit_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  simt::fit_grad_kernel<<<dim3(B, M), simt::THREADS, smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return member_reduce(a.pred, a.dxm, static_cast<float*>(fit),
+                       static_cast<float*>(dx), M, B, (long)B * L * V, s);
+}
+
+// bfloat16, from the tensors prepare_ensemble makes (x bf16 [B, L*V];
+// enc_blob, emb_blob: swizzled weight tiles; embwT [M, C2, 256]; encb
+// [M, 256], embb [M, nchunk * 96] float32, zero-padded; decw bf16 [M, C2];
+// decb [M]). Returns a cudaError_t.
+int cnn_ensemble_fit_and_grad_bf16(const void* x, const void* enc_blob,
+                                   const void* emb_blob, const void* embwT,
+                                   const void* encb, const void* embb,
+                                   const void* decw, const void* decb,
+                                   void* pred, void* dxm, void* fit, void* dx,
+                                   int B, int L, int V, int K, int C, int C2,
+                                   int M, int pool_first, void* stream) {
+  using bf16 = __nv_bfloat16;
+  if (B <= 0 || M <= 0 || !tc_ok(L, V, K, C, C2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nchunk = (C2 + tc::NCH - 1) / tc::NCH;
+  tc::TcArgs a{static_cast<const bf16*>(x),
+               static_cast<const bf16*>(enc_blob),
+               static_cast<const bf16*>(emb_blob),
+               static_cast<const bf16*>(embwT),
+               static_cast<const float*>(encb),
+               static_cast<const float*>(embb),
+               static_cast<const bf16*>(decw),
+               static_cast<const float*>(decb),
+               static_cast<float*>(pred),
+               static_cast<float*>(dxm),
+               B, L, V, K, C, C2, M, pool_first, nchunk};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // one block per SM, each on one member, walking samples in strides
+  int per = sms / M;
+  if (per < 1) per = 1;
+  if (per > B) per = B;
+  const size_t smem = smem_bytes(L, V, K, C, C2, 1);
+  err = cudaFuncSetAttribute(tc::fit_grad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tc::fit_grad_kernel<<<dim3(per, M), tc::THREADS, smem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return member_reduce(a.pred, a.dxm, static_cast<float*>(fit),
+                       static_cast<float*>(dx), M, B, (long)B * L * V, s);
 }
 
 }  // extern "C"

@@ -39,14 +39,41 @@ class Energy:
     wt_onehot: Any = None  # [1, L, V] wild-type one-hot (protein domains)
 
 
-def _fit_and_grad(p, x, compute_dtype, cnn_chunk, pool_bwd):
+def _versions(sup) -> tuple:
+    return tuple(t._version for layer in ("encoder", "embed", "decoder")
+                 for t in sup[layer].values())
+
+
+class _PreparedOnce:
+    """Kernel B's prepared weights of one ensemble, made at the first call
+    on a CUDA tensor and kept (``cnn_fused.prepare_ensemble``), and made
+    anew after an in-place update of a weight (its version counter moved; a
+    write through ``.data`` moves none and is not seen). Another ensemble
+    handed in through ``params`` is prepared on the spot."""
+
+    def __init__(self, sup_ensemble, compute_dtype):
+        self.sup, self.dtype = sup_ensemble, compute_dtype
+        self.prepared, self.versions = None, None
+
+    def get(self, sup, x):
+        if sup is not self.sup or x.device.type == "cpu":
+            return sup
+        versions = _versions(sup)
+        if versions != self.versions:
+            self.prepared = cnn_fused.prepare_ensemble(sup, self.dtype)
+            self.versions = versions
+        return self.prepared
+
+
+def _fit_and_grad(sup, x, compute_dtype, cnn_chunk, pool_bwd):
     """Supervised (fitness, d sum(fitness)/dx), in chain chunks of
-    ``cnn_chunk`` when it divides the batch (as the JAX package's lax.map)."""
+    ``cnn_chunk`` when it divides the batch (as the JAX package's lax.map).
+    ``sup``: a stacked ensemble or its ``cnn_fused.Prepared``."""
     n = x.shape[0]
     if not cnn_chunk or n <= cnn_chunk or n % cnn_chunk:
-        return cnn_fused.ensemble_apply_and_grad(p["sup"], x, compute_dtype,
+        return cnn_fused.ensemble_apply_and_grad(sup, x, compute_dtype,
                                                  pool_bwd)
-    outs = [cnn_fused.ensemble_apply_and_grad(p["sup"], x[i:i + cnn_chunk],
+    outs = [cnn_fused.ensemble_apply_and_grad(sup, x[i:i + cnn_chunk],
                                               compute_dtype, pool_bwd)
             for i in range(0, n, cnn_chunk)]
     return (torch.cat([f for f, _ in outs]), torch.cat([g for _, g in outs]))
@@ -68,6 +95,7 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
     supervised CNN.
     """
     params = {"sup": sup_ensemble}
+    prepared = _PreparedOnce(sup_ensemble, compute_dtype)
     if potts_params is not None:
         params["potts"] = potts_params
     t_apply = None
@@ -107,8 +135,8 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
                 torch.cat([g for _, g in outs]))
 
     def energy_and_grad(p, x):
-        fit, fit_grad = _fit_and_grad(p, x, compute_dtype, cnn_chunk,
-                                      pool_bwd)
+        fit, fit_grad = _fit_and_grad(prepared.get(p["sup"], x), x,
+                                      compute_dtype, cnn_chunk, pool_bwd)
         e = lam * fit
         grad = lam * fit_grad
         if "potts" in p:
@@ -131,6 +159,7 @@ def protein_supervised(sup_ensemble, wt_onehot, compute_dtype=None,
                        pool_bwd: str = "split") -> Energy:
     """Supervised-only ablation: E(x) = fitness(x) (energy.py:143-164)."""
     params = {"sup": sup_ensemble}
+    prepared = _PreparedOnce(sup_ensemble, compute_dtype)
 
     def fit_fn(p, x):
         return cnn.ensemble_apply(p["sup"], x, compute_dtype=compute_dtype,
@@ -141,7 +170,8 @@ def protein_supervised(sup_ensemble, wt_onehot, compute_dtype=None,
         return fit, fit
 
     def energy_and_grad(p, x):
-        fit, g = _fit_and_grad(p, x, compute_dtype, cnn_chunk, pool_bwd)
+        fit, g = _fit_and_grad(prepared.get(p["sup"], x), x, compute_dtype,
+                               cnn_chunk, pool_bwd)
         return fit, fit, g
 
     return Energy(params=params, energy=energy,

@@ -58,11 +58,18 @@ def _flatten_couplings(J: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(W)
 
 
-def _pad_flat(params: PottsParams, x: torch.Tensor) -> torch.Tensor:
-    """[B, L, V] -> zero-padded flat [B, P]."""
+def _pad_flat(params: PottsParams, x: torch.Tensor,
+              dtype=None) -> torch.Tensor:
+    """[B, L, V] -> zero-padded flat [B, P], cast to ``dtype`` if given (one
+    copy pads and casts)."""
     xf = x.reshape(x.shape[0], -1)
-    pad = params.padded_dim - xf.shape[-1]
-    return torch.nn.functional.pad(xf, (0, pad)) if pad else xf
+    D, P = xf.shape[-1], params.padded_dim
+    if dtype is None or dtype == xf.dtype:
+        return torch.nn.functional.pad(xf, (0, P - D)) if P > D else xf
+    out = torch.empty((xf.shape[0], P), dtype=dtype, device=xf.device)
+    out[:, :D] = xf
+    out[:, D:] = 0
+    return out
 
 
 def hamiltonian(params: PottsParams, x: torch.Tensor) -> torch.Tensor:
@@ -75,8 +82,8 @@ def hamiltonian(params: PottsParams, x: torch.Tensor) -> torch.Tensor:
 
 def hamiltonian_and_grad(params: PottsParams, x: torch.Tensor):
     """Fused (H [B], dH/dx [B, L, V]); x in window coordinates."""
-    H, grad_flat = potts_fused.energy_and_grad(params.W, params.h,
-                                               _pad_flat(params, x))
+    H, grad_flat = potts_fused.energy_and_grad(
+        params.W, params.h, _pad_flat(params, x, params.W.dtype))
     return H, grad_flat[:, : params.data_dim].reshape(x.shape)
 
 

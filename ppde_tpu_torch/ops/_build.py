@@ -5,7 +5,8 @@ shared library, ``_build_out/lib<name>-<hash>.so`` inside the package (a
 git-ignored directory); the hash of the source names the file, so an edited
 source is rebuilt and an unchanged one is reused. ``build_all`` starts one
 nvcc per source at once and waits for all of them; ``library`` builds on
-first use. Nothing here runs at import time: the CPU tests import the
+first use; ``set_defines`` switches a source to a build with extra ``-D``
+defines (a profiling build). Nothing here runs at import time: the CPU tests import the
 package on hosts with no nvcc.
 """
 from __future__ import annotations
@@ -26,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_defines: dict[str, tuple[str, ...]] = {}  # extra -D defines per source
 # ptxas register / shared-memory report of the last build of each source
 build_logs: dict[str, str] = {}
 
@@ -41,9 +43,22 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> list[str]:
+    return NVCC_FLAGS + [f"-D{d}" for d in _defines.get(name, ())]
+
+
+def set_defines(name: str, defines: tuple[str, ...]) -> None:
+    """From now on ``library(name)`` is ``csrc/<name>.cu`` compiled with
+    these extra ``-D`` defines: a library of its own beside the regular
+    one, built at its first use."""
+    with _lock:
+        _defines[name] = tuple(defines)
+        _libs.pop(name, None)
+
+
 def _target(name: str) -> str:
     with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha256(f.read() + " ".join(_flags(name)).encode())
     return os.path.join(OUT, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -58,7 +73,7 @@ def build_all() -> float:
         if os.path.exists(target):
             continue
         tmp = f"{target}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+        cmd = [_nvcc(), *_flags(name), "-o", tmp,
                os.path.join(CSRC, name + ".cu")]
         procs.append((name, target, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -10,14 +10,22 @@ one-hot x [B, L, V] and a stacked ensemble of M members,
     fit = mean_m dec(max_T relu(emb(relu(conv1d(x)))))        [B]
     dx  = d sum(fit) / dx                                      [B, L, V]
 
-Bound on the H100: the operations of the three products (forward alone
-2*B*T*M*(K*V*C + C*C2), GFP B=1024: about 0.2 TFLOP); the bytes are small.
-The TPU kernel keeps a batch tile's activations on chip; at GFP width they
-outgrow a block's shared memory in float32. One block per (sample, member)
-takes the max-pool's maxima and routed rows first, then gathers the input
-gradient from the routed rows; bf16 runs on the tensor cores with the
-sample's H1 kept in shared memory as bf16, float32 on FMAs over row tiles
-(see the .cu source).
+Bound on the H100: the operations of the embed product (GFP B = 1024:
+2*B*M*T*C*2C = 0.16 TFLOP, about 0.17 ms at the bf16 tensor-core peak); the
+bytes are small. The bf16 kernel follows the member-grid twin's schedule: a
+persistent block per SM stays on one member and walks samples; the member's
+weights, tiled and swizzled once by ``prepare_ensemble``, stream through a
+ring of shared-memory slots (cp.async.bulk + mbarriers); the conv is a
+gather-add of enc_w rows, the embed product and dP run on wgmma with H1 / G1
+as the shared-memory operand, the max-pool's maxima and routed rows are
+taken from the accumulators, and the routed rows of emb_w^T are gathered
+with all loads of four rows in flight (see the .cu source). The float32
+kernel is the first cut's (one block per sample and member, FMAs).
+
+Weights are prepared once: ``prepare_ensemble(stacked, dtype)`` returns a
+``Prepared`` that ``ensemble_apply_and_grad`` takes in place of the stacked
+layout (``energy.protein_poe`` keeps one per energy); handing in the stacked
+layout prepares on every call.
 
 The plain version is ``models.cnn.ensemble_apply_and_grad_plain``.
 ``ensemble_apply_and_grad`` runs it for a CPU tensor and the kernel for a
@@ -26,29 +34,113 @@ CUDA tensor; ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from ppde_tpu_torch.models.cnn import ensemble_apply_and_grad_plain
 from ppde_tpu_torch.ops import _build
 
-__all__ = ["ensemble_apply_and_grad", "ensemble_apply_and_grad_plain"]
+__all__ = ["ensemble_apply_and_grad", "ensemble_apply_and_grad_plain",
+           "prepare_ensemble", "Prepared"]
 
 launches = 0  # kernel launches made by ensemble_apply_and_grad
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the bf16 kernel's tiles (csrc/cnn_ensemble.cu, namespace tc)
+TILE_K = 64      # depth of a weight tile: 128-byte rows
+MAX_C = 256      # conv channels: 4 tiles deep
+CHUNK = 96       # embed columns per chunk
+KV_PAD = 104     # K*V padded
+
+
+@dataclasses.dataclass
+class Prepared:
+    """An ensemble cast, reshaped and tiled once for kernel B.
+
+    ``stacked`` is the plain layout it was made from (the CPU path and the
+    plain version use it); ``tensors`` are what the kernel of ``dtype``
+    reads."""
+
+    stacked: dict
+    dtype: torch.dtype
+    dims: tuple  # (M, K, V, C, C2)
+    tensors: dict
+
+
+def swizzle_tiles(wt: torch.Tensor) -> torch.Tensor:
+    """[..., N, 256] (k contiguous) -> [..., 4, N, 64]: four tiles of
+    128-byte rows whose 16-byte chunks are XORed with the row's low three
+    bits, the layout wgmma reads from shared memory (128-byte swizzle). The
+    kernel copies a tile as it lies."""
+    *lead, N, kd = wt.shape
+    if kd != MAX_C:
+        raise ValueError(f"expected a depth of {MAX_C}, got {kd}")
+    t = wt.reshape(*lead, N, MAX_C // TILE_K, 8, 8).transpose(-4, -3)
+    rows = torch.arange(N, device=wt.device)
+    idx = torch.arange(8, device=wt.device)[None, :] ^ (rows[:, None] & 7)
+    idx = idx[:, :, None].expand(N, 8, 8).expand(t.shape)
+    return torch.gather(t, -2, idx).reshape(
+        *lead, MAX_C // TILE_K, N, TILE_K).contiguous()
+
+
+def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+    return torch.nn.functional.pad(
+        t, (0, cols - t.shape[-1], 0, rows - t.shape[-2]))
+
+
+def prepare_ensemble(stacked, compute_dtype=None) -> Prepared:
+    """Cast, reshape and tile a stacked ensemble (the layout of
+    ``models.cnn.init_ensemble``) once, for many calls of
+    ``ensemble_apply_and_grad``."""
+    cdt = compute_dtype or torch.float32
+    if cdt not in _DTYPES:
+        raise TypeError(f"compute_dtype must be float32 or bfloat16: {cdt}")
+    enc, emb, dec = stacked["encoder"], stacked["embed"], stacked["decoder"]
+    M, K, V, C = enc["w"].shape
+    C2 = emb["w"].shape[-1]
+    f32 = torch.float32
+    encw = enc["w"].reshape(M, K * V, C).to(cdt)
+    embwT = emb["w"].to(cdt).transpose(1, 2)           # [M, C2, C]
+    t = {"decw": dec["w"].to(cdt).reshape(M, C2).contiguous(),
+         "decb": dec["b"].to(f32).reshape(M).contiguous()}
+    if cdt == torch.float32:
+        t.update(encw=encw.contiguous(),
+                 encb=enc["b"].to(f32).reshape(M, C).contiguous(),
+                 embw=emb["w"].to(cdt).contiguous(),
+                 embwT=embwT.contiguous(),
+                 embb=emb["b"].to(f32).reshape(M, C2).contiguous())
+    elif K * V <= KV_PAD and C <= MAX_C:
+        n_chunk = -(-C2 // CHUNK)
+        t.update(
+            # B operand of dP = G1 @ enc_w^T and the conv's rows: [j][c]
+            enc_blob=swizzle_tiles(_pad_to(encw, KV_PAD, MAX_C)),
+            # B operand of H2 = H1 @ emb_w, chunk by chunk: [c2][c]
+            emb_blob=swizzle_tiles(
+                _pad_to(embwT, n_chunk * CHUNK, MAX_C).reshape(
+                    M, n_chunk, CHUNK, MAX_C)),
+            embwT=_pad_to(embwT, C2, MAX_C).contiguous(),
+            encb=_pad_to(enc["b"].to(f32).reshape(M, 1, C), 1,
+                         MAX_C).reshape(M, MAX_C).contiguous(),
+            embb=_pad_to(emb["b"].to(f32).reshape(M, 1, C2), 1,
+                         n_chunk * CHUNK).reshape(M, -1).contiguous())
+    return Prepared(stacked, cdt, (M, K, V, C, C2), t)
 
 
 def _lib():
     lib = _build.library("cnn_ensemble")
     fn = lib.cnn_ensemble_fit_and_grad
     if fn.argtypes is None:  # declare once: ints would cut the pointers
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        for f in (fn, lib.cnn_ensemble_fit_and_grad_bf16):
+            f.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
+                ctypes.c_void_p]
+            f.restype = ctypes.c_int
         lib.cnn_smem_bytes.argtypes = [ctypes.c_int] * 6
         lib.cnn_smem_bytes.restype = ctypes.c_long
-        for name in ("cnn_max_kv", "cnn_max_c", "cnn_max_t"):
+        lib.cnn_bf16_ok.argtypes = [ctypes.c_int] * 5
+        lib.cnn_bf16_ok.restype = ctypes.c_int
+        for name in ("cnn_max_kv", "cnn_max_c", "cnn_max_t",
+                     "cnn_bf16_chunk"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -59,60 +151,72 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
     """(fitness [B], d sum(fitness) / dx [B, L, V]), both float32.
 
     stacked: the ensemble layout of ``models.cnn.init_ensemble``
-    (encoder.w [M,K,V,C], embed.w [M,C,2C], decoder.w [M,2C,1], ...).
+    (encoder.w [M,K,V,C], embed.w [M,C,2C], decoder.w [M,2C,1], ...), or the
+    ``Prepared`` that ``prepare_ensemble`` made of it (then compute_dtype,
+    if given, must be the prepared one).
     compute_dtype: None (float32) or torch.bfloat16.
     """
+    prep = stacked if isinstance(stacked, Prepared) else None
+    if prep is not None:
+        if compute_dtype is not None and compute_dtype != prep.dtype:
+            raise TypeError(f"prepared for {prep.dtype}, asked for "
+                            f"{compute_dtype}")
+        compute_dtype = prep.dtype
     if x.device.type == "cpu":
-        return ensemble_apply_and_grad_plain(stacked, x, compute_dtype,
-                                             pool_bwd)
+        return ensemble_apply_and_grad_plain(
+            prep.stacked if prep is not None else stacked, x, compute_dtype,
+            pool_bwd)
     global launches
     if pool_bwd not in ("split", "first"):
         raise ValueError(f"pool_bwd must be 'split' or 'first': {pool_bwd}")
-    cdt = compute_dtype or torch.float32
-    if cdt not in _DTYPES:
-        raise TypeError(f"compute_dtype must be float32 or bfloat16: {cdt}")
-    enc, emb, dec = stacked["encoder"], stacked["embed"], stacked["decoder"]
-    M, K, V, C = enc["w"].shape
-    C2 = emb["w"].shape[-1]
+    if prep is None:
+        prep = prepare_ensemble(stacked, compute_dtype)
+    cdt = prep.dtype
+    M, K, V, C, C2 = prep.dims
     B, L, Vx = x.shape
     if Vx != V or L < K:
-        raise ValueError(f"x {tuple(x.shape)} does not fit encoder "
-                         f"{tuple(enc['w'].shape)}")
-    if any(t.device != x.device for t in (enc["w"], emb["w"], dec["w"])):
+        raise ValueError(f"x {tuple(x.shape)} does not fit an encoder of "
+                         f"K={K}, V={V}")
+    t = prep.tensors
+    if t["decw"].device != x.device:
         raise ValueError("x and the ensemble must lie on the same device")
     lib = _lib()
-    if (K * V > lib.cnn_max_kv() or C > lib.cnn_max_c()
-            or L - K + 1 > lib.cnn_max_t() or V % 2):
+    if cdt == torch.float32:
+        if (K * V > lib.cnn_max_kv() or C > lib.cnn_max_c()
+                or L - K + 1 > lib.cnn_max_t() or V % 2):
+            raise ValueError(
+                f"kernel B (float32) takes K*V <= {lib.cnn_max_kv()}, C <= "
+                f"{lib.cnn_max_c()}, L-K+1 <= {lib.cnn_max_t()} and an even "
+                f"V; got K*V={K * V}, C={C}, L-K+1={L - K + 1}, V={V}")
+    elif not lib.cnn_bf16_ok(L, V, K, C, C2) or lib.cnn_bf16_chunk() != CHUNK:
         raise ValueError(
-            f"kernel B takes K*V <= {lib.cnn_max_kv()}, C <= "
-            f"{lib.cnn_max_c()}, L-K+1 <= {lib.cnn_max_t()} and an even V; "
-            f"got K*V={K * V}, C={C}, L-K+1={L - K + 1}, V={V}")
+            f"kernel B (bfloat16) takes L-K+1 <= 256, K*V <= {KV_PAD}, an "
+            f"even V <= 32, C <= {MAX_C}, 2C <= 512, L*V <= 5248 and L <= 320; got "
+            f"L={L}, K={K}, V={V}, C={C}, 2C={C2}")
     smem = lib.cnn_smem_bytes(L, V, K, C, C2, _DTYPES[cdt])
     if smem > SMEM_LIMIT:
         raise ValueError(f"kernel B needs {smem} bytes of shared memory "
                          f"(limit {SMEM_LIMIT}) at L={L}, C={C}")
     f32 = torch.float32
     xc = x.to(cdt).contiguous()
-    encw = enc["w"].reshape(M, K * V, C).to(cdt).contiguous()
-    encb = enc["b"].to(f32).reshape(M, C).contiguous()
-    embw = emb["w"].to(cdt).contiguous()
-    embwT = embw.transpose(1, 2).contiguous()  # rows of the backward gather
-    embb = emb["b"].to(f32).reshape(M, C2).contiguous()
-    decw = dec["w"].to(cdt).reshape(M, C2).contiguous()
-    decb = dec["b"].to(f32).reshape(M).contiguous()
     dev = x.device
     pred = torch.empty((M, B), dtype=f32, device=dev)
     dxm = torch.empty((M, B, L * V), dtype=f32, device=dev)
     fit = torch.empty((B,), dtype=f32, device=dev)
     dx = torch.empty((B, L, V), dtype=f32, device=dev)
+    if cdt == torch.float32:
+        fn, w = lib.cnn_ensemble_fit_and_grad, (
+            t["encw"], t["encb"], t["embw"], t["embwT"], t["embb"])
+    else:
+        fn, w = lib.cnn_ensemble_fit_and_grad_bf16, (
+            t["enc_blob"], t["emb_blob"], t["embwT"], t["encb"], t["embb"])
     with torch.cuda.device(dev):
-        err = lib.cnn_ensemble_fit_and_grad(
-            xc.data_ptr(), encw.data_ptr(), encb.data_ptr(), embw.data_ptr(),
-            embwT.data_ptr(), embb.data_ptr(), decw.data_ptr(),
-            decb.data_ptr(),
-            pred.data_ptr(), dxm.data_ptr(), fit.data_ptr(), dx.data_ptr(),
-            B, L, V, K, C, C2, M, int(pool_bwd == "first"), _DTYPES[cdt],
-            torch.cuda.current_stream().cuda_stream)
+        err = fn(xc.data_ptr(), *(a.data_ptr() for a in w),
+                 t["decw"].data_ptr(), t["decb"].data_ptr(),
+                 pred.data_ptr(), dxm.data_ptr(), fit.data_ptr(),
+                 dx.data_ptr(), B, L, V, K, C, C2, M,
+                 int(pool_bwd == "first"),
+                 torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"kernel B (cnn_ensemble) launch failed: "
                            f"cudaError {err}")

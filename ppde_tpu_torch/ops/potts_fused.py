@@ -7,10 +7,15 @@ energy_and_grad``. For flattened one-hots xf [B, P], W [P, P] and h [P]
     grad = xf @ W + h                        [B, P] float32
     H    = sum(xf * (0.5 * (xf @ W) + h))    [B]    float32
 
-Bound on the H100: the bytes of W at small B (GFP bf16: 47 MB, about 14 us
-at 3.35 TB/s), the 2*B*P*P operations at large B. The kernel is a GEMM whose
-epilogue writes the gradient tile and one partial energy per row; a second
-kernel adds the partials in a fixed order (no atomics; see the .cu source).
+Bound on the H100: bytes (GFP bf16: W 47 MB read once and the float32
+gradient written once, about 15 us at B = 128 and 23 us at B = 1024 at
+3.35 TB/s). The kernel is a GEMM on 128 x 128 tiles whose operands reach
+shared memory through a ring of cp.async stages and whose epilogue writes the
+gradient tile and one partial energy per row; at small B it splits K so that
+every SM has a block, and a second kernel adds the splits and the partial
+energies in a fixed order (no atomics; see the .cu source). The bf16 kernel
+runs on ``wgmma`` and reads the W tile MN-major, as it lies in memory, so W
+need not be symmetric; float32 runs on FMAs.
 
 ``energy_and_grad`` runs the plain version for a CPU tensor and the kernel
 for a CUDA tensor; ``launches`` counts kernel launches.
@@ -40,11 +45,11 @@ def _lib():
     lib = _build.library("potts_energy")
     fn = lib.potts_energy_and_grad
     if fn.argtypes is None:  # declare once: ints would cut the pointers
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.potts_tile_n.argtypes = []
-        lib.potts_tile_n.restype = ctypes.c_int
+        lib.potts_splits.argtypes = [ctypes.c_int] * 3
+        lib.potts_splits.restype = ctypes.c_int
     return lib
 
 
@@ -67,13 +72,17 @@ def energy_and_grad(W: torch.Tensor, h: torch.Tensor, xf: torch.Tensor):
     lib = _lib()
     x = xf.to(W.dtype).contiguous()
     grad = torch.empty((B, P), dtype=torch.float32, device=xf.device)
-    partial = torch.empty((B, P // lib.potts_tile_n()), dtype=torch.float32,
-                          device=xf.device)
+    splits = lib.potts_splits(B, P, _DTYPES[W.dtype])
+    partial = torch.empty((B, splits * (P // 128)),
+                          dtype=torch.float32, device=xf.device)
+    gpart = (torch.empty((splits, B, P), dtype=torch.float32,
+                         device=xf.device) if splits > 1 else grad)
     H = torch.empty((B,), dtype=torch.float32, device=xf.device)
     with torch.cuda.device(xf.device):
         err = lib.potts_energy_and_grad(
             x.data_ptr(), W.data_ptr(), h.data_ptr(), grad.data_ptr(),
-            partial.data_ptr(), H.data_ptr(), B, P, _DTYPES[W.dtype],
+            gpart.data_ptr(), partial.data_ptr(), H.data_ptr(), B, P,
+            _DTYPES[W.dtype], splits,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"kernel A (potts_energy) launch failed: "

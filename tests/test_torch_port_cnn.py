@@ -133,3 +133,110 @@ def test_im2col_matches_jax():
     x = _x(3)
     np.testing.assert_array_equal(cnn.im2col(torch.from_numpy(x)).numpy(),
                                   np.asarray(cnn_pallas.im2col(x)))
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+@pytest.mark.parametrize("pool", ["split", "first"])
+def test_prepared_weights_give_the_stacked_result(ens, dtype, pool):
+    """prepare_ensemble's tensors are the kernel's; the result through the
+    plain version is the stacked layout's, bit for bit."""
+    _, t = ens
+    x = torch.from_numpy(_ties(5))
+    prep = cnn_fused.prepare_ensemble(t, dtype)
+    assert prep.dims == (M, 5, V, C, 2 * C)
+    f0, g0 = cnn_fused.ensemble_apply_and_grad(t, x, dtype, pool)
+    f1, g1 = cnn_fused.ensemble_apply_and_grad(prep, x, None, pool)
+    f2, g2 = cnn_fused.ensemble_apply_and_grad(prep, x, dtype, pool)
+    assert torch.equal(f0, f1) and torch.equal(g0, g1)
+    assert torch.equal(f0, f2) and torch.equal(g0, g2)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(TypeError):
+        cnn_fused.ensemble_apply_and_grad(prep, x, other, pool)
+
+
+def _unswizzle(tiles):
+    """Inverse of cnn_fused.swizzle_tiles (the XOR is its own inverse):
+    [..., 4, N, 64] -> [..., N, 256]."""
+    *lead, nt, N, tk = tiles.shape
+    t = tiles.reshape(*lead, nt, N, 8, 8)
+    idx = torch.arange(8)[None, :] ^ (torch.arange(N)[:, None] & 7)
+    idx = idx[:, :, None].expand(N, 8, 8).expand(t.shape)
+    return torch.gather(t, -2, idx).transpose(-4, -3).reshape(
+        *lead, N, nt * tk)
+
+
+def test_prepared_bf16_tiles_hold_the_weights(ens):
+    """The swizzled tiles of prepare_ensemble, undone, are the padded
+    weights: enc_w as [j, c], emb_w^T as [c2, c] in chunks of CHUNK rows."""
+    _, t = ens
+    prep = cnn_fused.prepare_ensemble(t, torch.bfloat16)
+    tt = prep.tensors
+    n_chunk = -(-2 * C // cnn_fused.CHUNK)
+    assert tt["enc_blob"].shape == (M, 4, cnn_fused.KV_PAD, cnn_fused.TILE_K)
+    assert tt["emb_blob"].shape == (M, n_chunk, 4, cnn_fused.CHUNK,
+                                    cnn_fused.TILE_K)
+    enc = _unswizzle(tt["enc_blob"])       # [M, 104, 256]
+    want = t["encoder"]["w"].reshape(M, 5 * V, C).to(torch.bfloat16)
+    assert torch.equal(enc[:, :5 * V, :C], want)
+    assert not enc[:, 5 * V:].any() and not enc[:, :, C:].any()
+    emb = _unswizzle(tt["emb_blob"]).reshape(M, -1, 256)
+    wantT = t["embed"]["w"].to(torch.bfloat16).transpose(1, 2)
+    assert torch.equal(emb[:, :2 * C, :C], wantT)
+    assert torch.equal(tt["embwT"][:, :, :C], wantT)
+    assert not emb[:, 2 * C:].any() and not emb[:, :, C:].any()
+    # element (row n, depth k) of a tile: 16-byte chunk XOR the row's low bits
+    n, k = 11, 13
+    pos = (((k % 64) // 8) ^ (n & 7)) * 8 + k % 8
+    assert tt["enc_blob"][1, k // 64, n, pos] == want[1, n, k]
+    assert tt["encb"].shape == (M, 256) and tt["embb"].shape == (
+        M, n_chunk * cnn_fused.CHUNK)
+
+
+def test_swizzle_tiles_is_its_own_inverse():
+    w = torch.randn((2, 3, 10, 256), generator=torch.Generator().manual_seed(0))
+    tiles = cnn_fused.swizzle_tiles(w)
+    assert tiles.shape == (2, 3, 4, 10, 64)
+    assert torch.equal(_unswizzle(tiles), w)
+    with pytest.raises(ValueError):
+        cnn_fused.swizzle_tiles(torch.zeros((4, 128)))
+
+
+@pytest.mark.parametrize("width,length,batch", [
+    (20, 18, 1),    # C not a multiple of 16, one sample
+    (20, 5, 5),     # L = K: one window per sample
+    (24, 12, 37),   # a ragged batch over several tiles of 8
+])
+@pytest.mark.parametrize("pool", ["split", "first"])
+def test_plain_matches_pallas_interpret_at_ragged_sizes(width, length, batch,
+                                                        pool):
+    """The plain version at the sizes where kernel B's tiling has edges,
+    against the TPU kernel's body in interpret mode, float32 (1e-5)."""
+    j = jcnn.init_ensemble(jax.random.PRNGKey(width), M, input_size=width)
+    t = convert.cnn_ensemble_from_numpy(jax.tree.map(np.asarray, j), "cpu")
+    x = jcodec.ints_to_onehot(np.random.default_rng(batch).integers(
+        0, V, (batch, length)))
+    fk, gk = cnn_pallas.ensemble_apply_and_grad(
+        j, jnp.asarray(x), compute_dtype=jnp.float32, batch_tile=8,
+        interpret=True, pool_bwd=pool)
+    ft, gt = cnn_fused.ensemble_apply_and_grad(
+        cnn_fused.prepare_ensemble(t), torch.from_numpy(x), pool_bwd=pool)
+    assert ft.shape == (batch,) and gt.shape == x.shape
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fk), **F_TOL)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gk), **G_TOL)
+
+
+def test_bf16_plain_close_to_pallas_interpret_at_a_ragged_size():
+    """bfloat16, C not a multiple of 16, against the TPU kernel's body at
+    the JAX package's own bf16 bounds (fitness 3e-2, gradient cosine)."""
+    j = jcnn.init_ensemble(jax.random.PRNGKey(3), M, input_size=20)
+    t = convert.cnn_ensemble_from_numpy(jax.tree.map(np.asarray, j), "cpu")
+    x = jcodec.ints_to_onehot(np.random.default_rng(9).integers(0, V, (5, L)))
+    fk, gk = cnn_pallas.ensemble_apply_and_grad(
+        j, jnp.asarray(x), compute_dtype=jnp.bfloat16, batch_tile=8,
+        interpret=True)
+    ft, gt = cnn_fused.ensemble_apply_and_grad(
+        cnn_fused.prepare_ensemble(t, torch.bfloat16), torch.from_numpy(x))
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fk), rtol=3e-2,
+                               atol=3e-2)
+    a, b = gt.numpy().ravel(), np.asarray(gk, np.float32).ravel()
+    assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.99

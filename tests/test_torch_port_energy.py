@@ -191,3 +191,52 @@ def test_transformer_term_is_zero_at_the_wild_type(tmp_path):
     e, _, _ = ten.energy_and_grad(ten.params, wt_oh)
     assert abs(float(e[0])) < 1e-4   # potts delta and PLL delta both vanish
     assert ten.params["tr"]["wt_score"].shape == (1,)
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16])
+def test_energy_with_prepared_weights_matches_stacked(rng, dtype):
+    """protein_poe keeps kernel B's prepared weights per energy; on a CPU
+    tensor it hands the stacked layout on, and the prepared form gives the
+    same fitness and gradient through the plain version."""
+    from ppde_tpu_torch import energy as tenergy
+    from ppde_tpu_torch.models import cnn as tcnn
+    from ppde_tpu_torch.ops import cnn_fused
+
+    ens = tcnn.init_ensemble(torch.Generator().manual_seed(0), 3,
+                             input_size=16)
+    x = torch.nn.functional.one_hot(
+        torch.from_numpy(rng.integers(0, 20, (6, 18))), 20).float()
+    once = tenergy._PreparedOnce(ens, dtype)
+    assert once.get(ens, x) is ens and once.prepared is None
+    other = tcnn.init_ensemble(torch.Generator().manual_seed(1), 3,
+                               input_size=16)
+    assert once.get(other, x) is other
+    en = tenergy.protein_supervised(ens, x[:1], compute_dtype=dtype)
+    e, fit, g = en.energy_and_grad(en.params, x)
+    f1, g1 = cnn_fused.ensemble_apply_and_grad(
+        cnn_fused.prepare_ensemble(ens, dtype), x)
+    assert torch.equal(fit, f1) and torch.equal(g, g1) and torch.equal(e, fit)
+    # an ensemble handed in through params is used, not the prepared one
+    _, fit_o, _ = en.energy_and_grad({"sup": other}, x)
+    assert not torch.equal(fit_o, fit)
+
+
+def test_prepared_weights_follow_in_place_updates():
+    """The kept prepared weights are made once and made anew after an
+    in-place update of a weight (x on the meta device: no CPU tensor, so the
+    prepared form is asked for; preparing itself is plain PyTorch)."""
+    from ppde_tpu_torch import energy as tenergy
+    from ppde_tpu_torch.models import cnn as tcnn
+
+    ens = tcnn.init_ensemble(torch.Generator().manual_seed(0), 3,
+                             input_size=16)
+    once = tenergy._PreparedOnce(ens, torch.bfloat16)
+    x = torch.empty((2, 18, 20), device="meta")
+    first = once.get(ens, x)
+    assert first is not ens and once.get(ens, x) is first
+    ens["decoder"]["w"].mul_(2.0)
+    second = once.get(ens, x)
+    assert second is not first and once.get(ens, x) is second
+    want = ens["decoder"]["w"].to(torch.bfloat16).reshape(3, -1)
+    assert torch.equal(second.tensors["decw"], want)
+    assert not torch.equal(first.tensors["decw"], want)

@@ -64,6 +64,32 @@ def test_potts_kernel_matches_plain(dev, dtype, B):
     assert torch.equal(H, H2)
 
 
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("B", [1, 37, 64, 130, 1024])
+@pytest.mark.parametrize("P", [128, 640, 4864])
+def test_potts_bf16_at_tile_edges(dev, P, B, symmetric):
+    """The bf16 kernel A at ragged B (one row, a part of a 128-row tile, one
+    over a tile), at one, five and 38 column tiles (which the kernel splits
+    over K in 2, 8 and 3 or 1), for the symmetric couplings and for a W that
+    is not (the kernel reads the W tile as it lies in memory and must give
+    xf @ W, not xf @ W.T); every output repeats bit for bit."""
+    rng = np.random.default_rng(P + B)
+    L = P // 20
+    W, h, P_ = _potts(rng, L, BF16, dev)
+    assert P_ == P and torch.equal(W, W.T)
+    if not symmetric:
+        W = torch.triu(W).contiguous()
+        assert not torch.equal(W, W.T)
+    xf = torch.nn.functional.pad(_onehot(rng, B, L, dev).reshape(B, -1),
+                                 (0, P - L * 20))
+    H, g = potts_fused.energy_and_grad(W, h, xf)
+    H0, g0 = potts_fused.energy_and_grad_plain(W, h, xf)
+    torch.testing.assert_close(g, g0, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(H, H0, rtol=1e-5, atol=1e-3)
+    H2, g2 = potts_fused.energy_and_grad(W, h, xf)
+    assert torch.equal(H, H2) and torch.equal(g, g2)
+
+
 def test_potts_kernel_rejects_bad_input(dev):
     W = torch.zeros((100, 100), device=dev)
     with pytest.raises(ValueError):
@@ -129,6 +155,58 @@ def test_cnn_kernel_at_gfp_width(dev):
         fit, dx = cnn_fused.ensemble_apply_and_grad(ens, x, dtype)
         fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, dtype)
         _check_cnn(fit, dx, fit0, dx0, dtype)
+
+
+@pytest.mark.parametrize("pool", ["split", "first"])
+@pytest.mark.parametrize("C,L,B", [
+    (24, 40, 1), (37, 40, 5),   # C not a multiple of 16
+    (37, 5, 5),                 # L = K: one row per sample
+    (24, 40, 128),
+    (24, 40, 300),              # more samples than persistent blocks
+    (237, 237, 5),              # the main path's widths
+])
+@pytest.mark.parametrize("ties", [False, True])
+def test_cnn_bf16_kernel_at_tile_edges(dev, C, L, B, pool, ties):
+    """The bf16 kernel B at the edges of its tiling, from prepared weights
+    and from the stacked layout: equal bits, and both repeat themselves."""
+    g = torch.Generator(device=dev).manual_seed(C)
+    ens = cnn.init_ensemble(g, 3, input_size=C)
+    x = (_tie_input(B, L, dev) if ties
+         else _onehot(np.random.default_rng(B + L), B, L, dev))
+    prep = cnn_fused.prepare_ensemble(ens, BF16)
+    fit, dx = cnn_fused.ensemble_apply_and_grad(prep, x, None, pool)
+    fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, BF16, pool)
+    _check_cnn(fit, dx, fit0, dx0, BF16)
+    fit2, dx2 = cnn_fused.ensemble_apply_and_grad(ens, x, BF16, pool)
+    assert torch.equal(fit, fit2) and torch.equal(dx, dx2)
+    if ties and L > 9:  # the tie input makes the two modes differ
+        _, dx_other = cnn_fused.ensemble_apply_and_grad(
+            prep, x, None, "first" if pool == "split" else "split")
+        assert not torch.allclose(dx, dx_other)
+
+
+def test_cnn_bf16_kernel_takes_relaxed_inputs(dev):
+    """Inputs that are not one-hot (several nonzero letters, or none, at a
+    position) go through the kernel's general conv path."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    ens = cnn.init_ensemble(g, 3, input_size=24)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.random((6, 40, 20)).astype(np.float32))
+    x = (x * (x > 0.7)).to(dev)       # sparse rows, some of them empty
+    fit, dx = cnn_fused.ensemble_apply_and_grad(ens, x, BF16)
+    fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, BF16)
+    _check_cnn(fit, dx, fit0, dx0, BF16)
+
+
+def test_cnn_kernel_rejects_bad_input(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    ens = cnn.init_ensemble(g, 2, input_size=24)
+    prep = cnn_fused.prepare_ensemble(ens, BF16)
+    x = _onehot(np.random.default_rng(0), 2, 300, dev)   # T > 256
+    with pytest.raises(ValueError):
+        cnn_fused.ensemble_apply_and_grad(prep, x)
+    with pytest.raises(TypeError):
+        cnn_fused.ensemble_apply_and_grad(prep, x[:, :40], F32)
 
 
 def _qkv(Z, T, hd, dtype, dev, seed=0, n=3):

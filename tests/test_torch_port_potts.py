@@ -4,6 +4,7 @@ ppde_tpu.models.potts (XLA path and the Pallas kernel in interpret mode).
 Tolerances: float32 on the CPU, sums in another order than XLA's, so
 energies at rtol 1e-5 / atol 1e-4 and gradients at atol 1e-5."""
 import os
+import tempfile
 
 import jax
 import jax.numpy as jnp
@@ -136,3 +137,82 @@ def test_convert_potts_from_numpy(pair, rng):
     np.testing.assert_allclose(
         potts.score(tp, torch.from_numpy(x)).numpy(),
         np.asarray(jpotts.score(jp, jnp.asarray(x))), **E_TOL)
+
+
+@pytest.mark.parametrize("batch", [1, 37, 130])
+def test_plain_matches_pallas_interpret_at_ragged_batches(pair, batch):
+    """Kernel A's plain version at the batch sizes where the kernel's
+    128-row tiles have edges (one row, a part of a tile, one over a tile),
+    against the TPU kernel's body in interpret mode, float32."""
+    jp, tp = pair
+    x = _x(np.random.default_rng(batch), batch, L=16)
+    xf = jpotts._pad_flat(jp, jnp.asarray(x))
+    Hk, gk = potts_pallas.energy_and_grad(jp.W, jp.h, xf, interpret=True)
+    Ht, gt = potts_fused.energy_and_grad(tp.W, tp.h,
+                                         torch.from_numpy(np.array(xf)))
+    assert Ht.shape == (batch,) and gt.shape == (batch, tp.padded_dim)
+    np.testing.assert_allclose(Ht.numpy(), np.asarray(Hk), **E_TOL)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gk), **G_TOL)
+
+
+@pytest.mark.parametrize("length", [6, 32])   # P = 128 and P = 640
+def test_plain_matches_jax_at_other_widths(length):
+    """One and five column tiles of 128 (GFP's 38 run on the card only)."""
+    wt = (WT * 2)[:length]
+    jp = jpotts.synthetic(wt, seed=length)
+    tp = potts.synthetic(wt, seed=length, device="cpu")
+    assert tp.padded_dim == -(-length * 20 // 128) * 128
+    x = _x(np.random.default_rng(length), 9, L=length)
+    Hj, gj = jpotts.hamiltonian_and_grad(jp, jnp.asarray(x), use_pallas=False)
+    Ht, gt = potts.hamiltonian_and_grad(tp, torch.from_numpy(x))
+    np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), **E_TOL)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gj), **G_TOL)
+
+
+def test_couplings_are_symmetric(pair):
+    """xf @ W + h is the Hamiltonian's gradient only for a symmetric W:
+    the flattened couplings are symmetric, from a seed and from a file."""
+    _, tp = pair
+    assert torch.equal(tp.W, tp.W.T)
+    rng = np.random.default_rng(0)
+    Lw, Vv = 6, 20
+    J = rng.standard_normal((Lw, Lw, Vv, Vv)).astype(np.float32)
+    J = 0.5 * (J + J.transpose(1, 0, 3, 2))   # J[i,j,k,l] = J[j,i,l,k]
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "p.npz")
+        np.savez(path, J=J, h=rng.standard_normal((Lw, Vv)).astype(np.float32),
+                 index_list=np.arange(Lw), reg_coef=1.0, offset=0)
+        loaded = potts.load_npz(path, WT[:Lw], device="cpu")
+    assert torch.equal(loaded.W, loaded.W.T)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pad_flat_pads_and_casts_in_one_copy(pair, rng, dtype):
+    _, tp = pair
+    x = torch.from_numpy(_x(rng, 4, L=16))
+    want = torch.nn.functional.pad(x.reshape(4, -1),
+                                   (0, tp.padded_dim - 320)).to(dtype)
+    got = potts._pad_flat(tp, x, dtype)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(potts._pad_flat(tp, x), want.float())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrapper_takes_a_w_that_is_not_symmetric(pair, rng, dtype):
+    """energy_and_grad computes xf @ W for any W, not xf @ W.T: kernel A
+    reads the W tile as it lies in memory and relies on no symmetry (held
+    on the card by tests/test_torch_port_kernels_cuda.py)."""
+    _, tp = pair
+    W = tp.W.clone()
+    W[0, 21] += 0.5                       # one coupling, on one side only
+    W, h = W.to(dtype), tp.h.to(dtype)
+    x = torch.from_numpy(_x(rng, 3, L=16))
+    x[0, 0] = 0.0
+    x[0, 0, 0] = 1.0                      # row 0 of W is selected
+    xf = potts._pad_flat(tp, x, dtype)
+    H, g = potts_fused.energy_and_grad(W, h, xf)
+    want = xf.float() @ W.float() + h.float()
+    torch.testing.assert_close(g, want, rtol=1e-5, atol=1e-5)
+    assert abs(float(g[0, 21] - (xf.float() @ W.float().T + h.float())[0, 21])
+               - 0.5) < 1e-2
+    assert H.shape == (3,)

@@ -2,6 +2,8 @@
 
     python tools/profile_port_step.py [--chains 128 1024] [--steps 40]
     python tools/profile_port_step.py --transformer
+    python tools/profile_port_step.py --kernels
+    python tools/profile_port_step.py --phases
 
 Builds the GFP configuration of chip_smoke.py (synthetic seeded Potts and a
 seeded 3-member CNN ensemble, bf16, lambda=15, pas_length=2,
@@ -12,7 +14,11 @@ kernels, the device busy share (the union of kernel intervals over the
 traced window) and the card's name and power limit. ``--transformer`` adds
 the random-init transformer-S expert (lambda=1, chip_smoke.py's phase 6) and
 traces one line per chunking of its gradient (chunks of 16 chains, and one
-piece; default 128 chains, 5 steps). Needs a CUDA device.
+piece; default 128 chains, 5 steps). ``--kernels`` traces kernels A and B
+alone at GFP width (bf16, B = 128 and 1024) beside ``torch.addmm``: device
+microseconds per call by kernel name. ``--phases`` builds kernel B with
+-DCNN_PHASE_CLOCKS and prints the clocks and microseconds each phase of one
+(sample, member) takes in block (0, 0) at B = 1024. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -44,11 +50,105 @@ def busy_share(events, window_us):
     return busy / window_us
 
 
+def gfp_kernel_inputs(torch, dev, B):
+    """Kernel A's and B's inputs at GFP width: bf16 Potts, prepared bf16
+    ensemble, B random one-hot sequences (all seeded)."""
+    from chip_smoke import GFP_WT, random_onehot
+    from ppde_tpu_torch.models import cnn, potts
+    from ppde_tpu_torch.ops import cnn_fused
+
+    pp = potts.synthetic(GFP_WT, seed=0, dtype=torch.bfloat16, device=dev)
+    ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(0), 3,
+                            input_size=len(GFP_WT))
+    x = random_onehot(torch, torch.Generator(device=dev).manual_seed(12), B,
+                      len(GFP_WT), dev)
+    return (pp, potts._pad_flat(pp, x, torch.bfloat16),
+            cnn_fused.prepare_ensemble(ens, torch.bfloat16), x)
+
+
+def trace_kernels(torch, dev, card) -> None:
+    """Device time by kernel name of one call of each wrapper and of
+    torch.addmm on kernel A's inputs."""
+    from torch.profiler import ProfilerActivity, profile
+    from ppde_tpu_torch.ops import cnn_fused, potts_fused
+
+    reps = 20
+    for B in (128, 1024):
+        pp, xf, prep, x = gfp_kernel_inputs(torch, dev, B)
+        calls = {"kernel_a": lambda: potts_fused.energy_and_grad(pp.W, pp.h,
+                                                                 xf),
+                 "addmm": lambda: torch.addmm(pp.h, xf, pp.W),
+                 "kernel_b": lambda: cnn_fused.ensemble_apply_and_grad(prep,
+                                                                       x)}
+        out = {"B": B, "card": card}
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            by_name: dict[str, float] = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    by_name[e.name[:70]] = (by_name.get(e.name[:70], 0.0)
+                                            + e.device_time / reps)
+            out[name + "_us_by_kernel"] = by_name
+        print(json.dumps(out), flush=True)
+
+
+def trace_phases(torch, dev, card) -> None:
+    """Clocks of each phase of kernel B (bf16) per (sample, member), read
+    from a build with -DCNN_PHASE_CLOCKS, at GFP width and B = 1024."""
+    import ctypes
+    from ppde_tpu_torch.ops import _build, cnn_fused
+
+    # the wrapper then builds and launches the profiling build
+    _build.set_defines("cnn_ensemble", ("CNN_PHASE_CLOCKS",))
+    lib = cnn_fused._lib()
+    lib.cnn_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.cnn_phase_clocks.restype = ctypes.c_int
+    B = 1024
+    _, _, prep, x = gfp_kernel_inputs(torch, dev, B)
+    cnn_fused.ensemble_apply_and_grad(prep, x)
+    torch.cuda.synchronize()
+    if lib.cnn_phase_clocks(None, 1):
+        raise RuntimeError("cnn_phase_clocks: reset failed")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    cnn_fused.ensemble_apply_and_grad(prep, x)
+    end.record()
+    torch.cuda.synchronize()
+    call_us = start.elapsed_time(end) * 1e3
+    clocks = (ctypes.c_longlong * 8)()
+    if lib.cnn_phase_clocks(clocks, 0):
+        raise RuntimeError("cnn_phase_clocks: read failed")
+    M = prep.dims[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per = max(1, min(B, sms // M))          # the kernel's grid.x
+    samples = (B - 1) // per + 1            # walked by block (0, 0)
+    # block (0, 0) lives as long as the call: its clocks over the call's time
+    mhz = sum(clocks) / call_us
+    names = ("fetch_and_clear", "conv", "embed_product", "pool",
+             "pred_and_scales", "gather_g1", "dp_product", "col2im_store")
+    per_sample = {n: c / samples for n, c in zip(names, clocks)}
+    out = {"B": B, "samples_of_block_0": samples, "call_us": call_us,
+           "sm_clock_mhz_estimate": mhz,
+           "clocks_per_sample_member": per_sample,
+           "us_per_sample_member": {n: c / mhz
+                                    for n, c in per_sample.items()},
+           "card": card}
+    print(json.dumps(out), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--chains", type=int, nargs="+", default=None)
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--transformer", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
+    ap.add_argument("--phases", action="store_true")
     args = ap.parse_args()
     chains = args.chains or ([128] if args.transformer else [128, 1024])
     steps = args.steps or (5 if args.transformer else 40)
@@ -75,6 +175,12 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.kernels or args.phases:
+        if args.kernels:
+            trace_kernels(torch, dev, card)
+        if args.phases:
+            trace_phases(torch, dev, card)
+        return 0
     pp = potts.synthetic(GFP_WT, seed=0, dtype=torch.bfloat16, device=dev)
     ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(0), 3,
                             input_size=len(GFP_WT))
