@@ -20,15 +20,22 @@ no result line):
      kernels' launch counters are set to 0 just before and read just after;
   5. kernels C and C' (attention forward and backward) against their plain
      versions at ESM2's head shapes, float32 and bfloat16, each run twice
-     (bit-for-bit repeatable), timed beside the plain version and
-     scaled_dot_product_attention;
+     (bit-for-bit repeatable), held elementwise and by the relative norm
+     of the difference, timed beside the plain version and
+     scaled_dot_product_attention, with the floor the special function
+     units set on exp beside the bound;
   6. the same sampler with the potts + transformer-S product of experts
      (random-init ESM2 at full width and depth, bf16, lambda=1): 128 chains
      with the transformer's gradient in chain chunks of 16 and in one
      piece; counters as in 4.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
-Detailed results go to chiprun_out/chip_smoke.json.
+Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
+kernels build at first use):
+
+    python3 -c 'import torch, chip_smoke
+    from ppde_tpu_torch.ops import attention_fused as a
+    chip_smoke.phase_attention(torch, a, torch.device("cuda"))'
 """
 from __future__ import annotations
 
@@ -350,9 +357,27 @@ def phase_sampler(torch, codec, utils, energy_mod, potts, cnn, ppde,
     return runs, launches
 
 
-def phase_attention(torch, attention_fused, dev):
+def exp_rate(torch):
+    """exp results per second of the card's special function units: 16 per
+    clock per SM at the SM clock's maximum (nvidia-smi clocks.max.sm)."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 16 * mhz * 1e6
+
+
+def rel_norm(x, x0):
+    """|x - x0| / |x0| over the whole tensor, in float32."""
+    d = (x.float() - x0.float()).norm()
+    return (d / x0.float().norm().clamp_min(1e-30)).item()
+
+
+def phase_attention(torch, attention_fused, dev, cases=ATTN_CASES):
     """Kernels C and C' vs plain at ESM2's head shapes."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    exp_per_s = exp_rate(torch)
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
@@ -361,7 +386,11 @@ def phase_attention(torch, attention_fused, dev):
         # (the bound of the JAX package's own attention tests)
         tol = (dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32
                else dict(rtol=3e-2, atol=3e-2))
-        for Z, T, hd in ATTN_CASES:
+        # and over a whole output, |kernel - plain| / |plain| (norms): a few
+        # last-bit flips in bf16, which a kernel that shifted weight or
+        # computed in a lower precision everywhere would exceed
+        rel_tol = 1e-5 if dtype == torch.float32 else 1e-2
+        for Z, T, hd in cases:
             gen = torch.Generator(device=dev).manual_seed(Z + T + hd)
             q, k, v = ((torch.randn((Z, T, hd), generator=gen, device=dev)
                         * 0.5).to(dtype) for _ in range(3))
@@ -373,15 +402,20 @@ def phase_attention(torch, attention_fused, dev):
             o0 = attention_fused.attention_plain(q, k, v)
             grads0 = attention_fused.attention_bwd_plain(q, k, v, dout)
             err_f = (o.float() - o0.float()).abs().max().item()
-            check(torch.allclose(o.float(), o0.float(), **tol),
-                  f"kernel C Z={Z} T={T} hd={hd} {dn}: max abs err {err_f}")
-            err_b = 0.0
+            rel_f = rel_norm(o, o0)
+            check(torch.allclose(o.float(), o0.float(), **tol)
+                  and rel_f <= rel_tol,
+                  f"kernel C Z={Z} T={T} hd={hd} {dn}: max abs err {err_f}, "
+                  f"relative norm {rel_f}")
+            err_b = rel_b = 0.0
             for name, g, g0 in zip(("dq", "dk", "dv"), grads, grads0):
                 e = (g.float() - g0.float()).abs().max().item()
-                err_b = max(err_b, e)
-                check(torch.allclose(g.float(), g0.float(), **tol),
+                rel = rel_norm(g, g0)
+                err_b, rel_b = max(err_b, e), max(rel_b, rel)
+                check(torch.allclose(g.float(), g0.float(), **tol)
+                      and rel <= rel_tol,
                       f"kernel C' {name} Z={Z} T={T} hd={hd} {dn}: max abs "
-                      f"err {e}")
+                      f"err {e}, relative norm {rel}")
             check(torch.equal(o, attention_fused.flash_attention(q, k, v)),
                   "kernel C is not deterministic")
             again = attention_fused.flash_attention_bwd(q, k, v, dout)
@@ -396,8 +430,10 @@ def phase_attention(torch, attention_fused, dev):
 
             lib_f = time_ms(lambda: sdpa(q, k, v, scale=1.0), reps)
             r = {"Z": Z, "T": T, "hd": hd, "dtype": dn,
-                 "tol": f"rtol {tol['rtol']}, atol {tol['atol']}",
+                 "tol": f"rtol {tol['rtol']}, atol {tol['atol']}; "
+                        f"relative norm {rel_tol}",
                  "max_abs_err_fwd": err_f, "max_abs_err_bwd": err_b,
+                 "rel_norm_err_fwd": rel_f, "rel_norm_err_bwd": rel_b,
                  "fwd_ms": time_ms(
                      lambda: attention_fused.flash_attention(q, k, v), reps),
                  "fwd_plain_ms": time_ms(
@@ -419,6 +455,10 @@ def phase_attention(torch, attention_fused, dev):
                 4 * n * s, 4 * n * T, dn)
             r["bwd_bound_ms"], r["bwd_bound_by"] = bound_ms(
                 7 * n * s, 10 * n * T, dn)
+            # beside the bound: one exp per score, once forward and twice
+            # backward (the weights are rebuilt in each of its two kernels)
+            r["fwd_exp_floor_ms"] = Z * T * T / exp_per_s * 1e3
+            r["bwd_exp_floor_ms"] = 2 * Z * T * T / exp_per_s * 1e3
             out.append(r)
             print("kernels C, C'", json.dumps(r), flush=True)
     return out
@@ -474,6 +514,24 @@ def phase_transformer(torch, codec, energy_mod, potts, cnn, esm2, ppde,
     return runs, launches
 
 
+def attention_row(c, c1, way, launches, line):
+    """The kernels line's row of kernel C (way "fwd") or C' ("bwd"): the
+    chunk-16 call c as the headline, the one-piece call c1 beside it."""
+    def numbers(r):
+        return {"ms": r[f"{way}_ms"], "plain_ms": r[f"{way}_plain_ms"],
+                "bound_ms": r[f"{way}_bound_ms"],
+                "bound_by": r[f"{way}_bound_by"],
+                "library_ms": r[f"{way}_library_ms_sdpa"]}
+    return {"name": f"flash_attention_{way}", "route": "cuda",
+            "source": "ppde_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"ppde_tpu/ops/attention_pallas.py:{line}",
+            "launches": launches, "max_abs_err": c[f"max_abs_err_{way}"],
+            **numbers(c), "shape": [c["Z"], c["T"], c["hd"]],
+            "one_piece": {"shape": [c1["Z"], c1["T"], c1["hd"]],
+                          "max_abs_err": c1[f"max_abs_err_{way}"],
+                          **numbers(c1)}}
+
+
 def main() -> int:
     import torch
 
@@ -500,37 +558,35 @@ def main() -> int:
     build_s = _build.build_all()
     print(f"kernel build {build_s:.2f} s", flush=True)
     for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            # registers and spills of every kernel; ptxas' performance
-            # remarks (C75xx) except the routine one on wgmma's registers
-            if ("Used " in line or "spill" in line
-                    or ("(C75" in line and "(C7519)" not in line)):
-                print(f"ptxas {name}: {line.strip()[:200]}", flush=True)
+        for line in _build.ptxas_report(log):
+            print(f"ptxas {name}: {line}", flush=True)
 
-    t = time.perf_counter()
-    pa = phase_potts(torch, potts, potts_fused, dev)
-    print(f"phase kernel A {time.perf_counter() - t:.1f} s", flush=True)
-    t = time.perf_counter()
-    pb = phase_cnn(torch, cnn, cnn_fused, dev)
-    print(f"phase kernel B {time.perf_counter() - t:.1f} s", flush=True)
-    t = time.perf_counter()
     # every kernel's launch counter: (wrapper module, attribute)
     counters = {"potts_energy": (potts_fused, "launches"),
                 "cnn_ensemble": (cnn_fused, "launches"),
                 "flash_attention_fwd": (attention_fused, "launches_fwd"),
                 "flash_attention_bwd": (attention_fused, "launches_bwd")}
-    runs, launches = phase_sampler(torch, codec, utils, energy_mod, potts,
-                                   cnn, ppde, counters, dev, card)
-    print(f"phase sampler {time.perf_counter() - t:.1f} s", flush=True)
-    t = time.perf_counter()
-    pc = phase_attention(torch, attention_fused, dev)
-    print(f"phase kernels C, C' {time.perf_counter() - t:.1f} s", flush=True)
-    t = time.perf_counter()
-    tr_runs, tr_launches = phase_transformer(
-        torch, codec, energy_mod, potts, cnn, esm2, ppde, counters, dev,
-        card)
-    print(f"phase transformer sampler {time.perf_counter() - t:.1f} s",
-          flush=True)
+    phases = {
+        "potts": lambda: phase_potts(torch, potts, potts_fused, dev),
+        "cnn": lambda: phase_cnn(torch, cnn, cnn_fused, dev),
+        "sampler": lambda: phase_sampler(torch, codec, utils, energy_mod,
+                                         potts, cnn, ppde, counters, dev,
+                                         card),
+        "attention": lambda: phase_attention(torch, attention_fused, dev),
+        "transformer": lambda: phase_transformer(
+            torch, codec, energy_mod, potts, cnn, esm2, ppde, counters, dev,
+            card)}
+    got = {}
+    for name, run in phases.items():
+        t = time.perf_counter()
+        got[name] = run()
+        print(f"phase {name} {time.perf_counter() - t:.1f} s", flush=True)
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    pa, pb, pc = got["potts"], got["cnn"], got["attention"]
+    runs, launches = got["sampler"]
+    tr_runs, tr_launches = got["transformer"]
     for name, n in tr_launches.items():
         launches[name] += n
 
@@ -540,8 +596,8 @@ def main() -> int:
              and r["W"] == "symmetric")
     b = next(r for r in pb if r["B"] == 1024 and r["dtype"] == "bfloat16"
              and r["pool_bwd"] == "split")
-    c = next(r for r in pc if (r["Z"], r["T"], r["hd"]) == ATTN_CASES[0]
-             and r["dtype"] == "bfloat16")
+    c, c1 = (next(r for r in pc if (r["Z"], r["T"], r["hd"]) == case
+                  and r["dtype"] == "bfloat16") for case in ATTN_CASES[:2])
     kernels = {"kernels": [
         {"name": "potts_energy", "route": "cuda",
          "source": "ppde_tpu_torch/csrc/potts_energy.cu",
@@ -559,33 +615,16 @@ def main() -> int:
          "ms": b["kernel_ms"], "plain_ms": b["plain_ms"],
          "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
          "library_ms": None},
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "ppde_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "ppde_tpu/ops/attention_pallas.py:77",
-         "launches": launches["flash_attention_fwd"],
-         "max_abs_err": c["max_abs_err_fwd"], "ms": c["fwd_ms"],
-         "plain_ms": c["fwd_plain_ms"], "bound_ms": c["fwd_bound_ms"],
-         "bound_by": c["fwd_bound_by"],
-         "library_ms": c["fwd_library_ms_sdpa"]},
-        {"name": "flash_attention_bwd", "route": "cuda",
-         "source": "ppde_tpu_torch/csrc/flash_attention.cu",
-         "replaces": "ppde_tpu/ops/attention_pallas.py:98",
-         "launches": launches["flash_attention_bwd"],
-         "max_abs_err": c["max_abs_err_bwd"], "ms": c["bwd_ms"],
-         "plain_ms": c["bwd_plain_ms"], "bound_ms": c["bwd_bound_ms"],
-         "bound_by": c["bwd_bound_by"],
-         "library_ms": c["bwd_library_ms_sdpa"]},
+        attention_row(c, c1, "fwd", launches["flash_attention_fwd"], 83),
+        attention_row(c, c1, "bwd", launches["flash_attention_bwd"], 108),
     ]}
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernel_a": pa,
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,
                    "transformer_sampler": tr_runs, **kernels}, f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0
 
 

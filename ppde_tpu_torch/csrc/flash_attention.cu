@@ -26,12 +26,45 @@
 // by the bytes. The [Z, T, T] scores, which a plain version writes and reads
 // several times, never leave the chip.
 //
-// Design. The TPU kernel holds a whole [T, T] float32 score block on chip;
-// 225 KB at T = 237 does not fit a block's 227 KB of shared memory. The thin
-// side is small, so a block holds 64 rows of the scores against ALL T
-// columns, [64, T] float32 (up to T = 512: 133 KB). That keeps the TPU
-// kernel's arithmetic exactly (normalise in float32, then cast, then the
-// product) with no online softmax. Thin operands are staged through shared
+// Two designs, chosen by type and T in the launchers below.
+//
+// bf16 and T <= 256 (every ESM2 call on GFP: T = 237), kernels attn_*_rs:
+// the scores live in registers. In the forward and the dq half a warp owns
+// 16 score rows against all columns (T padded to 64): 128 float32
+// accumulators a thread at T = 256. The row max and sum come from quad
+// shuffles on them (only the last 64-column chunk holds columns past T, and
+// only it is masked), and the second product takes its bf16 A fragment from
+// two neighbouring n8 accumulator tiles packed in place (the m16n8k16
+// layout identity), so the scores never touch shared memory and no barrier
+// separates the phases. The dk/dv half needs no row of scores whole (its
+// max, sum and delta come from the dq half), so a warp walks its 16 keys
+// against 16 queries at a time and holds one 16 x 16 group: 123 registers
+// at hd = 24, 4 blocks per SM. A block is one 64-row strip of one z (4
+// warps), so the chunk-16 call (Z = 320) still has 1,280 blocks. Operands
+// are staged once per block, as they lie in memory, by 16-byte cp.async
+// (rows past T zero-filled; the forward and dq in two groups, so that the
+// first product starts before the second operand pair has arrived); first
+// products read them by ldmatrix, second products by ldmatrix.trans. hd is
+// a template argument; an odd multiple of 8 (hd = 24) takes its last 8 by
+// one m16n8k8 and keeps its rows unpadded in shared memory (48 bytes, no
+// bank conflicts), so staging is one linear copy. exp is ex2.approx on
+// s log2(e) - max log2(e) (one FFMA + one MUFU a score): the special
+// function units, 16 results per clock per SM, are a floor of the same
+// size as the bytes (chip_smoke.py reports it as exp_floor_ms), but the
+// kernels are bound by instruction issue (about 1,450, 2,300 and 1,750 a
+// warp at hd = 24 for the forward, dq and dk/dv). Why mma.sync and not
+// wgmma: each kernel runs up to four products on different accumulators,
+// and wgmma pins every accumulator array to fixed registers for the whole
+// kernel, which spilled kernels A and B; mma.sync leaves the allocation to
+// ptxas.
+//
+// float32 (any T <= 512) and bf16 with 256 < T <= 512, kernels attn_*
+// without the suffix: the TPU kernel holds a whole [T, T] float32 score
+// block on chip; 225 KB at T = 237 does not fit a block's 227 KB of shared
+// memory. The thin side is small, so a block holds 64 rows of the scores
+// against ALL T columns, [64, T] float32 (up to T = 512: 133 KB). That keeps
+// the TPU kernel's arithmetic exactly (normalise in float32, then cast, then
+// the product) with no online softmax. Thin operands are staged through shared
 // memory, zero-padded to a head width of 16, 32 or 64 (hd must be a multiple
 // of 8, so that every global load is 16 bytes) and to a multiple of 64 rows;
 // padded key columns are left out of the row max and sum and get weight 0.
@@ -49,8 +82,9 @@
 // scratch; attn_bwd_dkdv owns 64 key rows against all queries, i.e. a
 // [64, T] block of the TRANSPOSED scores, rebuilds w32 and ds from that
 // scratch, and writes dv and dk. Every output element is written once by one
-// block with a fixed order of sums: results repeat bit for bit.
-// wgmma, TMA and register-resident scores are later work.
+// block with a fixed order of sums: results repeat bit for bit. The _rs
+// kernels split the backward the same way, a warp per 16 query rows (dq)
+// and a warp per 16 key rows (dk, dv): 8 products and 2 passes of exp.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -563,6 +597,619 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// ---------------------------------------------------------------------------
+// bf16, T <= 256: scores in registers
+// ---------------------------------------------------------------------------
+namespace rs {
+
+using bf16 = __nv_bfloat16;
+constexpr int T_REG = 256;          // the largest T these kernels take
+constexpr int NG = T_REG / 16;      // 16-column groups of a score row
+constexpr int WARPS = 4;            // a block: one strip of 64 rows
+constexpr int THREADS = 32 * WARPS;
+constexpr int STRIP = 16 * WARPS;
+constexpr float L2E = 1.4426950408889634f;  // log2(e)
+
+// Row stride (elements) of a staged [rows, hd] operand. Rows stay 16-byte
+// aligned and the 8 rows an ldmatrix reads fall on 8 different 16-byte bank
+// groups: hd itself where hd is an odd multiple of 8 (rows of 16, 48, 80 or
+// 112 bytes), hd + 8 where it is a multiple of 16 (rows of 32 to 128 bytes
+// as they lie would put 2 to 8 of the 8 on one bank group). Columns past hd
+// are neither written nor read.
+template <int HD>
+constexpr int kSP = (HD / 8) % 2 ? HD : HD + 8;
+// k16 steps over hd, and one k8 step more where hd is an odd multiple of 8
+template <int HD>
+constexpr int kK16 = HD / 16;
+template <int HD>
+constexpr bool kTail = HD % 16 != 0;
+// blocks of 4 warps an SM holds in the forward and the dq half: 3 (168
+// registers a thread) up to hd 32; at 48 and 64 dq would spill at 168
+template <int HD>
+constexpr int kMinBlocks = HD <= 32 ? 3 : 2;
+// bytes between two 16-row groups of a staged operand
+template <int HD>
+constexpr uint32_t kGroup = 16 * kSP<HD> * 2;
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm2t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a (16x8, row) * b (8x8, col): the last 8 of a summed index of 8, 24,
+// 40 or 56
+__device__ __forceinline__ void mma_k8(float* d, uint32_t a0, uint32_t a1,
+                                       uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// FOR_GROUPS(c, ng4) { ... }: the body for every 16-column group c of the
+// first ng4 64-column chunks, unrolled, with one runtime test per chunk: the
+// four groups of a chunk are one basic block, which ptxas schedules as a
+// whole (a test per group cuts every product into pieces too small to
+// overlap anything). A loop and not a function taking a lambda: through a
+// lambda the score array went to local memory.
+#define FOR_GROUPS(c, ng4)                                    \
+  _Pragma("unroll") for (int c##_4 = 0; c##_4 < NG / 4; ++c##_4) \
+    if (c##_4 < (ng4))                                        \
+      _Pragma("unroll") for (int c = 4 * c##_4; c < 4 * c##_4 + 4; ++c)
+
+// Rows t0 .. t0+rows-1 of src [Tn, HD] into dst [rows, kSP], rows from Tn on
+// zero, by 16-byte cp.async (the caller commits the group). The rows lie
+// back to back in memory, so chunk i of the copy is bytes 16 i .. of the
+// source: where kSP = HD the copy is linear, else a row is HD / 8 chunks.
+template <int HD>
+__device__ __forceinline__ void stage(bf16* dst, const bf16* __restrict__ src,
+                                      int t0, int rows, int Tn) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks per row
+  const int n_in = (Tn - t0 < rows ? Tn - t0 : rows) * CPR;  // chunks to copy
+  const uint4* from = reinterpret_cast<const uint4*>(src + (size_t)t0 * HD);
+  const uint32_t base = saddr(dst);
+  for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
+    const uint32_t to =
+        kSP<HD> == HD ? 16 * i : (i / CPR) * (kSP<HD> * 2) + (i % CPR) * 16;
+    const bool in = i < n_in;
+    cp_async16(base + to, in ? from + i : from, in ? 16 : 0);
+  }
+}
+
+// The A fragments of a warp's 16 rows of a staged operand (all of hd; the
+// k8 step's in the first two registers of the last entry).
+template <int HD>
+__device__ __forceinline__ void a_frags(
+    uint32_t (&a)[kK16<HD> + kTail<HD>][4], const bf16* rows, int lane) {
+  const bf16* row = rows + (lane & 15) * kSP<HD>;
+  const uint32_t base = saddr(row + (lane >> 4) * 8);
+#pragma unroll
+  for (int kk = 0; kk < kK16<HD>; ++kk) ldsm4(a[kk], base + kk * 32);
+  if constexpr (kTail<HD>) {
+    uint32_t t[2];
+    ldsm2(t, saddr(row + kK16<HD> * 16));
+    a[kK16<HD>][0] = t[0];
+    a[kK16<HD>][1] = t[1];
+  }
+}
+
+// Lane addresses for the B operand of 16-column group c (add c * kGroup
+// bytes): cols_addr reads 16 rows of a staged operand as the columns of a
+// first product (B^T as it lies: ldmatrix), sum_addr reads 16 rows as the
+// summed index of a second product (ldmatrix.trans).
+template <int HD>
+__device__ __forceinline__ uint32_t cols_addr(const bf16* B, int lane) {
+  return saddr(B + ((lane & 7) + ((lane >> 4) << 3)) * kSP<HD> +
+               ((lane >> 3) & 1) * 8);
+}
+
+template <int HD>
+__device__ __forceinline__ uint32_t sum_addr(const bf16* B, int lane) {
+  return saddr(B + ((lane & 7) + (((lane >> 3) & 1) << 3)) * kSP<HD> +
+               (lane >> 4) * 8);
+}
+
+// The two 8 x 8 matrices of a group's 16 rows at the last 8-column step of
+// hd (where hd is an odd multiple of 8), for ldmatrix.x2 (.trans): rows 0-7
+// from lanes 0-7, rows 8-15 from lanes 8-15.
+template <int HD>
+__device__ __forceinline__ uint32_t tail_addr(const bf16* B, int lane) {
+  return saddr(B + (lane & 15) * kSP<HD> + kK16<HD> * 16);
+}
+
+// d0, d1 (the two n8 tiles of one 16-column group) = A * B^T over hd, B's
+// 16 rows at b (cols_addr; bt: tail_addr): k16 steps, then one k8 step
+// where hd is an odd multiple of 8.
+template <int HD>
+__device__ __forceinline__ void group_product(
+    float (&d0)[4], float (&d1)[4],
+    const uint32_t (&a)[kK16<HD> + kTail<HD>][4], uint32_t b, uint32_t bt) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d0[e] = d1[e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < kK16<HD>; ++kk) {
+    uint32_t f[4];
+    ldsm4(f, b + kk * 32);
+    mma_bf16(d0, a[kk], f[0], f[1]);
+    mma_bf16(d1, a[kk], f[2], f[3]);
+  }
+  if constexpr (kTail<HD>) {
+    uint32_t f[2];
+    ldsm2(f, bt);
+    mma_k8(d0, a[kK16<HD>][0], a[kK16<HD>][1], f[0]);
+    mma_k8(d1, a[kK16<HD>][0], a[kK16<HD>][1], f[1]);
+  }
+}
+
+// o += cast(x) * B over one 16-row step of the summed index: x0, x1 are the
+// two n8 accumulator tiles of a 16-column group, packed in place into the
+// bf16 A fragment; B's 16 rows at b (sum_addr; bt: tail_addr).
+template <int HD>
+__device__ __forceinline__ void step_product(float (&o)[HD / 8][4],
+                                             const float (&x0)[4],
+                                             const float (&x1)[4],
+                                             uint32_t b, uint32_t bt) {
+  const uint32_t a[4] = {pack_bf16(x0[0], x0[1]), pack_bf16(x0[2], x0[3]),
+                         pack_bf16(x1[0], x1[1]), pack_bf16(x1[2], x1[3])};
+#pragma unroll
+  for (int n2 = 0; n2 < kK16<HD>; ++n2) {
+    uint32_t f[4];
+    ldsm4t(f, b + n2 * 32);
+    mma_bf16(o[2 * n2], a, f[0], f[1]);
+    mma_bf16(o[2 * n2 + 1], a, f[2], f[3]);
+  }
+  if constexpr (kTail<HD>) {
+    uint32_t f[2];
+    ldsm2t(f, bt);
+    mma_bf16(o[HD / 8 - 1], a, f[0], f[1]);
+  }
+}
+
+// A warp's 16 output rows (row0 ..) of dst [Tn, HD], cast to bf16.
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+                                           const float (&o)[HD / 8][4],
+                                           int row0, int Tn, int lane) {
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + g + 8 * h;
+    if (r >= Tn) continue;
+#pragma unroll
+    for (int nt = 0; nt < HD / 8; ++nt)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)r * HD + nt * 8 + 2 * tig) =
+          pack_bf16(o[nt][2 * h], o[nt][2 * h + 1]);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void zero(float (&o)[HD / 8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+}
+
+// Scores of a warp's 16 rows against all columns, s[j][e]: n8 tile j, row
+// g (e < 2) or g + 8, column 8 j + 2 tig + (e & 1). Chunks c4 >= ng4 are
+// neither computed nor read; columns between Tn and 64 ng4 hold the scores
+// of zero rows.
+using Scores = float[2 * NG][4];
+
+// s = rows * cols^T over hd: a warp's 16 rows of one staged operand against
+// all rows of another.
+template <int HD>
+__device__ __forceinline__ void scores(Scores& s, const bf16* rows,
+                                       const bf16* cols, int ng4, int lane) {
+  uint32_t a[kK16<HD> + kTail<HD>][4];
+  a_frags<HD>(a, rows, lane);
+  const uint32_t b = cols_addr<HD>(cols, lane), bt = tail_addr<HD>(cols, lane);
+  FOR_GROUPS(c, ng4) {
+    group_product<HD>(s[2 * c], s[2 * c + 1], a, b + c * kGroup<HD>,
+                      bt + c * kGroup<HD>);
+  }
+}
+
+// Softmax of s by rows, in place: float32, the row max subtracted, columns
+// >= Tn left out and set to 0, e * (1 / sum); keeps the max and the sum of
+// each of the thread's two rows.
+__device__ __forceinline__ void softmax(Scores& s, int ng4, int Tn, int lane,
+                                        float (&mx)[2], float (&sum)[2]) {
+  // columns from Tn on, all in the last 64-column chunk, become -inf (a
+  // select, not a branch)
+  const int pad_from = Tn - 2 * (lane & 3);
+  mx[0] = mx[1] = -CUDART_INF_F;
+#pragma unroll
+  for (int c4 = 0; c4 < NG / 4; ++c4) {
+    if (c4 + 1 < ng4) {
+#pragma unroll
+      for (int j = 8 * c4; j < 8 * c4 + 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    } else if (c4 + 1 == ng4) {
+#pragma unroll
+      for (int j = 8 * c4; j < 8 * c4 + 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = 8 * j + (e & 1) < pad_from ? s[j][e] : -CUDART_INF_F;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+    }
+  }
+  float ml[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    ml[h] = mx[h] * L2E;
+    sum[h] = 0.f;
+  }
+  FOR_GROUPS(c, ng4) {
+#pragma unroll
+    for (int j = 2 * c; j < 2 * c + 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(fmaf(s[j][e], L2E, -ml[e >> 1]));
+        sum[e >> 1] += s[j][e];
+      }
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    inv[h] = 1.f / sum[h];
+  }
+  FOR_GROUPS(c, ng4) {
+#pragma unroll
+    for (int j = 2 * c; j < 2 * c + 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= inv[e >> 1];
+  }
+}
+
+// Kernel C. Block (64-row strip, z); warp w owns rows r0 + 16 w ...:
+// o = cast(softmax(q k^T)) v.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, kMinBlocks<HD>)
+attn_fwd_rs(const bf16* __restrict__ q, const bf16* __restrict__ k,
+            const bf16* __restrict__ v, bf16* __restrict__ o, int Tn,
+            int n_strips) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Tp = (Tn + 63) & ~63, ng4 = Tp / 64;
+  bf16* sq = reinterpret_cast<bf16*>(smem);  // [STRIP, kSP]
+  bf16* sk = sq + STRIP * kSP<HD>;           // [Tp, kSP]
+  bf16* sv = sk + Tp * kSP<HD>;              // [Tp, kSP]
+  const int z = blockIdx.x / n_strips, r0 = (blockIdx.x % n_strips) * STRIP;
+  const size_t off = (size_t)z * Tn * HD;
+  stage<HD>(sq, q + off, r0, STRIP, Tn);
+  stage<HD>(sk, k + off, 0, Tp, Tn);
+  cp_async_commit();
+  stage<HD>(sv, v + off, 0, Tp, Tn);
+  cp_async_commit();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int row0 = r0 + 16 * warp;
+  const bool active = row0 < Tn;  // warps past T only join the barriers
+  Scores s;
+  float mx[2], sum[2];
+  cp_async_wait<1>();
+  __syncthreads();
+  if (active) {
+    scores<HD>(s, sq + 16 * warp * kSP<HD>, sk, ng4, lane);
+    softmax(s, ng4, Tn, lane, mx, sum);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!active) return;
+  float acc[HD / 8][4];
+  zero<HD>(acc);
+  const uint32_t b = sum_addr<HD>(sv, lane), bt = tail_addr<HD>(sv, lane);
+  FOR_GROUPS(c, ng4) {
+    step_product<HD>(acc, s[2 * c], s[2 * c + 1], b + c * kGroup<HD>,
+                     bt + c * kGroup<HD>);
+  }
+  store_rows<HD>(o + off, acc, row0, Tn, lane);
+}
+
+// Kernel C', first half. Block (64 query rows, z): w32 by rows (kept in
+// registers), delta = rowsum(w32 * dw) with dw = dout v^T formed 16
+// columns at a time, then again dw, ds = cast(w32 * (dw - delta)) and
+// dq = ds k; each row's max, sum and delta go to stats [Z, 3, Tn].
+template <int HD>
+__global__ void __launch_bounds__(THREADS, kMinBlocks<HD>)
+attn_bwd_dq_rs(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               bf16* __restrict__ dq, float* __restrict__ stats, int Tn,
+               int n_strips) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Tp = (Tn + 63) & ~63, ng4 = Tp / 64;
+  bf16* sq = reinterpret_cast<bf16*>(smem);  // [STRIP, kSP]
+  bf16* sdo = sq + STRIP * kSP<HD>;          // [STRIP, kSP]
+  bf16* sk = sdo + STRIP * kSP<HD>;          // [Tp, kSP]
+  bf16* sv = sk + Tp * kSP<HD>;              // [Tp, kSP]
+  const int z = blockIdx.x / n_strips, r0 = (blockIdx.x % n_strips) * STRIP;
+  const size_t off = (size_t)z * Tn * HD;
+  stage<HD>(sq, q + off, r0, STRIP, Tn);
+  stage<HD>(sk, k + off, 0, Tp, Tn);
+  cp_async_commit();
+  stage<HD>(sdo, dout + off, r0, STRIP, Tn);
+  stage<HD>(sv, v + off, 0, Tp, Tn);
+  cp_async_commit();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int row0 = r0 + 16 * warp;
+  const bool active = row0 < Tn;
+  Scores w;
+  float mx[2], sum[2];
+  cp_async_wait<1>();
+  __syncthreads();
+  if (active) {
+    scores<HD>(w, sq + 16 * warp * kSP<HD>, sk, ng4, lane);
+    softmax(w, ng4, Tn, lane, mx, sum);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!active) return;
+  uint32_t a_do[kK16<HD> + kTail<HD>][4];
+  a_frags<HD>(a_do, sdo + 16 * warp * kSP<HD>, lane);
+  const uint32_t bv = cols_addr<HD>(sv, lane), bvt = tail_addr<HD>(sv, lane);
+  // delta: columns beyond Tn have w32 = 0
+  float delta[2] = {0.f, 0.f};
+  FOR_GROUPS(c, ng4) {
+    float dw[2][4];
+    group_product<HD>(dw[0], dw[1], a_do, bv + c * kGroup<HD>,
+                      bvt + c * kGroup<HD>);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        delta[e >> 1] = fmaf(w[2 * c + h][e], dw[h][e], delta[e >> 1]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    delta[h] += __shfl_xor_sync(0xffffffffu, delta[h], 1);
+    delta[h] += __shfl_xor_sync(0xffffffffu, delta[h], 2);
+    const int r = row0 + g + 8 * h;
+    if (tig == 0 && r < Tn) {
+      float* st = stats + (size_t)z * 3 * Tn + r;
+      st[0] = mx[h];
+      st[Tn] = sum[h];
+      st[2 * Tn] = delta[h];
+    }
+  }
+  float acc[HD / 8][4];
+  zero<HD>(acc);
+  const uint32_t bk = sum_addr<HD>(sk, lane), bkt = tail_addr<HD>(sk, lane);
+  FOR_GROUPS(c, ng4) {
+    float dw[2][4];
+    group_product<HD>(dw[0], dw[1], a_do, bv + c * kGroup<HD>,
+                      bvt + c * kGroup<HD>);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dw[h][e] = w[2 * c + h][e] * (dw[h][e] - delta[e >> 1]);
+    step_product<HD>(acc, dw[0], dw[1], bk + c * kGroup<HD>,
+                     bkt + c * kGroup<HD>);
+  }
+  store_rows<HD>(dq + off, acc, row0, Tn, lane);
+}
+
+// Kernel C', second half. Block (64 key rows, z); warp w owns keys
+// r0 + 16 w ... and walks the queries 16 at a time (group c): the
+// transposed scores k q_c^T, w32 rebuilt from the query rows' max and sum,
+// dv += cast(w32)^T dout_c, dw^T = v dout_c^T, ds^T = cast(w32 * (dw -
+// delta)), dk += ds^T q_c. The query rows' max, sum and delta come from the
+// dq half, so no step needs a whole row of scores: a warp holds one group's
+// 16 x 16 scores at a time and the two accumulators, few enough registers
+// for 4 blocks per SM. The groups are summed in a fixed order, so the
+// results repeat bit for bit.
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 4)
+attn_bwd_dkdv_rs(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 const float* __restrict__ stats, int Tn, int n_strips) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ng = (Tn + 15) / 16, T16 = 16 * ng;
+  bf16* sk = reinterpret_cast<bf16*>(smem);  // [STRIP, kSP]
+  bf16* sv = sk + STRIP * kSP<HD>;           // [STRIP, kSP]
+  bf16* sq = sv + STRIP * kSP<HD>;           // [T16, kSP]
+  bf16* sdo = sq + T16 * kSP<HD>;            // [T16, kSP]
+  // per query column: -max log2(e), 1 / sum, delta (0, 0, 0 past Tn: the
+  // zero query rows' scores are 0, so their weights come out 0)
+  float* s_ml = reinterpret_cast<float*>(sdo + T16 * kSP<HD>);
+  float* s_inv = s_ml + T16;
+  float* s_delta = s_inv + T16;
+  const int z = blockIdx.x / n_strips, r0 = (blockIdx.x % n_strips) * STRIP;
+  const size_t off = (size_t)z * Tn * HD;
+  stage<HD>(sk, k + off, r0, STRIP, Tn);
+  stage<HD>(sv, v + off, r0, STRIP, Tn);
+  stage<HD>(sq, q + off, 0, T16, Tn);
+  stage<HD>(sdo, dout + off, 0, T16, Tn);
+  // the stats by 4-byte cp.async; the thread that copied a value turns it
+  // into -max log2(e), 1 / sum or delta after its wait
+  const float* st = stats + (size_t)z * 3 * Tn;
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+    for (int j = threadIdx.x; j < Tn; j += THREADS)
+      cp_async4(saddr(s_ml + r * T16 + j), st + r * Tn + j);
+  cp_async_commit();
+  cp_async_wait<0>();
+  for (int j = threadIdx.x; j < T16; j += THREADS) {
+    const bool in = j < Tn;
+    s_ml[j] = in ? -(s_ml[j] * L2E) : 0.f;
+    s_inv[j] = in ? 1.f / s_inv[j] : 0.f;
+    s_delta[j] = in ? s_delta[j] : 0.f;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tig = lane & 3;
+  const int row0 = r0 + 16 * warp;
+  if (row0 >= Tn) return;  // no barrier follows
+  uint32_t a_k[kK16<HD> + kTail<HD>][4], a_v[kK16<HD> + kTail<HD>][4];
+  a_frags<HD>(a_k, sk + 16 * warp * kSP<HD>, lane);
+  a_frags<HD>(a_v, sv + 16 * warp * kSP<HD>, lane);
+  const uint32_t bq = cols_addr<HD>(sq, lane), bqs = sum_addr<HD>(sq, lane);
+  const uint32_t bqt = tail_addr<HD>(sq, lane);
+  const uint32_t bd = cols_addr<HD>(sdo, lane), bds = sum_addr<HD>(sdo, lane);
+  const uint32_t bdt = tail_addr<HD>(sdo, lane);
+  float acc_v[HD / 8][4], acc_k[HD / 8][4];
+  zero<HD>(acc_v);
+  zero<HD>(acc_k);
+#pragma unroll 4
+  for (int c = 0; c < ng; ++c) {
+    const uint32_t gc = c * kGroup<HD>;
+    float w[2][4], dw[2][4];
+    group_product<HD>(w[0], w[1], a_k, bq + gc, bqt + gc);
+    // w32[key, query] = exp(s - max[query]) * (1 / sum[query])
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = 16 * c + 8 * h + 2 * tig;
+      const float2 ml = *reinterpret_cast<const float2*>(s_ml + col);
+      const float2 inv = *reinterpret_cast<const float2*>(s_inv + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[h][e] = ex2(fmaf(w[h][e], L2E, (e & 1) ? ml.y : ml.x)) *
+                  ((e & 1) ? inv.y : inv.x);
+    }
+    step_product<HD>(acc_v, w[0], w[1], bds + gc, bdt + gc);
+    group_product<HD>(dw[0], dw[1], a_v, bd + gc, bdt + gc);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 dl = *reinterpret_cast<const float2*>(
+          s_delta + 16 * c + 8 * h + 2 * tig);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dw[h][e] = w[h][e] * (dw[h][e] - ((e & 1) ? dl.y : dl.x));
+    }
+    step_product<HD>(acc_k, dw[0], dw[1], bqs + gc, bqt + gc);
+  }
+  store_rows<HD>(dv + off, acc_v, row0, Tn, lane);
+  store_rows<HD>(dk + off, acc_k, row0, Tn, lane);
+}
+
+// Shared memory of a block: `strip` staged operands of STRIP rows, `whole`
+// of all T rows (T padded to `pad`), and `stats` float32 rows of as many.
+template <int HD>
+size_t smem_bytes(int strip, int whole, int stats, int Tn, int pad = 64) {
+  const int Tp = (Tn + pad - 1) / pad * pad;
+  return (size_t)(strip * STRIP + whole * Tp) * kSP<HD> * sizeof(bf16) +
+         (size_t)stats * Tp * sizeof(float);
+}
+
+template <int HD>
+int launch_fwd(const void* q, const void* k, const void* v, void* o, int Z,
+               int Tn, cudaStream_t stream) {
+  const int n_strips = (Tn + STRIP - 1) / STRIP;
+  // set on every launch: the attribute belongs to the current device
+  cudaError_t err = allow_smem(attn_fwd_rs<HD>, smem_bytes<HD>(1, 2, 0, Tn));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_fwd_rs<HD><<<Z * n_strips, THREADS, smem_bytes<HD>(1, 2, 0, Tn),
+                    stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), Tn, n_strips);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
+               void* dq, void* dk, void* dv, void* stats, int Z, int Tn,
+               cudaStream_t stream) {
+  const int n_strips = (Tn + STRIP - 1) / STRIP;
+  cudaError_t err = allow_smem(attn_bwd_dq_rs<HD>,
+                               smem_bytes<HD>(2, 2, 0, Tn));
+  if (err == cudaSuccess)
+    err = allow_smem(attn_bwd_dkdv_rs<HD>, smem_bytes<HD>(2, 2, 3, Tn, 16));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_dq_rs<HD><<<Z * n_strips, THREADS, smem_bytes<HD>(2, 2, 0, Tn),
+                       stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dq), static_cast<float*>(stats), Tn, n_strips);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  attn_bwd_dkdv_rs<HD><<<Z * n_strips, THREADS,
+                         smem_bytes<HD>(2, 2, 3, Tn, 16), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<const float*>(stats), Tn, n_strips);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hd (a multiple of 8 up to 64) as a template argument
+template <typename F>
+int by_hd(int hd, F f) {
+  switch (hd) {
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 24: return f(std::integral_constant<int, 24>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 40: return f(std::integral_constant<int, 40>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 56: return f(std::integral_constant<int, 56>{});
+    default: return f(std::integral_constant<int, 64>{});
+  }
+}
+
+}  // namespace rs
+
 template <typename T, int HDP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, int Z,
                int Tn, int hd, cudaStream_t stream) {
@@ -612,7 +1259,8 @@ extern "C" {
 int flash_attention_max_t() { return T_MAX; }
 
 // o [Z, T, hd] = softmax(q k^T) v. dtype: 0 = float32, 1 = bfloat16 (q, k, v
-// and o). Returns a cudaError_t.
+// and o); bf16 with T <= 256 runs the register-resident kernels. Returns a
+// cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int Z, int T, int hd, int dtype, void* stream) {
   if (bad_shape(Z, T, hd)) return static_cast<int>(cudaErrorInvalidValue);
@@ -622,6 +1270,10 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     if (hd <= 32) return launch_fwd<float, 32>(q, k, v, o, Z, T, hd, s);
     return launch_fwd<float, 64>(q, k, v, o, Z, T, hd, s);
   }
+  if (dtype == 1 && T <= rs::T_REG)
+    return rs::by_hd(hd, [&](auto HD) {
+      return rs::launch_fwd<decltype(HD)::value>(q, k, v, o, Z, T, s);
+    });
   if (dtype == 1) {
     if (hd <= 16)
       return launch_fwd<__nv_bfloat16, 16>(q, k, v, o, Z, T, hd, s);
@@ -650,6 +1302,11 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
     return launch_bwd<float, 64>(q, k, v, dout, dq, dk, dv, stats, Z, T, hd,
                                  s);
   }
+  if (dtype == 1 && T <= rs::T_REG)
+    return rs::by_hd(hd, [&](auto HD) {
+      return rs::launch_bwd<decltype(HD)::value>(q, k, v, dout, dq, dk, dv,
+                                                  stats, Z, T, s);
+    });
   if (dtype == 1) {
     if (hd <= 16)
       return launch_bwd<__nv_bfloat16, 16>(q, k, v, dout, dq, dk, dv, stats,

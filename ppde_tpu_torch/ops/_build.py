@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -89,6 +90,44 @@ def build_all() -> float:
     if failed:
         raise RuntimeError("nvcc failed\n" + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def ptxas_report(log: str) -> list[str]:
+    """One line per kernel of an nvcc log: the kernel (``kernel_name``),
+    its registers and spills, and ptxas' performance remarks (C75xx, but
+    not the routine one on wgmma's registers)."""
+    out, kernel, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = kernel_name(line.split("'")[1])
+        elif "spill stores" in line:
+            spill = line.split(":", 1)[-1].strip()
+        elif "Used " in line:
+            out.append(f"{kernel}: {line.split(':', 1)[1].strip()}; {spill}")
+        elif "(C75" in line and "(C7519)" not in line:
+            out.append(line.strip()[:200])
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name for a mangled kernel name: its nested names (the
+    anonymous namespace left out) and its template arguments, e.g.
+    ``_ZN12_GLOBAL__N_12rs11attn_fwd_rsILi32EEEvPK...`` -> ``rs::attn_fwd_rs
+    <32>``."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    names = []
+    while (m := re.match(r"(\d+)", mangled[i:])) is not None:
+        n, i = int(m.group(1)), i + len(m.group(1))
+        names.append(mangled[i:i + n])
+        i += n
+    names = [n for n in names if not n.startswith("_GLOBAL__N_")] or [mangled]
+    args = ""
+    if mangled[i:i + 1] == "I":
+        toks = re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)",
+                          mangled[i + 1:mangled.find("EE", i) + 1])
+        args = "<" + ",".join(n or ("bf16" if b else "float")
+                              for n, b, _ in toks) + ">"
+    return "::".join(names) + args
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -14,11 +14,16 @@ backward kernel, which recomputes the weights from q and k (only q, k and v
 are saved for the backward pass).
 
 Bound on the H100: the bytes of the thin tensors (4 Z T hd elements forward,
-7 backward); the [Z, T, T] scores never reach device memory. The kernels
-keep 64 rows of scores against all T columns in shared memory and load 16
-bytes at a time, so they take 1 <= T <= 512 (``T_MAX``) and hd a multiple of
-8 up to 64 (``HD_MAX``); the wrapper raises beyond that. No atomics: outputs
-repeat bit for bit (see the .cu source).
+7 backward), and beside them the special function units' rate for the one
+exp per score (forward) or two (backward); the [Z, T, T] scores never reach
+device memory. In bf16 with T <= 256 the scores live in registers: in the
+forward and the dq half a warp holds its 16 score rows against all columns,
+in the dk/dv half its 16 keys against 16 queries at a time; otherwise
+(float32, or 256 < T <= 512) a block keeps 64 rows of scores against all T
+columns in shared memory. Both load 16 bytes at a time
+from 16-byte aligned tensors, so they take 1 <= T <= 512 (``T_MAX``) and hd
+a multiple of 8 up to 64 (``HD_MAX``); the wrapper raises beyond that. No
+atomics: outputs repeat bit for bit (see the .cu source).
 
 ``flash_attention`` and ``flash_attention_bwd`` run the plain versions for
 CPU tensors and the kernels for CUDA tensors; ``launches_fwd`` and
@@ -97,6 +102,9 @@ def _check(q, *others):
                              f"{tuple(q.shape)} and {tuple(t.shape)}")
     if not all(t.is_contiguous() for t in (q, *others)):
         raise ValueError("q, k, v (and dout) must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, *others)):
+        raise ValueError("q, k, v (and dout) must start on a 16-byte "
+                         "boundary (the kernels load 16 bytes at a time)")
     Z, T, hd = q.shape
     if Z < 1 or not 1 <= T <= T_MAX or not 8 <= hd <= HD_MAX or hd % 8:
         raise ValueError(f"kernels C and C' take Z >= 1, 1 <= T <= {T_MAX} "

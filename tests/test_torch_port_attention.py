@@ -149,3 +149,29 @@ def test_cpu_path_launches_no_kernel():
     attention_fused.flash_attention(q, k, v)
     attention_fused.flash_attention_bwd(q, k, v, d)
     assert (attention_fused.launches_fwd, attention_fused.launches_bwd) == n
+
+
+def test_kernel_input_checks():
+    """What the CUDA wrapper refuses before it launches a kernel, checked on
+    CPU tensors (the check does not look at the device): shapes, types,
+    contiguity, and a start off a 16-byte boundary (the kernels load 16
+    bytes at a time)."""
+    Z, T, hd = 2, 37, 24
+    q = torch.zeros((Z, T, hd), dtype=torch.bfloat16)
+    assert attention_fused._check(q, q, q) == (Z, T, hd)
+    flat = torch.zeros(Z * T * hd + 8, dtype=torch.bfloat16)
+    off = next(i for i in range(8) if (flat[i:].data_ptr() % 16) == 2)
+    shifted = flat[off:off + Z * T * hd].view(Z, T, hd)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        attention_fused._check(shifted, q, q)
+    with pytest.raises(ValueError, match="contiguous"):
+        attention_fused._check(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               q, q)
+    with pytest.raises(TypeError):
+        attention_fused._check(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="hd a multiple of 8"):
+        attention_fused._check(*[torch.zeros((Z, T, 20))] * 3)
+    with pytest.raises(ValueError, match="hd a multiple of 8"):
+        big = torch.zeros((1, attention_fused.T_MAX + 1, 8))
+        attention_fused._check(big, big, big)

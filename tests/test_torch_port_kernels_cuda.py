@@ -224,7 +224,14 @@ def _attn_tol(dtype):
 
 
 ATTN_SHAPES = [(4, 16, 8), (7, 33, 16), (6, 237, 24), (8, 64, 32),
-               (3, 130, 64), (2, 1, 24), (2, 512, 64), (5, 65, 48)]
+               (3, 130, 64), (2, 1, 24), (2, 512, 64), (5, 65, 48)] + [
+    # the edges of the tilings: 16-column groups and 64-row strips of the
+    # bf16 register kernels (T <= 256), the switch to the shared-memory
+    # kernels above 256, the largest T; hd an odd multiple of 8 (8, 24, 40:
+    # a last k8 step, rows unpadded in shared memory) and a multiple of 16
+    # (32, 64: rows padded by 8)
+    (3, T, hd) for T in (1, 15, 16, 17, 63, 64, 65, 237, 255, 256, 257, 512)
+    for hd in (8, 24, 32, 40, 64)]
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -254,6 +261,43 @@ def test_attention_bwd_kernel_matches_plain(dev, dtype, Z, T, hd):
             f"{name}: {m}"), **_attn_tol(dtype))
     again = attention_fused.flash_attention_bwd(q, k, v, dout)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("T", [64, 237, 512])
+def test_attention_kernels_wide_score_range(dev, dtype, T):
+    """Scores spread over about +-150: exp underflows to 0 for most columns
+    and overflows unless the row max is subtracted; the kernels must still
+    match the plain versions."""
+    Z, hd = 4, 24
+    q, k, v, dout = _qkv(Z, T, hd, dtype, dev, seed=T + 7, n=4)
+    q, k = (q.float() * 6.0).to(dtype), (k.float() * 6.0).to(dtype)
+    s = torch.einsum("zqd,zkd->zqk", q.float(), k.float())
+    assert s.abs().max() > 100.0
+    o = attention_fused.flash_attention(q, k, v)
+    got = attention_fused.flash_attention_bwd(q, k, v, dout)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o.float()).all()
+    torch.testing.assert_close(
+        o.float(), attention_fused.attention_plain(q, k, v).float(),
+        **_attn_tol(dtype))
+    want = attention_fused.attention_bwd_plain(q, k, v, dout)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert torch.isfinite(a.float()).all(), name
+        torch.testing.assert_close(a.float(), b.float(), msg=lambda m: (
+            f"{name}: {m}"), **_attn_tol(dtype))
+
+
+@pytest.mark.parametrize("Z,T,hd", [(320, 237, 24), (40, 256, 64),
+                                    (20, 512, 64)])
+def test_attention_bwd_kernel_repeats_bit_for_bit(dev, Z, T, hd):
+    """Kernel C' uses no atomics: three runs on the same inputs, at the
+    chunk-16 call of the transformer path and beside it, give equal bits."""
+    q, k, v, dout = _qkv(Z, T, hd, BF16, dev, seed=3, n=4)
+    runs = [attention_fused.flash_attention_bwd(q, k, v, dout)
+            for _ in range(3)]
+    for again in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], again))
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])

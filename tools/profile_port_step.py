@@ -15,10 +15,13 @@ traced window) and the card's name and power limit. ``--transformer`` adds
 the random-init transformer-S expert (lambda=1, chip_smoke.py's phase 6) and
 traces one line per chunking of its gradient (chunks of 16 chains, and one
 piece; default 128 chains, 5 steps). ``--kernels`` traces kernels A and B
-alone at GFP width (bf16, B = 128 and 1024) beside ``torch.addmm``: device
-microseconds per call by kernel name. ``--phases`` builds kernel B with
--DCNN_PHASE_CLOCKS and prints the clocks and microseconds each phase of one
-(sample, member) takes in block (0, 0) at B = 1024. Needs a CUDA device.
+alone at GFP width (bf16, B = 128 and 1024) beside ``torch.addmm``, and
+kernels C and C' at the transformer path's calls (bf16, (Z, T, hd) =
+(320, 237, 24) and (2560, 237, 24)) beside scaled_dot_product_attention:
+device microseconds per call by kernel name. ``--phases`` builds kernel B
+with -DCNN_PHASE_CLOCKS and prints the clocks and microseconds each phase of
+one (sample, member) takes in block (0, 0) at B = 1024. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -34,6 +37,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # potts_*; kernel B: fit_grad_kernel and cnn_member_reduce; C, C': attn_*)
 PORT_KERNELS = ("potts_", "fit_grad_kernel", "cnn_member_reduce", "attn_fwd",
                 "attn_bwd_dq", "attn_bwd_dkdv")
+# kernels C and C' at the transformer path's calls: chunks of 16 chains and
+# one piece (ESM2-S: 20 heads, T = 237 for GFP, hd = 24)
+ATTN_SHAPES = ((320, 237, 24), (2560, 237, 24))
 
 
 def busy_share(events, window_us):
@@ -66,13 +72,32 @@ def gfp_kernel_inputs(torch, dev, B):
             cnn_fused.prepare_ensemble(ens, torch.bfloat16), x)
 
 
-def trace_kernels(torch, dev, card) -> None:
-    """Device time by kernel name of one call of each wrapper and of
-    torch.addmm on kernel A's inputs."""
+def us_by_kernel(torch, fn, reps=20):
+    """Device microseconds per call of fn, by kernel name (torch.profiler
+    over reps calls after a warm-up call)."""
     from torch.profiler import ProfilerActivity, profile
-    from ppde_tpu_torch.ops import cnn_fused, potts_fused
 
-    reps = 20
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = e.name.replace("(anonymous namespace)::", "")[:70]
+            by_name[name] = by_name.get(name, 0.0) + e.device_time / reps
+    return by_name
+
+
+def trace_kernels(torch, dev, card) -> None:
+    """Device time by kernel name of one call of each wrapper: A and B
+    beside torch.addmm on A's inputs at GFP width, C and C' beside
+    scaled_dot_product_attention (forward, and forward + backward) at the
+    transformer path's shapes in bf16."""
+    from ppde_tpu_torch.ops import attention_fused, cnn_fused, potts_fused
+
     for B in (128, 1024):
         pp, xf, prep, x = gfp_kernel_inputs(torch, dev, B)
         calls = {"kernel_a": lambda: potts_fused.energy_and_grad(pp.W, pp.h,
@@ -82,18 +107,23 @@ def trace_kernels(torch, dev, card) -> None:
                                                                        x)}
         out = {"B": B, "card": card}
         for name, fn in calls.items():
-            fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(reps):
-                    fn()
-                torch.cuda.synchronize()
-            by_name: dict[str, float] = {}
-            for e in prof.events():
-                if e.device_type == torch.autograd.DeviceType.CUDA:
-                    by_name[e.name[:70]] = (by_name.get(e.name[:70], 0.0)
-                                            + e.device_time / reps)
-            out[name + "_us_by_kernel"] = by_name
+            out[name + "_us_by_kernel"] = us_by_kernel(torch, fn)
+        print(json.dumps(out), flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for Z, T, hd in ATTN_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(Z + T + hd)
+        q, k, v, dout = ((torch.randn((Z, T, hd), generator=gen, device=dev)
+                          * 0.5).to(torch.bfloat16) for _ in range(4))
+        qs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        calls = {"kernel_c": lambda: attention_fused.flash_attention(q, k, v),
+                 "kernel_c_bwd": lambda: attention_fused.flash_attention_bwd(
+                     q, k, v, dout),
+                 "sdpa": lambda: sdpa(q, k, v, scale=1.0),
+                 "sdpa_fwd_bwd": lambda: torch.autograd.grad(
+                     sdpa(*qs, scale=1.0), qs, dout)}
+        out = {"Z": Z, "T": T, "hd": hd, "card": card}
+        for name, fn in calls.items():
+            out[name + "_us_by_kernel"] = us_by_kernel(torch, fn)
         print(json.dumps(out), flush=True)
 
 
