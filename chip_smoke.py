@@ -27,7 +27,19 @@ no result line):
   6. the same sampler with the potts + transformer-S product of experts
      (random-init ESM2 at full width and depth, bf16, lambda=1): 128 chains
      with the transformer's gradient in chain chunks of 16 and in one
-     piece; counters as in 4.
+     piece; counters as in 4;
+  7. the directed-evolution CLI (``ppde_tpu_torch.scripts.directed_
+     evolution.main``, called in-process at its defaults but for the flags
+     below) on a GFP protein directory of seeded stand-ins in the reference
+     layouts (``scripts/seeded_protein.py``; no Potts artifact, so the
+     synthetic fallback), 128 chains, nmut_threshold 10, lambda 15: PPDE at
+     the default float32 and at bf16, PPDE-PT (8 levels, bf16), simulated
+     annealing and Random (200 steps), MALA-approx (100), CMA-ES (100
+     generations of 16). Each run's artifact set, shapes, finite values,
+     nmut budget (PPDE, PPDE-PT, SA) and saved best energies (against a fresh
+     evaluation, phase 4's tolerances) are checked; PPDE and PPDE-PT must
+     launch kernels A and B on every step (counters as in 4). The CLI's own
+     output goes to chiprun_out/chip_smoke_cli.log.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -39,11 +51,15 @@ kernels build at first use):
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -67,6 +83,23 @@ ATTN_CASES = ((320, 237, 24), (2560, 237, 24), (320, 237, 32),
               (320, 237, 64), (20, 512, 64), (7, 33, 16))
 TRANSFORMER_RUN = (128, 40, 20)                    # chains, steps, log_every
 TRANSFORMER_CHUNKS = (16, None)
+# phase 7: (label, sampler, steps, extra CLI flags) at CLI_CHAINS chains
+CLI_RUNS = (
+    ("PPDE-f32", "PPDE", 200, ()),
+    ("PPDE-bf16", "PPDE", 200, ("--compute_dtype", "bf16")),
+    ("PPDE-PT-bf16", "PPDE-PT", 200, ("--compute_dtype", "bf16",
+                                      "--pt_levels", "8")),
+    ("SA", "simulated_annealing", 200, ()),
+    ("Random", "Random", 200, ()),
+    ("MALA-approx", "MALA-approx", 100, ()),
+    ("CMAES", "CMAES", 100, ("--cmaes_population_size", "16")),
+)
+CLI_CHAINS, CLI_LOG_EVERY, CLI_NMUT = 128, 50, 10
+CLI_PROTEIN = "GFP_AEQVI_Sarkisyan2016"
+CLI_ARTIFACTS = ("config.txt", "population.npy", "pred_fitness_scores.npy",
+                 "oracle_fitness_scores.npy", "potts_scores.npy",
+                 "energy_scores.npy", "energy_history.npy",
+                 "fitness_history.npy", "summary.json")
 
 
 class CheckFailed(AssertionError):
@@ -514,6 +547,103 @@ def phase_transformer(torch, codec, energy_mod, potts, cnn, esm2, ppde,
     return runs, launches
 
 
+def check_cli_run(torch, runtime, args, run_dir, steps, dev):
+    """The checks of one CLI run's artifacts; returns its numbers."""
+    files = sorted(os.listdir(run_dir))
+    check(files == sorted(CLI_ARTIFACTS), f"{args.sampler}: artifacts {files}")
+    arr = {f[:-4]: np.load(os.path.join(run_dir, f)) for f in files
+           if f.endswith(".npy")}
+    n, L = CLI_CHAINS, len(GFP_WT)
+    n_hist = (steps + 1 if args.sampler != "CMAES" else
+              1 + sum((s + 1) % CLI_LOG_EVERY == 0 for s in range(1, steps)))
+    want = {"population": (n, L, 20), "energy_history": (n_hist, n),
+            "fitness_history": (n_hist, n)}
+    for name, a in arr.items():
+        check(a.shape == want.get(name, (n,)),
+              f"{args.sampler}: {name} has shape {a.shape}")
+        check(np.isfinite(a).all(), f"{args.sampler}: non-finite {name}")
+    pop = arr["population"]
+    check(np.allclose(pop.sum(-1), 1.0, atol=1e-6),
+          f"{args.sampler}: population rows are not one-hot")
+    wt = runtime.make_initial_protein_population(
+        os.path.join(args.protein_weights, args.protein), 1, "cpu")[0].numpy()
+    dist = (pop.argmax(-1) != wt.argmax(-1)).sum(-1)
+    if args.sampler in ("PPDE", "PPDE-PT", "simulated_annealing"):
+        check(dist.max() <= CLI_NMUT,
+              f"{args.sampler}: best distance {dist.max()} > {CLI_NMUT}")
+    # the saved best energies against a fresh evaluation of the saved
+    # population (plain forward path), phase 4's tolerances
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # the synthetic Potts
+        en = runtime.build_protein_energy(args, dev)[0]
+    with torch.no_grad():
+        e = en.energy(en.params, torch.from_numpy(pop).to(dev))[0]
+    e = e.cpu().numpy()
+    err = float(np.abs(e - arr["energy_scores"]).max())
+    check(np.allclose(e, arr["energy_scores"], rtol=1e-3, atol=2e-2),
+          f"{args.sampler}: best energies off a fresh evaluation by {err}")
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        summary = json.load(f)
+    return {"best_energy_max_abs_err_vs_fresh": err,
+            "best_energy_median": float(np.median(arr["energy_scores"])),
+            "initial_energy": float(arr["energy_history"][0, 0]),
+            "max_distance_best": int(dist.max()),
+            "diversity_pct": summary["diversity_pct"],
+            "steps_per_sec": summary["steps_per_sec"],
+            "wall_steps_per_sec": summary["wall_steps_per_sec"]}
+
+
+def phase_cli(torch, counters, dev, card):
+    """The directed-evolution CLI end to end, every sampler, GFP width."""
+    from ppde_tpu_torch import runtime
+    from ppde_tpu_torch.scripts import directed_evolution as de
+    from ppde_tpu_torch.scripts import seeded_protein
+
+    runs, launches = [], {name: 0 for name in counters}
+    log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_cli.log")
+    with tempfile.TemporaryDirectory() as tmp, open(log_path, "w") as log:
+        t0 = time.perf_counter()
+        seeded_protein.write_protein_dir(tmp, CLI_PROTEIN, GFP_WT, seed=0)
+        print(f"cli set-up {time.perf_counter() - t0:.2f} s", flush=True)
+        for label, sampler, steps, extra in CLI_RUNS:
+            args = de.build_parser().parse_args([
+                "--protein_weights", tmp, "--protein", CLI_PROTEIN,
+                "--results_path", os.path.join(tmp, "results"),
+                "--sampler", sampler, "--run_signature", label,
+                "--n_iters", str(steps), "--n_chains", str(CLI_CHAINS),
+                "--log_every", str(CLI_LOG_EVERY),
+                "--nmut_threshold", str(CLI_NMUT), "--energy_lamda", "15",
+                "--disable_MSA_transformer_scoring", *extra])
+            check(args.device == "cuda", "the CLI's default device is not "
+                  "cuda")
+            out = io.StringIO()
+            reset_counters(counters)
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                run_dir = de.main(args)
+            main_s = time.perf_counter() - t
+            got = read_counters(counters)
+            log.write(f"==== {label}\n{out.getvalue()}")
+            for name, n in got.items():
+                launches[name] += n
+            if sampler in ("PPDE", "PPDE-PT"):
+                check(got["potts_energy"] >= steps
+                      and got["cnn_ensemble"] >= steps,
+                      f"{label}: kernel launches {got} < {steps} steps")
+            wt_line = next(line for line in out.getvalue().splitlines()
+                           if line.startswith("WT protein energy"))
+            r = check_cli_run(torch, runtime, args, run_dir, steps, dev)
+            r.update({"run": label, "sampler": sampler, "steps": steps,
+                      "n_chains": CLI_CHAINS,
+                      "compute_dtype": args.compute_dtype,
+                      "wt_energy_line": wt_line, "main_s": main_s,
+                      "launches": got, "card": card})
+            runs.append(r)
+            print("cli", json.dumps(r), flush=True)
+    return runs, launches
+
+
 def attention_row(c, c1, way, launches, line):
     """The kernels line's row of kernel C (way "fwd") or C' ("bwd"): the
     chunk-16 call c as the headline, the one-piece call c1 beside it."""
@@ -575,20 +705,23 @@ def main() -> int:
         "attention": lambda: phase_attention(torch, attention_fused, dev),
         "transformer": lambda: phase_transformer(
             torch, codec, energy_mod, potts, cnn, esm2, ppde, counters, dev,
-            card)}
+            card),
+        "cli": lambda: phase_cli(torch, counters, dev, card)}
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     got = {}
     for name, run in phases.items():
         t = time.perf_counter()
         got[name] = run()
         print(f"phase {name} {time.perf_counter() - t:.1f} s", flush=True)
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
     pa, pb, pc = got["potts"], got["cnn"], got["attention"]
     runs, launches = got["sampler"]
     tr_runs, tr_launches = got["transformer"]
-    for name, n in tr_launches.items():
-        launches[name] += n
+    cli_runs, cli_launches = got["cli"]
+    for more in (tr_launches, cli_launches):
+        for name, n in more.items():
+            launches[name] += n
 
     # one headline case per kernel: the 1024-chain population in bf16 for A
     # and B, the chunk-16 call of the transformer path in bf16 for C and C'
@@ -621,7 +754,8 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernel_a": pa,
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,
-                   "transformer_sampler": tr_runs, **kernels}, f, indent=1)
+                   "transformer_sampler": tr_runs, "cli": cli_runs,
+                   **kernels}, f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

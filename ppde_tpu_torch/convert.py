@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from ppde_tpu_torch import utils
+from ppde_tpu_torch.models.oracle import LinearOracleParams
 from ppde_tpu_torch.models.potts import PottsParams
 
 
@@ -52,3 +53,14 @@ def esm2_from_numpy(tree, device="cuda"):
     as ``jax.tree.map(np.asarray, params)`` gives it, with ``wt_score`` and
     ``perm`` when the tree is an expert's) as the port's dict of tensors."""
     return _tree(tree, utils.resolve_device(device))
+
+
+def oracle_from_numpy(coef, intercept, inv_sqrt_reg, potts_params: PottsParams,
+                      device="cuda") -> LinearOracleParams:
+    """LinearOracleParams from the JAX package's coef [S, 1+L*V], intercept
+    [S] and inv_sqrt_reg [S], over the port's ``potts_params``."""
+    device = utils.resolve_device(device)
+    return LinearOracleParams(coef=_tensor(coef, device),
+                              intercept=_tensor(intercept, device),
+                              inv_sqrt_reg=_tensor(inv_sqrt_reg, device),
+                              potts=potts_params)

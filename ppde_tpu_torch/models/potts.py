@@ -14,11 +14,13 @@ kernel A on a CUDA tensor, its plain version on a CPU tensor.
 from __future__ import annotations
 
 import dataclasses
+import os
+import pickle
 
 import numpy as np
 import torch
 
-from ppde_tpu_torch import codec, utils
+from ppde_tpu_torch import codec, io as pio, utils
 from ppde_tpu_torch.ops import potts_fused
 
 VOCAB = codec.VOCAB_SIZE
@@ -123,20 +125,44 @@ def _with_wt_H(W: np.ndarray, h: np.ndarray, L: int, min_pos: int,
     return params
 
 
+def _build(J, h, index_list, reg_coef: float, offset: int, wt_seq: str,
+           dtype, device) -> PottsParams:
+    """PottsParams from J [L,L,V,V], h [L,V] and the window's absolute
+    residue numbers ``index_list`` (window = index_list - offset)."""
+    L = np.asarray(h).shape[0]
+    W = _flatten_couplings(np.asarray(J, np.float64)).astype(np.float32)
+    hf = np.asarray(h, np.float32).reshape(L * VOCAB)
+    P = _pad_up(L * VOCAB)
+    W = np.pad(W, ((0, P - W.shape[0]), (0, P - W.shape[1])))
+    hf = np.pad(hf, (0, P - hf.shape[0]))
+    idx = np.asarray(index_list) - int(offset)
+    return _with_wt_H(W, hf, L, int(idx[0]), int(idx[-1]), float(reg_coef),
+                      wt_seq, dtype, device)
+
+
 def load_npz(path: str, wt_seq: str, dtype=torch.float32,
              device="cuda") -> PottsParams:
     """Load parameters saved by ``save_npz`` of ``ppde_tpu/models/potts.py``
     (keys J [L,L,V,V], h [L,V], index_list, reg_coef, offset)."""
     z = np.load(path)
-    L = z["h"].shape[0]
-    W = _flatten_couplings(np.asarray(z["J"], np.float64)).astype(np.float32)
-    hf = np.asarray(z["h"], np.float32).reshape(L * VOCAB)
-    P = _pad_up(L * VOCAB)
-    W = np.pad(W, ((0, P - W.shape[0]), (0, P - W.shape[1])))
-    hf = np.pad(hf, (0, P - hf.shape[0]))
-    idx = np.asarray(z["index_list"]) - int(z["offset"])
-    return _with_wt_H(W, hf, L, int(idx[0]), int(idx[-1]),
-                      float(z["reg_coef"]), wt_seq, dtype, device)
+    return _build(z["J"], z["h"], z["index_list"], float(z["reg_coef"]),
+                  int(z["offset"]), wt_seq, dtype, device)
+
+
+def load_pickle(protein_dir: str, dtype=torch.float32,
+                device="cuda") -> PottsParams:
+    """Load the reference's potts.pkl + wt.fasta artifact pair (keys J_ij
+    [L,L,V,V], h_i [L,V], index_list of absolute residue numbers, reg_coef;
+    reference nets.py:244-262). The FASTA id gives the window offset:
+    '>NAME/START-END' -> START, else 1."""
+    with open(os.path.join(protein_dir, "potts.pkl"), "rb") as f:
+        p = pickle.load(f)
+    wt_seqs, wt_ids = pio.read_fasta(
+        os.path.join(protein_dir, "wt.fasta"), return_ids=True)
+    offset = (int(wt_ids[0].split("/")[-1].split("-")[0])
+              if "/" in wt_ids[0] else 1)
+    return _build(p["J_ij"], p["h_i"], p["index_list"], p["reg_coef"],
+                  offset, wt_seqs[0], dtype, device)
 
 
 def synthetic(wt_seq: str, min_pos: int = 0, max_pos: int | None = None,

@@ -1,0 +1,202 @@
+"""Run assembly: build energies, oracles and initial populations.
+
+Counterpart of ``ppde_tpu/runtime.py`` (the protein parts): the glue the
+reference keeps in its entry script (scripts/directed_evolution.py:21-81),
+factored into a library so the CLI, tests and chip_smoke.py construct
+identical runs. Every function that makes tensors takes a ``device``. The
+JAX package's ``enable_compile_cache`` has no counterpart; ``apply_mesh``
+waits for the multi-device port.
+"""
+from __future__ import annotations
+
+import json
+import os
+import warnings
+
+import numpy as np
+import torch
+
+from ppde_tpu_torch import codec, convert, energy as energy_mod, io as pio
+from ppde_tpu_torch import metrics, utils
+from ppde_tpu_torch.models import oracle as oracle_mod, potts as potts_mod
+from ppde_tpu_torch.models import torch_convert
+
+
+def load_potts(protein_dir: str, allow_synthetic: bool = True,
+               dtype=torch.float32, device="cuda") -> potts_mod.PottsParams:
+    """Load Potts params: potts.pkl (reference artifact) > potts.npz (the
+    JAX package's fitter's artifact) > deterministic synthetic fallback.
+
+    The reference's potts.pkl blobs are missing from its repo; the JAX
+    package's ``scripts/fit_potts.py`` makes npz params from an MSA.
+    """
+    pkl = os.path.join(protein_dir, "potts.pkl")
+    npz = os.path.join(protein_dir, "potts.npz")
+    wt_seqs = pio.read_fasta(os.path.join(protein_dir, "wt.fasta"))
+    if os.path.exists(pkl):
+        return potts_mod.load_pickle(protein_dir, dtype, device)
+    if os.path.exists(npz):
+        return potts_mod.load_npz(npz, wt_seqs[0], dtype, device)
+    if not allow_synthetic:
+        raise FileNotFoundError(f"no potts.pkl/potts.npz under {protein_dir}")
+    warnings.warn(
+        f"{protein_dir}: no Potts artifact found (the reference repo's "
+        "potts.pkl is a missing blob) — using deterministic synthetic "
+        "parameters. Fit real ones with scripts/fit_potts.py.")
+    return potts_mod.synthetic(wt_seqs[0], seed=0, dtype=dtype,
+                               device=device)
+
+
+def load_supervised_ensemble(protein_dir: str, n_members: int = 3,
+                             device="cuda"):
+    """The reference OnehotCNN checkpoints as a stacked ensemble."""
+    paths = [os.path.join(protein_dir, f"onehot_cnn_seed={i}.pt")
+             for i in range(n_members)]
+    return convert.cnn_ensemble_from_numpy(
+        torch_convert.onehot_cnn_ensemble(paths), device)
+
+
+def resolve_esm_chunk(esm_chunk: int, has_transformer: bool,
+                      n_chains: int) -> int | None:
+    """Map the --esm_chunk flag to an energy chunk_size.
+
+    0 -> auto: 16 when a transformer expert is present and the population
+    is big enough to chunk; otherwise one piece. -1 -> one piece. Positive
+    -> used as given.
+    """
+    if esm_chunk < 0:
+        return None
+    if esm_chunk > 0:
+        return esm_chunk
+    return 16 if (has_transformer and n_chains > 16) else None
+
+
+def build_protein_energy(args, device="cuda"):
+    """Construct (energy, oracle=(params, apply), potts_params,
+    oracle_params) for a protein run.
+
+    args needs: protein_weights, protein, energy_function,
+    unsupervised_expert, energy_lamda, n_chains, and optionally potts_npz,
+    esm_weights, allow_random_esm, compute_dtype, cnn_chunk, pool_bwd,
+    esm_chunk.
+    """
+    device = utils.resolve_device(device)
+    protein_dir = os.path.join(args.protein_weights, args.protein)
+    wt_seqs = pio.read_fasta(os.path.join(protein_dir, "wt.fasta"))
+    wt_onehot = torch.from_numpy(codec.seqs_to_onehot(wt_seqs)).to(device)
+    sup = load_supervised_ensemble(protein_dir, device=device)
+
+    potts_npz = getattr(args, "potts_npz", None)
+    if potts_npz:
+        # an explicit fit: the expert energy and the oracle's evolutionary
+        # feature both take this same params object
+        pp = potts_mod.load_npz(potts_npz, wt_seqs[0], device=device)
+    else:
+        pp = load_potts(protein_dir, device=device)
+
+    # 'potts+transformer[-S/M/L]' composes PoE terms (reference
+    # energy.py:83-89); the esm2 config key is the transformer part alone
+    experts = args.unsupervised_expert.split("+")
+    esm_name = next((e for e in experts if e.startswith("transformer")),
+                    None)
+    transformer = None
+    if esm_name is not None:
+        from ppde_tpu_torch.models import esm2
+
+        transformer = esm2.load_expert(
+            esm_name, wt_seqs[0],
+            weights_path=getattr(args, "esm_weights", None),
+            allow_random=getattr(args, "allow_random_esm", False),
+            device=device)
+
+    cdt = (torch.bfloat16 if getattr(args, "compute_dtype", "f32") == "bf16"
+           else None)
+    cnn_chunk = getattr(args, "cnn_chunk", 0) or None
+    if cnn_chunk is None and args.n_chains > 256:
+        cnn_chunk = 128
+    pool_bwd = getattr(args, "pool_bwd", "split")
+    if args.energy_function == "supervised":
+        en = energy_mod.protein_supervised(sup, wt_onehot, compute_dtype=cdt,
+                                           cnn_chunk=cnn_chunk,
+                                           pool_bwd=pool_bwd)
+    else:
+        chunk = resolve_esm_chunk(getattr(args, "esm_chunk", 0),
+                                  transformer is not None, args.n_chains)
+        en = energy_mod.protein_poe(
+            pp if "potts" in experts else None, sup, args.energy_lamda,
+            wt_onehot, transformer=transformer, chunk_size=chunk,
+            compute_dtype=cdt, cnn_chunk=cnn_chunk, pool_bwd=pool_bwd)
+
+    orc = oracle_mod.load(protein_dir, potts_params=pp, device=device)
+    return en, (orc, oracle_mod.apply), pp, orc
+
+
+def make_initial_protein_population(protein_dir: str, n_chains: int,
+                                    device="cuda") -> torch.Tensor:
+    """n_chains copies of the wild type's one-hot [n_chains, L, V]."""
+    wt_seqs = pio.read_fasta(os.path.join(protein_dir, "wt.fasta"))
+    wt_onehot = torch.from_numpy(codec.seqs_to_onehot(wt_seqs))
+    return wt_onehot.repeat(n_chains, 1, 1).to(utils.resolve_device(device))
+
+
+def potts_provenance(protein_dir: str, potts_npz: str | None = None) -> str:
+    """Which Potts parameters a run used: 'reference-pkl', 'refit' (an npz
+    in the protein directory), 'npz:<path>' (an explicit --potts_npz), or
+    'synthetic' (the deterministic fallback)."""
+    if potts_npz:
+        return f"npz:{potts_npz}"
+    if os.path.exists(os.path.join(protein_dir, "potts.pkl")):
+        return "reference-pkl"
+    if os.path.exists(os.path.join(protein_dir, "potts.npz")):
+        return "refit"
+    return "synthetic"
+
+
+def _q(v, qs=(0.2, 0.4, 0.5, 0.6, 0.8, 0.9, 1.0)):
+    v = np.asarray(v, dtype=np.float64)
+    return {f"p{int(q * 100)}": round(float(np.quantile(v, q)), 4)
+            for q in qs}
+
+
+def cell_summary(args, run_dir, *, population, wt_onehot, oracle_scores,
+                 fitness, energy, potts_scores, steps_per_sec,
+                 wall_steps_per_sec, potts_provenance) -> dict:
+    """Machine-readable summary of a run (the JAX package's keys):
+    diversity, exploration, score quantiles, throughput, and the config
+    and provenance needed to read them without the run directory. The
+    MSA-Transformer density keys wait for the metrics port."""
+    em, es = metrics.exploration(population, wt_onehot)
+    summary = {
+        "protein": args.protein,
+        "sampler": args.sampler,
+        "seed": args.seed,
+        "n_iters": args.n_iters,
+        "n_chains": args.n_chains,
+        "energy_function": args.energy_function,
+        "unsupervised_expert": args.unsupervised_expert,
+        "energy_lamda": args.energy_lamda,
+        "nmut_threshold": args.nmut_threshold,
+        "reference_reverse": bool(getattr(args, "ppde_reference_reverse",
+                                          False)),
+        "run_signature": args.run_signature,
+        "potts_provenance": potts_provenance,
+        "diversity_pct": round(metrics.diversity_pct(population), 2),
+        "exploration_mean": round(em, 3),
+        "exploration_std": round(es, 3),
+        "oracle_logfit": _q(oracle_scores),
+        "pred_fitness": _q(fitness),
+        "energy": _q(energy),
+        "potts_delta": _q(potts_scores),
+        "steps_per_sec": round(float(steps_per_sec), 2),
+        "wall_steps_per_sec": round(float(wall_steps_per_sec), 2),
+        "run_dir": str(run_dir),
+        "summary_json": getattr(args, "summary_json", "") or None,
+    }
+    return summary
+
+
+def dump_config(args, path):
+    with open(path, "w") as f:
+        plain = (int, float, str, bool, type(None))
+        json.dump({k: (v if isinstance(v, plain) else str(v))
+                   for k, v in vars(args).items()}, f, indent=2)

@@ -54,6 +54,43 @@ def _sync(state) -> None:
         torch.cuda.synchronize(t.device)
 
 
+class Draws:
+    """The random numbers of sampler steps, drawn from one torch.Generator
+    on the sampler's device. Each sampler documents the order in which its
+    step asks for them, so that a test can replay another source (the JAX
+    package's draws) through an object with the same methods."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+        self.device = generator.device
+
+    def path_lengths(self, n: int, high: int) -> torch.Tensor:
+        """[n] integers in [1, high)."""
+        return torch.randint(1, high, (n,), generator=self.generator,
+                             device=self.device)
+
+    def gumbel(self, shape) -> torch.Tensor:
+        # -log(E), E ~ Exp(1): the Gumbel(0, 1) law in three launches
+        e = torch.empty(shape, device=self.device)
+        return e.exponential_(generator=self.generator).log_().neg_()
+
+    def uniform(self, shape) -> torch.Tensor:
+        """U[0, 1) of ``shape`` (an int n gives [n])."""
+        return torch.rand(shape, generator=self.generator, device=self.device)
+
+    def normal(self, shape) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator, device=self.device)
+
+    def poisson(self, rate: torch.Tensor) -> torch.Tensor:
+        """Poisson(rate) counts, elementwise, as float."""
+        return torch.poisson(rate, generator=self.generator)
+
+    def randint(self, high: int, shape) -> torch.Tensor:
+        """Integers in [0, high)."""
+        return torch.randint(0, high, shape, generator=self.generator,
+                             device=self.device)
+
+
 def run_segmented(*, step_fn: Callable, ctx: Any, init_state: Any,
                   draws: Any, num_steps: int, log_every: int,
                   oracle_fn: Callable | None = None,
@@ -63,8 +100,7 @@ def run_segmented(*, step_fn: Callable, ctx: Any, init_state: Any,
 
     step_fn: (ctx, state, draws) -> (state, ys); ys is a dict of per-step
     records (at minimum 'energy' and 'fitness', each [n_chains]).
-    draws: the source of every random number a step uses (see
-    ``samplers.protein.ppde.Draws``).
+    draws: the source of every random number a step uses (``Draws``).
     oracle_fn: (ctx, state) -> [n_chains] ground-truth scores.
     """
     state = init_state

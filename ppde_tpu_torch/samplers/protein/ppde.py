@@ -32,6 +32,7 @@ import torch
 from ppde_tpu_torch import utils
 from ppde_tpu_torch.energy import Energy
 from ppde_tpu_torch.samplers import base
+from ppde_tpu_torch.samplers.base import Draws
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,28 +46,6 @@ class PPDEConfig:
     # 0; protein_samplers/ppde.py:126-132) and is biased toward high
     # energies. False = the true reverse moves (see the JAX package).
     reference_reverse: bool = False
-
-
-class Draws:
-    """The random numbers of PPDE steps, drawn from one torch.Generator on
-    the sampler's device."""
-
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
-
-    def path_lengths(self, n: int, high: int) -> torch.Tensor:
-        """[n] integers in [1, high)."""
-        return torch.randint(1, high, (n,), generator=self.generator,
-                             device=self.generator.device)
-
-    def gumbel(self, shape) -> torch.Tensor:
-        # -log(E), E ~ Exp(1): the Gumbel(0, 1) law in three launches
-        e = torch.empty(shape, device=self.generator.device)
-        return e.exponential_(generator=self.generator).log_().neg_()
-
-    def uniform(self, n: int) -> torch.Tensor:
-        return torch.rand((n,), generator=self.generator,
-                          device=self.generator.device)
 
 
 def _pick(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -92,12 +71,18 @@ def position_log_weights(lA, g_wt, g_tok, revertible, over):
 
 
 def make_step(energy: Energy, cfg: PPDEConfig, window_ok: torch.Tensor,
-              n: int, L: int, V: int):
+              n: int, L: int, V: int, tempered: bool = False):
     """The outer-step function (ctx, state, draws) -> (state, ys).
 
     ctx must hold 'energy' (params), 'wt' [L,V], 'init_x' [N,L,V] and the
     wild-type constants 'wt_e', 'wt_fit', 'wt_grad' (plus 'init_e',
     'init_fit', 'init_grad' with paper_results).
+
+    tempered: ctx also holds per-chain inverse temperatures 'beta' [N]; a
+    chain then targets pi(x) ~ exp(beta * E(x)): the proposals take
+    beta * grad and the MH ratio beta * dE. The carried grad stays the raw
+    dE/dx, so states swap between levels without rescaling
+    (``samplers/protein/pt.py``). beta == 1 gives the plain step's values.
     """
     max_u = max(2 * cfg.pas_length - 1, 1)
     nmut = (cfg.nmut_threshold if cfg.nmut_threshold > 0
@@ -108,13 +93,17 @@ def make_step(energy: Energy, cfg: PPDEConfig, window_ok: torch.Tensor,
         wt = ctx["wt"]
         wt_tok = wt.argmax(-1)                                      # [L]
         wt_in_win = (window_ok & (wt > 0)).any(-1)                  # [L]
+        beta3 = ctx["beta"][:, None, None] if tempered else None
 
         U = draws.path_lengths(n, 2 * cfg.pas_length)               # [N]
         u_mask = (torch.arange(max_u, device=U.device)[:, None]
                   < U[None, :])                                     # [max_u,N]
 
         # ---- forward path over token sequences (factored proposals) ----
-        gx = grad_x.float() / cfg.temp                              # [N,L,V]
+        gx = grad_x.float()
+        if tempered:
+            gx = gx * beta3
+        gx = gx / cfg.temp                                          # [N,L,V]
         v_logits = torch.where(window_ok[None], gx, utils.NEG_INF)
         lA = torch.logsumexp(v_logits, -1)                          # [N,L]
         g_wt = gx.gather(2, wt_tok.expand(n, L)[..., None])[..., 0]
@@ -158,7 +147,10 @@ def make_step(energy: Energy, cfg: PPDEConfig, window_ok: torch.Tensor,
         # grad_y-anchored temp-2 proposal. The true reverse move re-sets
         # position l_t to the OLD value o_t: logit gy[l_t, o_t] - gy[l_t,
         # v_t]; the reference gathers (l_t, v_t), whose logit is 0.
-        gy = grad_y.float() / 2.0
+        gy = grad_y.float()
+        if tempered:
+            gy = gy * beta3
+        gy = gy / 2.0
         lsY = torch.logsumexp(gy, -1)                               # [N,L]
         gy_tok = gy.gather(2, tok0[..., None])[..., 0]              # [N,L]
         rev_logps = []
@@ -174,7 +166,10 @@ def make_step(energy: Energy, cfg: PPDEConfig, window_ok: torch.Tensor,
         log_ratio = (u_mask * (torch.stack(rev_logps)
                                - torch.stack(fwd_logps))).sum(0)
 
-        log_acc = (e_prop - e_cur) + log_ratio
+        d_e = e_prop - e_cur
+        if tempered:
+            d_e = d_e * ctx["beta"]
+        log_acc = d_e + log_ratio
         accepted = torch.exp(log_acc) >= draws.uniform(n)
         acc3 = accepted.reshape(n, 1, 1)
         fallback = ctx["init_x"] if cfg.paper_results else cur_x

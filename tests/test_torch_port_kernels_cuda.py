@@ -366,3 +366,115 @@ def test_esm2_tiny_on_card_matches_cpu(dev, dtype, tol):
     assert attention_fused.launches_bwd == n_b + 2
     torch.testing.assert_close(y1.cpu(), y0, **tol)
     torch.testing.assert_close(g1.cpu(), g0, **tol)
+
+
+# ---------------------------------------------------------------------------
+# the directed-evolution run on the card
+# ---------------------------------------------------------------------------
+
+CLI_WT = "MKTAYIAKQRQISFVKSHFSRQLEERLGLI"  # 30 residues
+
+
+@pytest.fixture(scope="module")
+def protein_root(tmp_path_factory):
+    from ppde_tpu_torch.scripts import seeded_protein
+
+    root = str(tmp_path_factory.mktemp("weights"))
+    seeded_protein.write_protein_dir(root, "P", CLI_WT, seed=0)
+    return root
+
+
+@pytest.mark.parametrize("sampler,extra", [
+    ("PPDE", ()), ("PPDE", ("--compute_dtype", "bf16")),
+    ("PPDE-PT", ("--compute_dtype", "bf16", "--pt_levels", "4"))])
+def test_cli_launches_a_and_b_on_every_step(dev, protein_root, tmp_path,
+                                            sampler, extra):
+    """A tiny CLI run on the card: one launch of kernel A and one of kernel
+    B per step (and one for the initial state); the wild-type energy line,
+    the oracle and the artifacts need no kernel."""
+    from ppde_tpu_torch.scripts import directed_evolution as de
+
+    steps = 6
+    args = de.build_parser().parse_args([
+        "--protein_weights", protein_root, "--protein", "P",
+        "--results_path", str(tmp_path), "--n_iters", str(steps),
+        "--n_chains", "8", "--log_every", "3", "--nmut_threshold", "4",
+        "--energy_lamda", "3", "--disable_MSA_transformer_scoring",
+        "--sampler", sampler, *extra])
+    assert args.device == "cuda"
+    a0, b0 = potts_fused.launches, cnn_fused.launches
+    run_dir = de.main(args)
+    assert potts_fused.launches - a0 == steps + 1
+    assert cnn_fused.launches - b0 == steps + 1
+    e = np.load(run_dir / "energy_scores.npy")
+    assert e.shape == (8,) and np.isfinite(e).all()
+
+
+def _sampler_setup(dev, protein_root):
+    import types
+
+    from ppde_tpu_torch import runtime
+
+    args = types.SimpleNamespace(
+        protein_weights=protein_root, protein="P",
+        energy_function="product_of_experts", unsupervised_expert="potts",
+        energy_lamda=3.0, n_chains=8, compute_dtype="bf16")
+    en, _, pp, _ = runtime.build_protein_energy(args, dev)
+    pop = runtime.make_initial_protein_population(
+        f"{protein_root}/P", 8, dev)
+    return en, pop, pp
+
+
+def _no_sync(fn, n=4):
+    """Call fn n times with PyTorch's sync debugging set to raise on any
+    operation that waits for the device (.item(), a copy to the host,
+    nonzero, ...)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_sa_and_pt_steps_do_not_sync(dev, protein_root):
+    """Steps of SA (device generator: Poisson, Gumbel, randint, uniform)
+    and of PPDE-PT queue on the card with no host synchronisation."""
+    from ppde_tpu_torch import utils
+    from ppde_tpu_torch.samplers import base
+    from ppde_tpu_torch.samplers.protein import pt, sa
+
+    en, pop, pp = _sampler_setup(dev, protein_root)
+    n, L, V = pop.shape
+    draws = base.Draws(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        e0, f0 = en.energy(en.params, pop)
+        mu = 1.5 * draws.uniform(n) + 1.0
+        ctx = {"energy": en.params, "wt": pop[0], "init_x": pop, "mu": mu}
+        sa_step = sa.make_step(en, sa.SAConfig(temp=1.0, nmut_threshold=4),
+                               pp.min_pos, pp.max_pos, n)
+        state = [(pop, e0, f0, 0, (e0, f0, pop))]
+
+        def one_sa():
+            state[0], _ = sa_step(ctx, state[0], draws)
+
+        _no_sync(one_sa)
+        assert state[0][3] == 4
+
+        cfg = pt.PTConfig(nmut_threshold=4, n_levels=4)
+        window_ok = utils.position_window_mask(L, V, pp.min_pos, pp.max_pos,
+                                               dev)
+        e0, f0, g0 = en.energy_and_grad(en.params, pop)
+        pctx = {"energy": en.params, "wt": pop[0], "init_x": pop,
+                "beta": torch.from_numpy(pt.ladder(n, cfg)).to(dev),
+                "wt_e": e0[0], "wt_fit": f0[0], "wt_grad": g0[0]}
+        pt_step = pt.make_pt_step(en, cfg, window_ok, n, L, V)
+        pstate = [((pop, (e0, f0, g0), (e0, f0, pop)), 0)]
+
+        def one_pt():
+            pstate[0], _ = pt_step(pctx, pstate[0], draws)
+
+        _no_sync(one_pt)
+        assert pstate[0][1] == 4
