@@ -7,13 +7,16 @@ Phases (any failed check raises; the script then exits non-zero and prints
 no result line):
   1. the card (nvidia-smi name and power limit) and the kernels' build;
   2. kernel A (fused Potts energy + gradient) against its plain version at
-     GFP width (P = 4864), B in {128, 1024, 1000}, float32 and bfloat16 (the
-     symmetric couplings, and a copy made asymmetric: the kernel must give
-     xf @ W, not xf @ W.T), timed beside torch.addmm;
+     GFP width (P = 4864), B in {128, 1024, 1000}, float32 (three bf16
+     planes) and bfloat16, each on the symmetric couplings and on a copy
+     made asymmetric (the kernel must give xf @ W, not xf @ W.T); from
+     couplings prepared once, as the sampler has them, and from W and h
+     (the same bits); timed beside torch.addmm;
   3. kernel B (fused CNN-ensemble fitness + input gradient) against its
      plain version at GFP width (M=3, C=237, L=237), same batches and types,
-     both max-pool backward modes, plus an input with exact ties; weights
-     prepared once, as the sampler has them, and in the stacked layout;
+     both max-pool backward modes, plus an input with exact ties and, in
+     float32, one that is not one-hot; weights prepared once, as the
+     sampler has them, and in the stacked layout;
   4. the PPDE-PAS sampler on GFP with the Potts + CNN-ensemble energy
      (synthetic seeded Potts, seeded 3-member ensemble, bf16, lambda=15,
      pas_length=2, nmut_threshold=10): 128 chains and 1024 chains. The
@@ -38,7 +41,9 @@ no result line):
      generations of 16). Each run's artifact set, shapes, finite values,
      nmut budget (PPDE, PPDE-PT, SA) and saved best energies (against a fresh
      evaluation, phase 4's tolerances) are checked; PPDE and PPDE-PT must
-     launch kernels A and B on every step (counters as in 4). The CLI's own
+     launch kernels A and B exactly once a step and once for the initial
+     state, A in float32 (the CLI's Potts model) and B in the run's type
+     (counters as in 4). The CLI's own
      output goes to chiprun_out/chip_smoke_cli.log.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
@@ -53,6 +58,7 @@ from __future__ import annotations
 
 import contextlib
 import io
+import itertools
 import json
 import os
 import subprocess
@@ -158,31 +164,52 @@ def random_onehot(torch, gen, B, L, dev):
 
 
 def phase_potts(torch, potts, potts_fused, dev):
-    """Kernel A vs plain at GFP width: float32 and bf16 on the model's
-    symmetric couplings, and bf16 on a W that is not symmetric."""
+    """Kernel A vs plain at GFP width: float32 (three bf16 planes) and bf16
+    on the model's symmetric couplings and on a W that is not symmetric;
+    from couplings prepared once, as the sampler has them, and from W and h
+    (prepared on the spot: the same bits)."""
     p32 = potts.synthetic(GFP_WT, seed=0, dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(11)
     P = p32.padded_dim
     out = []
-    for dtype, w_kind in ((torch.float32, "symmetric"),
-                          (torch.bfloat16, "symmetric"),
-                          (torch.bfloat16, "upper triangle")):
+    for dtype, w_kind in itertools.product(
+            (torch.float32, torch.bfloat16), ("symmetric", "upper triangle")):
         W, h = p32.W.to(dtype), p32.h.to(dtype)
         if w_kind == "upper triangle":
             W = torch.triu(W).contiguous()
         check(torch.equal(W, W.T) == (w_kind == "symmetric"),
               f"W is not as asked: {w_kind}")
         dn = str(dtype).split(".")[-1]
-        s = W.element_size()
+        prep = potts_fused.prepare(W, h)
+        if dtype == torch.float32:
+            check(torch.equal(prep.planes.float().sum(0), W),
+                  "kernel A: the planes do not sum to W")
+            # rows of one 1 each: the plain float32 result is W[k] + h,
+            # exactly, and so must the kernel's be, every plane (lo
+            # included) added without loss; all P rows (no split over K)
+            # and 128 of them (split)
+            eye = torch.eye(P, dtype=torch.bfloat16, device=dev)
+            for rows in (eye, eye[::P // 128][:128]):
+                He, ge = potts_fused.energy_and_grad(prep, None, rows)
+                He0, ge0 = potts_fused.energy_and_grad_plain(W, h, rows)
+                want = W[rows.float().argmax(-1)] + h
+                check(torch.equal(ge, ge0) and torch.equal(ge, want)
+                      and torch.equal(He, He0),
+                      f"kernel A {w_kind}, {rows.shape[0]} one-1 rows: not "
+                      f"W[k] + h bit for bit (max abs err "
+                      f"{(ge - ge0).abs().max().item()})")
+            del eye, rows, He, ge, He0, ge0, want
         for B in BATCHES:
             x = random_onehot(torch, gen, B, len(GFP_WT), dev)
-            xf = potts._pad_flat(p32, x, dtype)  # as the sampler's path does
+            # as the sampler's path does: one-hots padded and cast to bf16
+            xf = potts._pad_flat(p32, x, torch.bfloat16)
+            xw = xf.to(dtype)
 
             def kernel():
-                return potts_fused.energy_and_grad(W, h, xf)
+                return potts_fused.energy_and_grad(prep, None, xf)
 
             H, g = kernel()
-            H0, g0 = potts_fused.energy_and_grad_plain(W, h, xf)
+            H0, g0 = potts_fused.energy_and_grad_plain(W, h, xw)
             torch.cuda.synchronize()
             err_g = (g - g0).abs().max().item()
             err_H = (H - H0).abs().max().item()
@@ -196,15 +223,23 @@ def phase_potts(torch, potts, potts_fused, dev):
             H2, g2 = kernel()
             check(torch.equal(H, H2) and torch.equal(g, g2),
                   "kernel A is not deterministic")
+            H3, g3 = potts_fused.energy_and_grad(W, h, xf)
+            check(torch.equal(H, H3) and torch.equal(g, g3),
+                  "kernel A: W as it is and prepared disagree")
             ms = time_ms(kernel)
             plain = time_ms(
-                lambda: potts_fused.energy_and_grad_plain(W, h, xf))
-            lib = time_ms(lambda: torch.addmm(h, xf, W))
-            # bytes: each input read once (xf, W, h), outputs written once
-            # (grad, H); operations: the multiply-adds this one-hot input
-            # needs (2 per nonzero of xf per column of W)
+                lambda: potts_fused.energy_and_grad_plain(W, h, xw))
+            lib = time_ms(lambda: torch.addmm(h, xw, W))
+            # bytes: each input read once at its own size (xf bf16, W and
+            # h), outputs written once (grad, H float32); operations: the
+            # multiply-adds this one-hot input needs (2 per nonzero of xf
+            # per column of W)
             nnz = int(torch.count_nonzero(xf).item())
-            n_bytes = (B * P + P * P + P) * s + (B * P + B) * 4
+            n_bytes = (xf.numel() * xf.element_size()
+                       + W.numel() * W.element_size()
+                       + h.numel() * h.element_size()
+                       + g.numel() * g.element_size()
+                       + H.numel() * H.element_size())
             bms, by = bound_ms(n_bytes, 2 * nnz * P + 4 * B * P, dn)
             out.append({"B": B, "dtype": dn,
                         "W": w_kind,
@@ -265,6 +300,10 @@ def phase_cnn(torch, cnn, cnn_fused, dev):
         base.repeat(1, -(-L // 5))[:, :L], 20).float()
     inputs = [(B, random_onehot(torch, xgen, B, L, dev)) for B in BATCHES]
     inputs.append(("128-ties", ties))
+    # not one-hot: several nonzero letters at a position, or none (the
+    # float32 kernel's general conv path)
+    r = torch.rand((128, L, V), generator=xgen, device=dev)
+    relaxed = ("128-relaxed", r * (r > 0.7))
     out = []
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
@@ -272,7 +311,7 @@ def phase_cnn(torch, cnn, cnn_fused, dev):
         w_bytes = M * (K * V * C + C * C2 + C2) * s + M * (C + C2 + 1) * 4
         prep = cnn_fused.prepare_ensemble(ens, dtype)
         for pool in ("split", "first"):
-            for name, x in inputs:
+            for name, x in inputs + [relaxed] * (dtype == torch.float32):
                 B = x.shape[0]
                 fit, dx = cnn_fused.ensemble_apply_and_grad(prep, x, None,
                                                             pool)
@@ -628,9 +667,14 @@ def phase_cli(torch, counters, dev, card):
             for name, n in got.items():
                 launches[name] += n
             if sampler in ("PPDE", "PPDE-PT"):
-                check(got["potts_energy"] >= steps
-                      and got["cnn_ensemble"] >= steps,
-                      f"{label}: kernel launches {got} < {steps} steps")
+                # once a step and once for the initial state; the CLI's
+                # Potts model is float32, its CNN float32 unless bf16
+                f32 = args.compute_dtype == "f32"
+                want = {"potts_energy": steps + 1, "cnn_ensemble": steps + 1,
+                        "potts_energy_f32": steps + 1,
+                        "cnn_ensemble_f32": (steps + 1) * f32}
+                check(all(got[k] == n for k, n in want.items()),
+                      f"{label}: kernel launches {got}, not {want}")
             wt_line = next(line for line in out.getvalue().splitlines()
                            if line.startswith("WT protein energy"))
             r = check_cli_run(torch, runtime, args, run_dir, steps, dev)
@@ -693,7 +737,9 @@ def main() -> int:
 
     # every kernel's launch counter: (wrapper module, attribute)
     counters = {"potts_energy": (potts_fused, "launches"),
+                "potts_energy_f32": (potts_fused, "launches_f32"),
                 "cnn_ensemble": (cnn_fused, "launches"),
+                "cnn_ensemble_f32": (cnn_fused, "launches_f32"),
                 "flash_attention_fwd": (attention_fused, "launches_fwd"),
                 "flash_attention_bwd": (attention_fused, "launches_bwd")}
     phases = {
@@ -724,33 +770,52 @@ def main() -> int:
             launches[name] += n
 
     # one headline case per kernel: the 1024-chain population in bf16 for A
-    # and B, the chunk-16 call of the transformer path in bf16 for C and C'
-    a = next(r for r in pa if r["B"] == 1024 and r["dtype"] == "bfloat16"
-             and r["W"] == "symmetric")
-    b = next(r for r in pb if r["B"] == 1024 and r["dtype"] == "bfloat16"
-             and r["pool_bwd"] == "split")
+    # and B, 128 chains (the CLI's runs) for their float32 kernels, the
+    # chunk-16 call of the transformer path in bf16 for C and C'; launches
+    # by type
+    def headline(rows, B, dn, **kw):
+        return next(r for r in rows if r["B"] == B and r["dtype"] == dn
+                    and all(r[k] == v for k, v in kw.items()))
+
+    def row_a(name, a, n):
+        return {"name": name, "route": "cuda",
+                "source": "ppde_tpu_torch/csrc/potts_energy.cu",
+                "replaces": "ppde_tpu/ops/potts_pallas.py:55",
+                "launches": n,
+                "max_abs_err": max(a["max_abs_err_grad"], a["max_abs_err_H"]),
+                "ms": a["kernel_ms"], "plain_ms": a["plain_ms"],
+                "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+                "library_ms": a["library_ms_addmm_grad_only"], "B": a["B"],
+                "dtype": a["dtype"]}
+
+    def row_b(name, b, n):
+        return {"name": name, "route": "cuda",
+                "source": "ppde_tpu_torch/csrc/cnn_ensemble.cu",
+                "replaces": "ppde_tpu/ops/cnn_pallas.py:136",
+                "launches": n,
+                "max_abs_err": max(b["max_abs_err_fit"], b["max_abs_err_dx"]),
+                "ms": b["kernel_ms"], "plain_ms": b["plain_ms"],
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": None, "B": b["B"], "dtype": b["dtype"]}
+
     c, c1 = (next(r for r in pc if (r["Z"], r["T"], r["hd"]) == case
                   and r["dtype"] == "bfloat16") for case in ATTN_CASES[:2])
+    n_a, n_a32 = launches["potts_energy"], launches["potts_energy_f32"]
+    n_b, n_b32 = launches["cnn_ensemble"], launches["cnn_ensemble_f32"]
     kernels = {"kernels": [
-        {"name": "potts_energy", "route": "cuda",
-         "source": "ppde_tpu_torch/csrc/potts_energy.cu",
-         "replaces": "ppde_tpu/ops/potts_pallas.py:55",
-         "launches": launches["potts_energy"],
-         "max_abs_err": max(a["max_abs_err_grad"], a["max_abs_err_H"]),
-         "ms": a["kernel_ms"], "plain_ms": a["plain_ms"],
-         "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
-         "library_ms": a["library_ms_addmm_grad_only"]},
-        {"name": "cnn_ensemble", "route": "cuda",
-         "source": "ppde_tpu_torch/csrc/cnn_ensemble.cu",
-         "replaces": "ppde_tpu/ops/cnn_pallas.py:136",
-         "launches": launches["cnn_ensemble"],
-         "max_abs_err": max(b["max_abs_err_fit"], b["max_abs_err_dx"]),
-         "ms": b["kernel_ms"], "plain_ms": b["plain_ms"],
-         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-         "library_ms": None},
+        row_a("potts_energy", headline(pa, 1024, "bfloat16", W="symmetric"),
+              n_a - n_a32),
+        row_a("potts_energy_f32", headline(pa, 128, "float32",
+                                           W="symmetric"), n_a32),
+        row_b("cnn_ensemble", headline(pb, 1024, "bfloat16",
+                                       pool_bwd="split"), n_b - n_b32),
+        row_b("cnn_ensemble_f32", headline(pb, 128, "float32",
+                                           pool_bwd="split"), n_b32),
         attention_row(c, c1, "fwd", launches["flash_attention_fwd"], 83),
         attention_row(c, c1, "bwd", launches["flash_attention_bwd"], 108),
     ]}
+    check(all(k["launches"] > 0 for k in kernels["kernels"]),
+          f"a kernel the main path runs was not launched: {kernels}")
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernel_a": pa,
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,

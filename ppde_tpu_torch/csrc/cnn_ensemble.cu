@@ -20,25 +20,24 @@
 // gradient equally over tied rows; "first" to the first tied row only
 // (torch.max semantics).
 //
-// What bounds it on the H100: the tensor-core operations of the embed
-// product (2*B*M*T*C*C2; the conv on one-hot patches and the routed
-// backward need far fewer); the bytes moved (x, dx, the weights) are small.
-// What holds a kernel back in practice is everything around that product:
-// with one block per SM (H1 alone fills over half of its shared memory) the
-// plain instructions of the conv, the pool and the gather run at a low
-// rate, so the design spends its effort on cutting them.
+// What bounds it on the H100: the operations of the embed product
+// (2*B*M*T*C*C2; the conv on one-hot patches and the routed backward need
+// far fewer): on the tensor cores in bf16, on the FMA units (67 TFLOP/s) in
+// float32; the bytes moved (x, dx, the weights) are small. Both kernels run
+// one persistent block per SM that stays on one member and walks samples
+// b = blockIdx.x, blockIdx.x + gridDim.x, ... (the schedule of _kernel_m),
+// so a member's weights are read from L2, not from device memory, and
+// stream through a ring of shared-memory slots (cp.async.bulk, completion
+// counted on mbarriers; a slot is refilled SLOTS tiles ahead as soon as
+// every warp has released it, so the loads of the next tiles and of the
+// next sample overlap the work).
 //
-// Design of the bfloat16 kernel (namespace tc; the sampler's path).
-//   * Schedule of _kernel_m: a persistent block stays on one member and
-//     walks samples b = blockIdx.x, blockIdx.x + gridDim.x, ...; the grid is
-//     (SMs / M) x M blocks of 512 threads (four warpgroups of 64 rows).
+// Design of the bfloat16 kernel (namespace tc).
+//   * Grid (SMs / M) x M blocks of 512 threads (four warpgroups of 64 rows).
 //   * Weights are prepared once on the host (ops/cnn_fused.prepare_ensemble)
 //     as tiles in the layout wgmma reads (rows of 128 bytes, 128-byte
-//     swizzle). The tiles a sample needs - enc_w (conv), emb_w chunk by
-//     chunk, enc_w again (dP) - stream through a ring of 4 shared-memory
-//     slots by cp.async.bulk, completion counted on mbarriers; a slot is
-//     refilled (4 tiles ahead) as soon as every warp has released it, so the
-//     loads of the next tiles and of the next sample overlap the work.
+//     swizzle); the ring carries enc_w (conv), emb_w chunk by chunk, enc_w
+//     again (dP).
 //   * Conv: H1[t] = rnd(relu(b + sum over the nonzero letters of the patch
 //     of a row of enc_w)): for a one-hot sample K rows of the tile in the
 //     ring, 8 channels a lane, no product over the zeros.
@@ -55,12 +54,42 @@
 //   * One accumulator array serves both products: wgmma pins accumulators to
 //     fixed registers, and a second array would cost its size in registers
 //     for the whole kernel (the first cuts spilled for that reason).
+//
+// Design of the float32 kernel (namespace simt; the CLI's default
+// --compute_dtype f32). Its arithmetic stays float32 FMAs (no TF32, no
+// split-bf16 products). With 8 warps a SM (a block of 256 threads holds
+// 255 registers each), every phase that is not a product is a chain of
+// latencies unless its loads are issued together, so each is laid out with
+// a lane (or a quarter warp) per item.
+//   * Grid (SMs / M) x M blocks of 256 threads; the ring carries emb_w in
+//     column chunks of 128 and enc_w^T, in 16-deep stages of 8 KB, laid out
+//     once by prepare_ensemble so that each stage is one contiguous copy.
+//   * A float32 H1 of 233 x 240 (224 KB) does not fit beside a ring, so the
+//     rows t go in blocks of 128: H1 of a block is the shared-memory A
+//     operand [128][C + pad] of the embed product.
+//   * Conv: for one-hot positions a gather-add of K rows of enc_w (exact),
+//     a float4 of 4 channels a thread, two of them at a time with all their
+//     rows' loads issued first; positions that are not one-hot sum every
+//     nonzero letter's row.
+//   * Products (embed, dP): each thread holds an 8 x 8 register tile (rows
+//     4 + 4 apart by 64, columns likewise) fed by 16-byte shared-memory
+//     loads, 16 loads per 256 FMAs.
+//   * Max-pool: the column maxima of a chunk come from the accumulators (a
+//     max per thread, then over the 16 thread rows); each row block updates
+//     the running maximum of a channel, and the threads whose sum reaches it
+//     set their rows in the channel's tie mask (no serial scan over rows).
+//   * Backward: no second conv. A bitmask of H1 > 0 (T x C bits) is kept
+//     from the forward pass; each row lists its routed channels once (a
+//     lane a row); a quarter warp gathers a row of G1 from the emb_w^T rows
+//     of its channels, four rows a warp, every load of two channels issued
+//     before the first is used (rows with more than 8 channels, wide ties,
+//     fall back to a warp scanning the tie masks); dP = G1 @ enc_w^T is the
+//     second product, staged over G1, and col2im sums K terms per entry of
+//     dx in a fixed order, adding to what the previous row block left.
 // Blocks of different members write separate [M, B, L*V] partials, and a
 // second kernel adds them in member order: no atomics on values (the integer
-// atomics on the pool's masks and counts commute), so results repeat bit for
-// bit. The float32 kernel (namespace simt; no sampler path runs it) is the
-// first cut's: one block per (sample, member), FMAs from shared memory over
-// 64-row tiles in two passes, weights in the plain layout.
+// atomics on the pool's masks and counts commute), so results repeat bit
+// for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,176 +98,21 @@
 
 namespace {
 
-constexpr int NB = 128;   // output columns per GEMM chunk
-constexpr int CPL = 8;    // G1 columns per lane: C <= 32 * CPL
-constexpr int MAXT = 256; // rows of the routed-row bitmask: T <= MAXT
-constexpr int MW = MAXT / 32;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ float rnd(float v);
-template <>
-__device__ __forceinline__ float rnd<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float rnd<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-template <typename T>
-__device__ __forceinline__ T zero_of();
-template <>
-__device__ __forceinline__ float zero_of<float>() { return 0.f; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
-  return __float2bfloat16(0.f);
-}
-
-__host__ __device__ inline int round_up(int n, int m) {
-  return (n + m - 1) / m * m;
-}
-
-struct Args {
-  const void* x;     // [B, L, V]  compute type
-  const void* encw;  // [M, K*V, C]
-  const float* encb; // [M, C]
-  const void* embw;  // [M, C, C2]
-  const void* embwT; // [M, C2, C]  (emb_w transposed, for the backward)
-  const float* embb; // [M, C2]
-  const void* decw;  // [M, C2]
-  const float* decb; // [M]
-  float* pred;       // [M, B]      scratch
-  float* dxm;        // [M, B, L*V] scratch
-  int B, L, V, K, C, C2, M, pool_first;
-};
-
-// Stage DEPTH x NB weights Bm(k0 + kk, n0 + n) = Bg[k*bsk + n*bsn] (zero
-// beyond kvalid / nvalid) into dst[n*ld + kk] (TRANSPOSED) or dst[kk*ld + n].
-// Consecutive threads walk the operand's contiguous axis, and every load of
-// the stage is issued before the first store: one memory latency per stage.
-template <int DEPTH, bool TRANSPOSED, int NTHREADS, typename T, typename D>
-__device__ __forceinline__ void stage_weights(D* dst, int ld,
-                                              const T* __restrict__ Bg,
-                                              long bsk, long bsn, int k0,
-                                              int kvalid, int n0,
-                                              int nvalid) {
-  constexpr int NJ = DEPTH * NB / NTHREADS;
-  static_assert(DEPTH * NB % NTHREADS == 0, "stage must split evenly");
-  const bool along_n = bsn == 1;
-  T v[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int i = threadIdx.x + j * NTHREADS;
-    const int kk = along_n ? i / NB : i % DEPTH;
-    const int n = along_n ? i % NB : i / DEPTH;
-    const int k = k0 + kk, nn = n0 + n;
-    v[j] = (k < kvalid && nn < nvalid) ? Bg[k * bsk + nn * bsn]
-                                       : zero_of<T>();
+// Built with -DCNN_PHASE_CLOCKS (tools/profile_port_step.py --phases), thread
+// 0 of block (0, 0) adds the clocks each phase of a sample took into
+// g_phase_clocks; otherwise PHASE_TICK is empty. Both kernels tick the same
+// eight phases.
+#ifdef CNN_PHASE_CLOCKS
+__device__ long long g_phase_clocks[8];
+#define PHASE_TICK(i)                                              \
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {    \
+    const long long now_ = clock64();                              \
+    g_phase_clocks[i] += now_ - phase_t0;                          \
+    phase_t0 = now_;                                               \
   }
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int i = threadIdx.x + j * NTHREADS;
-    const int kk = along_n ? i / NB : i % DEPTH;
-    const int n = along_n ? i % NB : i / DEPTH;
-    put(dst + (TRANSPOSED ? n * ld + kk : kk * ld + n), v[j]);
-  }
-}
-
-// G1[r] = rnd([H1[r] > 0] * sum_{c routed to t0 + r} scale[c] * emb_w^T[c])
-// for rows r < rows (zero for t >= n_t), columns < round_up(C, 16). One warp
-// per row; channels in ascending order (deterministic). g1 may alias h1:
-// each lane reads and writes only its own columns.
-template <int NTHREADS, typename T, typename E>
-__device__ void gather_g1(const E* h1, E* g1, int ld, int rows, int t0,
-                          int n_t, int C, int C2, const unsigned* mask,
-                          const float* scale, const T* __restrict__ embwT) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int ldc = round_up(C, 16);
-  for (int r = warp; r < rows; r += NTHREADS / 32) {
-    const int t = t0 + r;
-    float acc[CPL];
-#pragma unroll
-    for (int q = 0; q < CPL; ++q) acc[q] = 0.f;
-    if (t < n_t) {
-      const unsigned bit = 1u << (t & 31);
-      for (int cb = 0; cb < C2; cb += 32) {
-        const int c = cb + lane;
-        const bool on = c < C2 && (mask[c * MW + (t >> 5)] & bit) &&
-                        scale[c] != 0.f;
-        unsigned bal = __ballot_sync(0xffffffffu, on);
-        while (bal) {
-          const int cc = cb + __ffs(bal) - 1;
-          bal &= bal - 1;
-          const float sc = scale[cc];
-          const T* row = embwT + (size_t)cc * C;
-#pragma unroll
-          for (int q = 0; q < CPL; ++q) {
-            const int j = lane + 32 * q;
-            if (j < C) acc[q] = fmaf(sc, to_f(row[j]), acc[q]);
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < CPL; ++q) {
-      const int j = lane + 32 * q;
-      if (j < ldc) {
-        const bool live = j < C && to_f(h1[r * ld + j]) > 0.f;
-        put(g1 + r * ld + j, live ? rnd<T>(acc[q]) : 0.f);
-      }
-    }
-  }
-}
-
-// col2im of one row tile: dx_flat[t*V + j] += dP[t - t0, j] for t0 <= t <
-// t_end, rows added in order (deterministic)
-template <int NTHREADS>
-__device__ void col2im_rows(float* dxs, const float* dp, int ldp, int t0,
-                            int t_end, int V, int KV) {
-  const int f_lo = t0 * V, f_hi = (t_end - 1) * V + KV;
-  for (int f = f_lo + threadIdx.x; f < f_hi; f += NTHREADS) {
-    float acc = 0.f;
-    for (int t = t0; t < t_end; ++t) {
-      const int j = f - t * V;
-      if (j >= 0 && j < KV) acc += dp[(t - t0) * ldp + j];
-    }
-    dxs[f] += acc;
-  }
-}
-
-// pred_m = sum_c mx * dec_w + dec_b (fixed-order block reduction) and the
-// routed gradient per channel (relu' of H2 folds in as mx > 0). Expects the
-// routed-row bitmask complete; for "first" it becomes the first row only.
-template <int NTHREADS, typename T>
-__device__ void finish_pool(const Args a, int b, int m, const float* mx,
-                            const int* first, unsigned* mask, float* scale,
-                            float* red) {
-  const T* decw = static_cast<const T*>(a.decw) + (size_t)m * a.C2;
-  const int tid = threadIdx.x;
-  float s = 0.f;
-  for (int c = tid; c < a.C2; c += NTHREADS) {
-    const float d = to_f(decw[c]);
-    s += mx[c] * d;
-    int cnt = 0;
-    if (a.pool_first) {
-      for (int w = 0; w < MW; ++w) mask[c * MW + w] = 0u;
-      mask[c * MW + (first[c] >> 5)] = 1u << (first[c] & 31);
-      cnt = 1;
-    } else {
-      for (int w = 0; w < MW; ++w) cnt += __popc(mask[c * MW + w]);
-    }
-    scale[c] = mx[c] > 0.f ? rnd<T>(d / (float)cnt) : 0.f;
-  }
-  red[tid] = s;
-  __syncthreads();
-  for (int w = NTHREADS / 2; w > 0; w >>= 1) {
-    if (tid < w) red[tid] += red[tid + w];
-    __syncthreads();
-  }
-  if (tid == 0) a.pred[(size_t)m * a.B + b] = red[0] + a.decb[m];
-}
+#else
+#define PHASE_TICK(i)
+#endif
 
 // ---------------------------------------------------------------------------
 // bfloat16: a persistent block per (member, stride of samples); weights
@@ -416,20 +290,6 @@ __device__ __forceinline__ int sw(int r, int chunk) {
   return r * 128 + ((chunk ^ (r & 7)) << 4);
 }
 
-// Built with -DCNN_PHASE_CLOCKS (tools/profile_port_step.py --phases), thread
-// 0 of block (0, 0) adds the clocks each phase of a sample took into
-// g_phase_clocks; otherwise PHASE_TICK is empty.
-#ifdef CNN_PHASE_CLOCKS
-__device__ long long g_phase_clocks[8];
-#define PHASE_TICK(i)                                              \
-  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {    \
-    const long long now_ = clock64();                              \
-    g_phase_clocks[i] += now_ - phase_t0;                          \
-    phase_t0 = now_;                                               \
-  }
-#else
-#define PHASE_TICK(i)
-#endif
 
 __global__ void __launch_bounds__(THREADS, 1)
 fit_grad_kernel(const TcArgs a) {
@@ -1013,187 +873,627 @@ fit_grad_kernel(const TcArgs a) {
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// float32: FMAs over 64-row tiles, two passes
+// float32: a persistent block per (member, stride of samples); weights
+// stream through a ring of shared-memory slots; products on FMAs from 8 x 8
+// register tiles; rows in blocks of 128
 // ---------------------------------------------------------------------------
 namespace simt {
 
-constexpr int R = 64;        // rows (window positions t) per tile
-constexpr int TM = R / 16;   // rows per thread
-constexpr int TN = NB / 16;  // columns per thread
-constexpr int BK = 16;       // depth of one weight stage
-constexpr int THREADS = 256;
+using tc::mbar_init;
+using tc::mbar_wait;
+using tc::smem_u32;
 
-// Shared-memory layout (float32 words).
-struct Layout {
-  int xs, dxs, h1, g1, buf, ws, stats, mask, red, total;
-  __host__ __device__ Layout(int L, int V, int K, int C, int C2) {
-    const int T = L - K + 1, Tp = round_up(T, R), KVp = round_up(K * V, BK);
-    const int ldc = round_up(C, BK);
-    xs = 0;                                   // x, zero-padded
-    dxs = xs + round_up((Tp - 1) * V + KVp, 4);
-    h1 = dxs + round_up(L * V, 4);            // H1 tile   [R, ldc]
-    g1 = h1 + R * ldc;                        // G1 tile   [R, ldc]
-    buf = g1 + R * ldc;                       // H2/dP     [R, NB]
-    ws = buf + R * NB;                        // weights   [BK, NB]
-    stats = ws + BK * NB;                     // mx, scale, first
-    mask = stats + 3 * round_up(C2, 4);       // routed-row bitmask
-    red = mask + C2 * MW;                     // block reduction [THREADS]
-    total = red + THREADS;
-  }
+constexpr int THREADS = 256;        // 16 x 16 threads
+constexpr int R = 128;              // rows t of a row block
+constexpr int NT = 128;             // columns of a product: an embed chunk,
+                                    // dP (8 x 8 a thread)
+constexpr int KS = 16;              // depth of a weight stage
+constexpr int SLOTS = 4;            // ring of weight stages
+constexpr int STAGE_FLOATS = KS * NT;
+constexpr int STAGE_BYTES = STAGE_FLOATS * 4;  // 8 KB
+constexpr int MAX_C = 256;          // conv channels
+constexpr int MAX_C2 = 512;         // embed channels: 4 chunks of NT
+constexpr int MAX_T = 256;          // rows t: 2 row blocks
+constexpr int MAX_L = 384;          // positions: T + K - 1 with K*V <= 128
+constexpr int LDA = MAX_C + 4;      // row stride of the A operand (floats):
+                                    // rows 4 apart fall in other banks
+constexpr int LDP = NT + 4;         // row stride of the staged dP
+constexpr int TW = MAX_T / 32 + 1;  // words per channel of the tie mask
+                                    // (odd: channels fall in all banks)
+constexpr int HW = MAX_C / 32;      // words per row of the H1 > 0 mask
+constexpr int LCAP = 8;             // routed channels a row lists (more:
+                                    // the row scans the tie masks)
+constexpr int KFAST = 5;            // taps of the one-hot conv's fast path
+
+struct F32Args {
+  const float* x;      // [B, L*V]
+  const float* encw;   // [M, K*V, Cp]          rows of enc_w (conv)
+  const float* encT;   // [M, Cp, 128]          enc_w^T (dP's B operand)
+  const float* emb;    // [M, nchunk, Cp, 128]  emb_w in column chunks
+  const float* embwT;  // [M, C2, Cp]           rows of emb_w^T (G1)
+  const float* encb;   // [M, Cp]
+  const float* embb;   // [M, nchunk * 128]
+  const float* decw;   // [M, C2]
+  const float* decb;   // [M]
+  float* pred;         // [M, B]      scratch
+  float* dxm;          // [M, B, L*V] scratch
+  int B, L, V, K, C, C2, M, pool_first, Cp, nchunk;
 };
 
-// out[r, n] (+)= sum_k A[r*lda + k] * Bm(k, n0 + n), r < R, n < ncols.
-// Bm(k, n) = Bg[k*bsk + n*bsn] for k < kvalid and n < nvalid, else 0.
-// A must be readable (and finite) for k < kpad (a multiple of BK).
-__device__ void gemm_tile(float* out, int ldo, int ncols, bool accumulate,
-                          const float* A, int lda, int kpad,
-                          const float* __restrict__ Bg, long bsk, long bsn,
-                          int kvalid, int n0, int nvalid, float* Ws) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+// Shared memory in bytes, fixed offsets from the block's (1024-aligned)
+// dynamic shared memory.
+namespace lay {
+constexpr int a = 0;  // H1, then G1, of a row block [R][LDA]; then dP
+constexpr int ring = a + R * LDA * 4;               // weight stages
+constexpr int tie = ring + SLOTS * STAGE_BYTES;     // rows at each max
+constexpr int pm = tie + MAX_C2 * TW * 4;           // column maxima [8][NT];
+constexpr int rowlist = pm;                         //   backward: channels
+constexpr int rowcnt = rowlist + MAX_T * LCAP * 2;  //   routed to each row
+constexpr int bmx = rowcnt + MAX_T * 4;             // a chunk's block maxima
+constexpr int mx = bmx + NT * 4;                    // per channel: max,
+constexpr int scale = mx + MAX_C2 * 4;              //   routed gradient,
+constexpr int embb = scale + MAX_C2 * 4;            //   embed bias,
+constexpr int decw = embb + MAX_C2 * 4;             //   decoder weight
+constexpr int encb = decw + MAX_C2 * 4;             // conv biases
+constexpr int h1pos = encb + MAX_C * 4;             // H1 > 0, [T][HW] bits
+constexpr int tok = h1pos + MAX_T * HW * 4;         // (letter, value) by pos
+constexpr int bars = tok + MAX_L * 8;               // 2 * SLOTS mbarriers
+constexpr int red = bars + 2 * SLOTS * 8;           // partial sums of pred
+constexpr int onehot = red + THREADS / 32 * 4;      // 1: every position is
+constexpr int total = onehot + 16;                  //   one-hot
+static_assert(ring % 1024 == 0 && bars % 8 == 0, "alignment");
+static_assert(THREADS / 32 * NT * 4 <= bmx - pm, "the maxima and lists");
+static_assert(total <= 232448, "more than a block's shared memory");
+}  // namespace lay
 
-  for (int k0 = 0; k0 < kpad; k0 += BK) {
-    stage_weights<BK, false, THREADS>(Ws, NB, Bg, bsk, bsn, k0, kvalid, n0,
-                                      nvalid);
-    __syncthreads();
+// acc[i][j] += sum over the 16 k of one stage of A[row_i][k0 + k] *
+// Bs[k][col_j]; row_i = ty*4 + i (i < 4), 64 + ty*4 + i - 4 (i >= 4); col_j
+// likewise with tx. Per 4 k: 16 loads of 16 bytes, 256 FMAs. The two ty of a
+// warp read A rows 4 apart (other banks; every tx the same address), its 16
+// tx 256 contiguous bytes of a row of Bs.
+__device__ __forceinline__ void stage_product(float (&acc)[8][8],
+                                              const float* A,
+                                              const float* Bs, int k0,
+                                              int tx, int ty) {
+  const float* a0 = A + ty * 4 * LDA + k0;
+  const float* a1 = a0 + 64 * LDA;
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[TM], b[TN];
+  for (int kk = 0; kk < KS; kk += 4) {
+    float4 av[8];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = A[(ty + 16 * i) * lda + k0 + kk];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Ws[kk * NB + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    for (int i = 0; i < 4; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(a0 + i * LDA + kk);
+      av[4 + i] = *reinterpret_cast<const float4*>(a1 + i * LDA + kk);
     }
-    __syncthreads();
-  }
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int s = 0; s < 4; ++s) {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(Bs + (kk + s) * NT + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(Bs + (kk + s) * NT + 64 + tx * 4);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = tx + 16 * j;
-      if (n < ncols) {
-        float* o = out + (ty + 16 * i) * ldo + n;
-        *o = accumulate ? *o + acc[i][j] : acc[i][j];
+      for (int i = 0; i < 8; ++i) {
+        const float x = s == 0 ? av[i].x
+                        : s == 1 ? av[i].y
+                        : s == 2 ? av[i].z
+                                 : av[i].w;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
       }
     }
-  __syncthreads();
+  }
 }
 
-// H1 tile for rows t0 .. t0+R-1: h1[r, c] = relu(P[t0+r] @ enc_w + b)
-__device__ void h1_tile(float* sm, const Layout lay, const Args a, int m,
-                        int t0) {
-  const int KV = a.K * a.V, ldc = round_up(a.C, BK);
-  const float* encw = static_cast<const float*>(a.encw) + (size_t)m * KV * a.C;
-  float* h1 = sm + lay.h1;
-  for (int n0 = 0; n0 < ldc; n0 += NB)
-    gemm_tile(h1 + n0, ldc, min(NB, ldc - n0), false,
-              sm + lay.xs + t0 * a.V, a.V, round_up(KV, BK), encw, a.C, 1,
-              KV, n0, a.C, sm + lay.ws);
-  const float* b = a.encb + (size_t)m * a.C;
-  for (int i = threadIdx.x; i < R * ldc; i += THREADS) {
-    const int c = i % ldc;
-    h1[i] = c < a.C ? fmaxf(h1[i] + b[c], 0.f) : 0.f;
-  }
-  __syncthreads();
+__device__ __forceinline__ void fma4(float4& s, float x, const float4 w) {
+  s.x = fmaf(x, w.x, s.x);
+  s.y = fmaf(x, w.y, s.y);
+  s.z = fmaf(x, w.z, s.z);
+  s.w = fmaf(x, w.w, s.w);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
-fit_grad_kernel(const Args a) {
-  extern __shared__ float sm[];
-  const Layout lay(a.L, a.V, a.K, a.C, a.C2);
-  const int b = blockIdx.x, m = blockIdx.y, tid = threadIdx.x;
-  const int n_t = a.L - a.K + 1, LV = a.L * a.V, KV = a.K * a.V;
-  const int ldc = round_up(a.C, BK);
-  const float* x = static_cast<const float*>(a.x) + (size_t)b * LV;
-  const float* embw =
-      static_cast<const float*>(a.embw) + (size_t)m * a.C * a.C2;
-  const float* embwT =
-      static_cast<const float*>(a.embwT) + (size_t)m * a.C2 * a.C;
-  const float* encw = static_cast<const float*>(a.encw) + (size_t)m * KV * a.C;
-  const float* embb = a.embb + (size_t)m * a.C2;
+fit_grad_kernel(const F32Args a) {
+#ifdef CNN_PHASE_CLOCKS
+  long long phase_t0 = clock64();
+#endif
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  float* A = reinterpret_cast<float*>(smem + lay::a);
+  const float* ring = reinterpret_cast<const float*>(smem + lay::ring);
+  unsigned* tie = reinterpret_cast<unsigned*>(smem + lay::tie);
+  float* pm = reinterpret_cast<float*>(smem + lay::pm);
+  float* bmx = reinterpret_cast<float*>(smem + lay::bmx);
+  float* mx = reinterpret_cast<float*>(smem + lay::mx);
+  float* scale = reinterpret_cast<float*>(smem + lay::scale);
+  float* embb = reinterpret_cast<float*>(smem + lay::embb);
+  float* decw = reinterpret_cast<float*>(smem + lay::decw);
+  float* encb = reinterpret_cast<float*>(smem + lay::encb);
+  unsigned* h1pos = reinterpret_cast<unsigned*>(smem + lay::h1pos);
+  int2* tok = reinterpret_cast<int2*>(smem + lay::tok);
+  float* red = reinterpret_cast<float*>(smem + lay::red);
+  unsigned short* rowlist =
+      reinterpret_cast<unsigned short*>(smem + lay::rowlist);
+  int* rowcnt = reinterpret_cast<int*>(smem + lay::rowcnt);
+  int* onehot = reinterpret_cast<int*>(smem + lay::onehot);
+  const uint32_t full0 = smem_u32(smem + lay::bars), empty0 = full0 + SLOTS * 8;
+  const uint32_t ring_u = smem_u32(smem + lay::ring);
 
-  float* xs = sm + lay.xs;
-  float* dxs = sm + lay.dxs;
-  float* buf = sm + lay.buf;
-  float* g1 = sm + lay.g1;
-  float* h1 = sm + lay.h1;
-  float* mx = sm + lay.stats;
-  float* scale = mx + round_up(a.C2, 4);
-  int* first = reinterpret_cast<int*>(scale + round_up(a.C2, 4));
-  unsigned* mask = reinterpret_cast<unsigned*>(sm + lay.mask);
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m = blockIdx.y;
+  const int V = a.V, K = a.K, C2 = a.C2, Cp = a.Cp;
+  const int n_t = a.L - K + 1, LV = a.L * V, KV = K * V;
+  const int nks = Cp / KS, nrb = (n_t + R - 1) / R;
+  const float* encw = a.encw + (size_t)m * KV * Cp;
+  const float* embwT = a.embwT + (size_t)m * C2 * Cp;
+  const float nan = __int_as_float(0x7fffffff);
 
-  for (int i = tid; i < lay.dxs - lay.xs; i += THREADS)
-    xs[i] = i < LV ? x[i] : 0.f;
-  for (int i = tid; i < LV; i += THREADS) dxs[i] = 0.f;
-  for (int c = tid; c < a.C2; c += THREADS) {
-    mx[c] = -1.f;  // below every relu output
-    first[c] = 0;
+  // The weight stages every sample needs, in the order they are used: for
+  // each row block nchunk * nks of emb_w (forward), then for each row block
+  // nks of enc_w^T (dP). Stage i lives in slot i % SLOTS.
+  const int fwd_tiles = nrb * a.nchunk * nks;
+  const int per_sample = fwd_tiles + nrb * nks;
+  const uint32_t n_tiles =
+      (uint32_t)((a.B - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) *
+      per_sample;
+  auto slot_of = [](uint32_t i) { return i % SLOTS; };
+  // Every thread computes the copy's operands; only `leader` starts it,
+  // by predicated instructions.
+  auto refill = [&](uint32_t i, bool leader) {
+    const int r = (int)(i % per_sample);
+    const float* src;
+    if (r < fwd_tiles) {
+      const int q = r % (a.nchunk * nks), ch = q / nks, ks = q % nks;
+      src = a.emb + (((size_t)m * a.nchunk + ch) * Cp + ks * KS) * NT;
+    } else {
+      const int ks = (r - fwd_tiles) % nks;
+      src = a.encT + ((size_t)m * Cp + ks * KS) * NT;
+    }
+    const uint32_t bar = full0 + slot_of(i) * 8;
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %4, 0;\n"
+        "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+        "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%2], [%3], %1, [%0];\n}\n" ::"r"(bar),
+        "r"(STAGE_BYTES), "r"(ring_u + slot_of(i) * STAGE_BYTES), "l"(src),
+        "r"((int)(leader && i < n_tiles))
+        : "memory");
+  };
+  auto wait_full = [&](uint32_t i) {
+    mbar_wait(full0 + slot_of(i) * 8, (i / SLOTS) & 1);
+  };
+  // This warp is done with stage i: lane 0 arrives. Warp 0 waits until all
+  // warps have, then its lane 0 refills the slot with stage i + SLOTS.
+  const bool refiller = __shfl_sync(0xffffffffu, warp, 0) == 0;
+  auto done = [&](uint32_t i) {
+    __syncwarp();
+    const uint32_t bar = empty0 + slot_of(i) * 8;
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.eq.b32 p, %1, 0;\n"
+        "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+        "r"(lane)
+        : "memory");
+    if (refiller) {
+      mbar_wait(bar, (i / SLOTS) & 1);
+      refill(i + SLOTS, lane == 0);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(full0 + s * 8, 1);
+      mbar_init(empty0 + s * 8, THREADS / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  for (int i = tid; i < a.C2 * MW; i += THREADS) mask[i] = 0u;
   __syncthreads();
+  for (uint32_t i = 0; i < SLOTS; ++i) refill(i, tid == 0);
+  for (int c = tid; c < a.nchunk * NT; c += THREADS)
+    embb[c] = a.embb[(size_t)m * a.nchunk * NT + c];
+  for (int c = tid; c < C2; c += THREADS) decw[c] = a.decw[(size_t)m * C2 + c];
+  for (int c = tid; c < Cp; c += THREADS) encb[c] = a.encb[(size_t)m * Cp + c];
 
-  // ---- pass 1: per-channel max over t < T, first argmax and the tied
-  // rows, kept as a bitmask over t ----
-  for (int t0 = 0; t0 < n_t; t0 += R) {
-    h1_tile(sm, lay, a, m, t0);
-    for (int c0 = 0; c0 < a.C2; c0 += NB) {
-      gemm_tile(buf, NB, NB, false, h1, ldc, ldc, embw, a.C2, 1, a.C, c0,
-                a.C2, sm + lay.ws);
-      for (int i = tid; i < R * NB; i += THREADS) {
-        const int c = c0 + i % NB;
-        buf[i] = c < a.C2 ? fmaxf(buf[i] + embb[c], 0.f) : 0.f;
+  uint32_t n = 0;  // stages consumed so far
+  float acc[8][8];  // one accumulator array for both products
+  // this thread's rows and columns of a product tile
+  auto row_of = [&](int i) { return (i < 4 ? 0 : 64) + ty * 4 + (i & 3); };
+  auto col_of = [&](int j) { return 64 * (j >> 2) + tx * 4 + (j & 3); };
+
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    const float* xb = a.x + (size_t)b * LV;
+    // -- each position's letter and value if it is one-hot (else -1);
+    // clear the pool's statistics --
+    if (tid == 0) *onehot = 1;
+    __syncthreads();
+    for (int l = tid; l < a.L; l += THREADS) {  // a thread per position
+      int cnt = 0, first = -1;
+      float val = 0.f;
+#pragma unroll 4
+      for (int v = 0; v < V; ++v) {
+        const float xv = xb[l * V + v];
+        if (xv != 0.f) {
+          if (first < 0) {
+            first = v;
+            val = xv;
+          }
+          ++cnt;
+        }
       }
-      __syncthreads();
-      const int c = c0 + tid;
-      if (tid < NB && c < a.C2) {
-        float best = mx[c];
-        int fr = first[c];
-        unsigned* mc = mask + c * MW;
-        for (int r = 0; r < R && t0 + r < n_t; ++r) {
-          const int t = t0 + r;
-          const float v = buf[r * NB + tid];
-          if (v > best) {
-            best = v;
-            fr = t;
-            for (int w = 0; w < MW; ++w) mc[w] = 0u;
-            mc[t >> 5] = 1u << (t & 31);
-          } else if (v == best) {
-            mc[t >> 5] |= 1u << (t & 31);
+      tok[l] = make_int2(cnt == 1 ? first : -1, __float_as_int(val));
+      if (cnt != 1) *onehot = 0;
+    }
+    for (int i = tid; i < C2 * TW; i += THREADS) tie[i] = 0u;
+    for (int c = tid; c < C2; c += THREADS) mx[c] = -INFINITY;
+    __syncthreads();
+    PHASE_TICK(0)  // positions listed, statistics cleared
+
+    for (int rb = 0; rb < nrb; ++rb) {
+      const int t0 = rb * R;
+      // -- H1 = relu(conv + b) of rows t0 .. t0 + 127 (zero past T and
+      // past C): for a one-hot position one row of enc_w. A one-hot sample
+      // takes the fast path, two entries a thread at a time, whose loads
+      // (K rows each) do not wait on each other --
+      const int c4n = Cp / 4, n_items = R * c4n;
+      if (*onehot && K <= KFAST) {
+        for (int i0 = tid; i0 < n_items; i0 += 2 * THREADS) {
+          float4 w[2][KFAST];
+          float xv[2][KFAST];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = i0 + e * THREADS, r = i / c4n, t = t0 + r;
+#pragma unroll
+            for (int k = 0; k < KFAST; ++k)
+              if (i < n_items && t < n_t && k < K) {
+                const int2 tv = tok[t + k];
+                xv[e][k] = __int_as_float(tv.y);
+                w[e][k] = __ldg(reinterpret_cast<const float4*>(
+                                    encw + (size_t)(k * V + tv.x) * Cp) +
+                                i - r * c4n);
+              }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = i0 + e * THREADS, r = i / c4n, c4 = i - r * c4n;
+            if (i >= n_items) break;
+            float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (t0 + r < n_t) {
+#pragma unroll
+              for (int k = 0; k < KFAST; ++k)
+                if (k < K) fma4(acc4, xv[e][k], w[e][k]);
+              const float4 bb =
+                  *reinterpret_cast<const float4*>(encb + c4 * 4);
+              acc4 = make_float4(
+                  fmaxf(acc4.x + bb.x, 0.f), fmaxf(acc4.y + bb.y, 0.f),
+                  fmaxf(acc4.z + bb.z, 0.f), fmaxf(acc4.w + bb.w, 0.f));
+            }
+            *reinterpret_cast<float4*>(A + r * LDA + c4 * 4) = acc4;
           }
         }
-        mx[c] = best;
-        first[c] = fr;
+      } else {
+        for (int i = tid; i < n_items; i += THREADS) {
+          const int r = i / c4n, c4 = i - r * c4n, t = t0 + r;
+          float4 acc4 = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (t < n_t) {
+            for (int k = 0; k < K; ++k) {
+              const int2 tv = tok[t + k];
+              if (tv.x >= 0) {
+                fma4(acc4, __int_as_float(tv.y),
+                     __ldg(reinterpret_cast<const float4*>(
+                               encw + (size_t)(k * V + tv.x) * Cp) +
+                           c4));
+              } else {
+                for (int v = 0; v < V; ++v) {
+                  const float x = xb[(t + k) * V + v];
+                  if (x != 0.f)
+                    fma4(acc4, x,
+                         __ldg(reinterpret_cast<const float4*>(
+                                   encw + (size_t)(k * V + v) * Cp) +
+                               c4));
+                }
+              }
+            }
+            const float4 bb = *reinterpret_cast<const float4*>(encb + c4 * 4);
+            acc4 = make_float4(
+                fmaxf(acc4.x + bb.x, 0.f), fmaxf(acc4.y + bb.y, 0.f),
+                fmaxf(acc4.z + bb.z, 0.f), fmaxf(acc4.w + bb.w, 0.f));
+          }
+          *reinterpret_cast<float4*>(A + r * LDA + c4 * 4) = acc4;
+        }
       }
       __syncthreads();
+      // the bits of H1 > 0, kept for the backward pass (relu'): a thread
+      // per (row, word of 32 channels)
+      for (int i = tid; i < R * HW; i += THREADS) {
+        const int w = i / R, r = i - w * R;  // rows fastest: other banks
+        unsigned bits = 0u;
+        if (w * 32 < Cp) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(A + r * LDA + w * 32 + 4 * e);
+            bits |= (unsigned)(v.x > 0.f) << (4 * e) |
+                    (unsigned)(v.y > 0.f) << (4 * e + 1) |
+                    (unsigned)(v.z > 0.f) << (4 * e + 2) |
+                    (unsigned)(v.w > 0.f) << (4 * e + 3);
+          }
+        }
+        h1pos[(t0 + r) * HW + w] = bits;
+      }
+      PHASE_TICK(1)  // conv
+
+      // -- H2 = relu(H1 @ emb_w + b), 128 columns at a time; the maxima and
+      // the rows that reach them from the accumulators --
+      for (int ch = 0; ch < a.nchunk; ++ch) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+        for (int ks = 0; ks < nks; ++ks) {
+          wait_full(n);
+          stage_product(acc, A, ring + slot_of(n) * STAGE_FLOATS, ks * KS,
+                        tx, ty);
+          done(n);
+          ++n;
+        }
+        PHASE_TICK(2)  // embed product
+        const int cb = ch * NT;
+        // a column's maximum over the thread's rows, then over the warp's
+        // two ty (lanes 16 apart), then over the warps
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float bias = embb[cb + col_of(j)];
+          float best = -INFINITY;
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            acc[i][j] = fmaxf(acc[i][j] + bias, 0.f);
+            if (t0 + row_of(i) < n_t) best = fmaxf(best, acc[i][j]);
+          }
+          best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 16));
+          if (lane < 16) pm[warp * NT + col_of(j)] = best;
+        }
+        __syncthreads();
+        // a column's maximum over this row block against the running one:
+        // a larger one drops the rows noted so far, an equal one adds rows
+        {
+          const int c2 = cb + tid;
+          float keep = nan;
+          if (tid < NT && c2 < C2) {
+            float bm = -INFINITY;
+            for (int w = 0; w < THREADS / 32; ++w)
+              bm = fmaxf(bm, pm[w * NT + tid]);
+            const float old = mx[c2];
+            if (bm > old) {
+              mx[c2] = bm;
+              for (int w = 0; w < TW; ++w) tie[c2 * TW + w] = 0u;
+            }
+            if (bm >= old) keep = bm;
+          }
+          if (tid < NT) bmx[tid] = keep;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float best = bmx[col_of(j)];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int t = t0 + row_of(i);
+            if (t < n_t && acc[i][j] == best)
+              atomicOr(&tie[(cb + col_of(j)) * TW + (t >> 5)],
+                       1u << (t & 31));
+          }
+        }
+        PHASE_TICK(3)  // pool
+      }
+      // every warp has read this block's H1 (the pool's barriers): the next
+      // block's conv may overwrite it
+    }
+    __syncthreads();
+
+    // -- pred_m (fixed-order reduction) and the routed gradient per channel;
+    // "first" keeps the lowest tied row only --
+    {
+      float s = 0.f;
+      for (int c = tid; c < C2; c += THREADS) {
+        const float d = decw[c], best = mx[c];
+        s += best * d;
+        int cnt = 0;
+        if (a.pool_first) {
+          bool found = false;
+          for (int w = 0; w < TW; ++w) {
+            const unsigned word = tie[c * TW + w];
+            tie[c * TW + w] = found ? 0u : word & (0u - word);
+            found = found || word != 0u;
+          }
+          cnt = 1;
+        } else {
+          for (int w = 0; w < TW; ++w) cnt += __popc(tie[c * TW + w]);
+        }
+        scale[c] = best > 0.f ? d / (float)cnt : 0.f;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0) red[warp] = s;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.f;
+      for (int w = 0; w < THREADS / 32; ++w) s += red[w];
+      a.pred[(size_t)m * a.B + b] = s + a.decb[m];
+    }
+    // each row's routed channels (with a gradient), ascending: the first
+    // LCAP listed, and their count. A lane per row: the 32 rows of a warp
+    // share each word of the tie masks it reads
+    for (int t = tid; t < n_t; t += THREADS) {
+      const int tw = t >> 5, bit = t & 31;
+      int cnt = 0;
+#pragma unroll 8
+      for (int c2 = 0; c2 < C2; ++c2) {
+        const unsigned word = tie[c2 * TW + tw];  // loads first: the
+        const float sc = scale[c2];               // iterations overlap
+        if (((word >> bit) & 1u) && sc != 0.f) {
+          if (cnt < LCAP) rowlist[t * LCAP + cnt] = (unsigned short)c2;
+          ++cnt;
+        }
+      }
+      rowcnt[t] = cnt;
+    }
+    __syncthreads();
+    PHASE_TICK(4)  // pred, routed gradients, row lists
+
+    float* out = a.dxm + ((size_t)m * a.B + b) * LV;
+    for (int rb = 0; rb < nrb; ++rb) {
+      const int t0 = rb * R;
+      // -- G1[t] = [H1[t] > 0] * sum_{c routed to t} scale[c] * emb_w^T[c],
+      // channels ascending, written over the A operand. A quarter warp a
+      // row, four rows a warp at a time, 16 bytes a load: the rows of
+      // emb_w^T of two channels of each row are loaded before the first is
+      // used. A row with more than LCAP channels (wide ties)
+      // is left to the second loop: one warp a row scanning the tie masks,
+      // four rows of emb_w^T in flight --
+      {
+        const int q8 = lane >> 3, l8 = lane & 7, c4n = Cp / 4;
+        for (int r0 = warp * 4; r0 < R; r0 += 4 * (THREADS / 32)) {
+          const int r = r0 + q8, t = t0 + r;
+          const int cnt = t < n_t ? rowcnt[t] : 0;
+          const int listed = cnt > LCAP ? 0 : cnt;  // > LCAP: second loop
+          float4 acc4[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+          int most = listed;  // warp-uniform trip count
+#pragma unroll
+          for (int off = 8; off < 32; off <<= 1)
+            most = max(most, __shfl_xor_sync(0xffffffffu, most, off));
+          for (int u0 = 0; u0 < most; u0 += 2) {
+            float4 w[2][8];
+            float sc[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const bool on = u0 + u < listed;
+              const int cu = on ? rowlist[t * LCAP + u0 + u] : 0;
+              sc[u] = on ? scale[cu] : 0.f;
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                if (on && l8 + 8 * j < c4n)
+                  w[u][j] = __ldg(reinterpret_cast<const float4*>(
+                                      embwT + (size_t)cu * Cp) +
+                                  l8 + 8 * j);
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              if (u0 + u < listed)
+#pragma unroll
+                for (int j = 0; j < 8; ++j)
+                  if (l8 + 8 * j < c4n) fma4(acc4[j], sc[u], w[u][j]);
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int c4 = l8 + 8 * j;
+            if (c4 < c4n && cnt <= LCAP) {
+              const unsigned bits =
+                  t < n_t ? h1pos[t * HW + (c4 >> 3)] >> ((c4 & 7) * 4) : 0u;
+              *reinterpret_cast<float4*>(A + r * LDA + 4 * c4) = make_float4(
+                  bits & 1u ? acc4[j].x : 0.f, bits & 2u ? acc4[j].y : 0.f,
+                  bits & 4u ? acc4[j].z : 0.f, bits & 8u ? acc4[j].w : 0.f);
+            }
+          }
+        }
+      }
+      for (int r = warp; r < R; r += THREADS / 32) {
+        const int t = t0 + r;
+        if (t >= n_t || rowcnt[t] <= LCAP) continue;  // warp-uniform
+        float g[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) g[q] = 0.f;
+        {
+          const int tw = t >> 5;
+          const unsigned bit = 1u << (t & 31);
+          for (int c0 = 0; c0 < C2; c0 += 32) {
+            const int c2 = c0 + lane;
+            unsigned bal = __ballot_sync(
+                0xffffffffu,
+                c2 < C2 && (tie[c2 * TW + tw] & bit) && scale[c2] != 0.f);
+            while (bal) {  // warp-uniform
+              int cs[4];
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                cs[u] = bal ? c0 + __ffs(bal) - 1 : -1;
+                bal &= bal - 1;
+              }
+              float w[4][8];
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+#pragma unroll
+                for (int q = 0; q < 8; ++q) {
+                  const int c = lane + 32 * q;
+                  w[u][q] = cs[u] >= 0 && c < Cp
+                                ? __ldg(embwT + (size_t)cs[u] * Cp + c)
+                                : 0.f;
+                }
+#pragma unroll
+              for (int u = 0; u < 4; ++u)
+                if (cs[u] >= 0) {
+                  const float sc = scale[cs[u]];
+#pragma unroll
+                  for (int q = 0; q < 8; ++q) g[q] = fmaf(sc, w[u][q], g[q]);
+                }
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int c = lane + 32 * q;
+          if (c < Cp)
+            A[r * LDA + c] = ((h1pos[t * HW + q] >> lane) & 1u) ? g[q] : 0.f;
+        }
+      }
+      __syncthreads();
+      PHASE_TICK(5)  // gather of G1
+
+      // -- dP = G1 @ enc_w^T, staged over G1 --
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int ks = 0; ks < nks; ++ks) {
+        wait_full(n);
+        stage_product(acc, A, ring + slot_of(n) * STAGE_FLOATS, ks * KS, tx,
+                      ty);
+        done(n);
+        ++n;
+      }
+      __syncthreads();  // every warp has read G1: dP may overwrite it
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        float* p = A + row_of(i) * LDP + tx * 4;
+        *reinterpret_cast<float4*>(p) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+        *reinterpret_cast<float4*>(p + 64) =
+            make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+      }
+      __syncthreads();
+      PHASE_TICK(6)  // dP product and staging
+
+      // -- col2im: dx[pos, v] = sum_k dP[pos - k, k*V + v] over this row
+      // block's rows, k ascending, added to what the previous row block
+      // wrote (one thread per entry: every sum has one order) --
+      const int t_end = min(t0 + R, n_t);
+      const int f_hi = (t_end - 1) * V + KV;
+      const int f_old = rb > 0 ? (t0 - 1) * V + KV : 0;
+      for (int f = t0 * V + tid; f < f_hi; f += THREADS) {
+        const int pos = f / V, v = f - pos * V;
+        float s = f < f_old ? out[f] : 0.f;
+        for (int k = 0; k < K; ++k) {
+          const int t = pos - k;
+          if (t >= t0 && t < t_end) s += A[(t - t0) * LDP + k * V + v];
+        }
+        out[f] = s;
+      }
+      __syncthreads();  // dP and dx are read before the next row block
+      PHASE_TICK(7)     // col2im and store
     }
   }
-
-  finish_pool<THREADS, float>(a, b, m, mx, first, mask, scale,
-                              sm + lay.red);
-  __syncthreads();
-
-  // ---- pass 2: H1 again, then the input gradient ----
-  for (int t0 = 0; t0 < n_t; t0 += R) {
-    h1_tile(sm, lay, a, m, t0);
-    gather_g1<THREADS>(h1, g1, ldc, R, t0, n_t, a.C, a.C2, mask, scale,
-                       embwT);
-    __syncthreads();
-    // dP = G1 @ enc_w^T  (enc_w^T(k = c, n = j) = enc_w[j*C + c]) into buf
-    gemm_tile(buf, NB, KV, false, g1, ldc, ldc, encw, 1, a.C, a.C, 0, KV,
-              sm + lay.ws);
-    col2im_rows<THREADS>(dxs, buf, NB, t0, min(t0 + R, n_t), a.V, KV);
-    __syncthreads();
-  }
-  float* out = a.dxm + ((size_t)m * a.B + b) * LV;
-  for (int i = tid; i < LV; i += THREADS) out[i] = dxs[i];
 }
 
 }  // namespace simt
@@ -1218,9 +1518,8 @@ __global__ void cnn_member_reduce(const float* __restrict__ pred,
   }
 }
 
-size_t smem_bytes(int L, int V, int K, int C, int C2, int dtype) {
-  if (dtype == 1) return (size_t)tc::lay::total;
-  return (size_t)simt::Layout(L, V, K, C, C2).total * sizeof(float);
+size_t smem_bytes(int dtype) {
+  return (size_t)(dtype == 1 ? tc::lay::total : simt::lay::total);
 }
 
 int member_reduce(const float* pred, const float* dxm, float* fit, float* dx,
@@ -1238,21 +1537,44 @@ bool tc_ok(int L, int V, int K, int C, int C2) {
          L * V <= tc::MAX_LV && L <= tc::MAX_L;
 }
 
+int round_up(int n, int m) { return (n + m - 1) / m * m; }
+
+// The persistent grid's width: SMs / M blocks per member (at least 1, at
+// most B). Returns a cudaError_t.
+int grid_width(int M, int B, int* per) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *per = sms / M;
+  if (*per < 1) *per = 1;
+  if (*per > B) *per = B;
+  return static_cast<int>(err);
+}
+
+// what the float32 kernel takes
+bool simt_ok(int L, int V, int K, int C, int C2) {
+  return L >= K && L - K + 1 <= simt::MAX_T && K * V <= simt::NT &&
+         C <= simt::MAX_C && C2 <= simt::MAX_C2 && L <= simt::MAX_L;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of dynamic shared memory one block needs for dtype (0 = float32,
 // 1 = bfloat16); the wrapper checks it against the card's 227 KB.
-long cnn_smem_bytes(int L, int V, int K, int C, int C2, int dtype) {
-  return (long)smem_bytes(L, V, K, C, C2, dtype);
-}
+long cnn_smem_bytes(int dtype) { return (long)smem_bytes(dtype); }
 
-// Limits of the float32 kernel: K*V (the dP tile's width), C (conv
-// channels), T = L-K+1.
-int cnn_max_kv() { return NB; }
-int cnn_max_c() { return 32 * CPL; }
-int cnn_max_t() { return MAXT; }
+// Limits of the float32 kernel: K*V (the dP tile's width, also the columns
+// of an embed chunk of its layout: emb [M, nchunk, Cp, this]), C (conv
+// channels), T = L-K+1, C2 (embed channels).
+int cnn_max_kv() { return simt::NT; }
+int cnn_max_c() { return simt::MAX_C; }
+int cnn_max_t() { return simt::MAX_T; }
+int cnn_max_c2() { return simt::MAX_C2; }
+// The depth C is padded to in the float32 layout (Cp, a multiple of this).
+int cnn_f32_depth() { return simt::KS; }
 
 // 1 if the bf16 kernel takes these sizes: T = L-K+1 <= 256, K*V <= 104, V
 // even and <= 32, C <= 256, C2 <= 512, L*V <= 5248, L <= 320.
@@ -1266,45 +1588,52 @@ int cnn_phase_clocks(long long* out, int reset) {
   long long zero[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   if (reset)
     return static_cast<int>(
-        cudaMemcpyToSymbol(tc::g_phase_clocks, zero, sizeof(zero)));
+        cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero)));
   return static_cast<int>(
-      cudaMemcpyFromSymbol(out, tc::g_phase_clocks, sizeof(zero)));
+      cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(zero)));
 }
 #endif
 
 // Columns of one embed chunk: emb_blob holds ceil(C2 / this) chunks.
 int cnn_bf16_chunk() { return tc::NCH; }
 
-// float32 (x, enc_w, emb_w, emb_w^T, dec_w and the biases). Returns a
-// cudaError_t.
+// float32, from the tensors prepare_ensemble makes (x [B, L*V]; encw
+// [M, K*V, Cp], encT [M, Cp, 128], emb [M, nchunk, Cp, 128], embwT [M, C2,
+// Cp], encb [M, Cp], embb [M, nchunk * 128], decw [M, C2], decb [M]; Cp = C
+// rounded up to 16, zero-padded). Returns a cudaError_t.
 int cnn_ensemble_fit_and_grad(const void* x, const void* encw,
-                              const void* encb, const void* embw,
-                              const void* embwT, const void* embb,
-                              const void* decw, const void* decb, void* pred,
-                              void* dxm, void* fit, void* dx, int B, int L,
-                              int V, int K, int C, int C2, int M,
-                              int pool_first, void* stream) {
-  if (B <= 0 || M <= 0 || L < K || K * V > NB || C > 32 * CPL ||
-      L - K + 1 > MAXT || V % 2)
+                              const void* encT, const void* emb,
+                              const void* embwT, const void* encb,
+                              const void* embb, const void* decw,
+                              const void* decb, void* pred, void* dxm,
+                              void* fit, void* dx, int B, int L, int V, int K,
+                              int C, int C2, int M, int pool_first,
+                              void* stream) {
+  if (B <= 0 || M <= 0 || !simt_ok(L, V, K, C, C2))
     return static_cast<int>(cudaErrorInvalidValue);
-  Args a{x,
-         encw,
-         static_cast<const float*>(encb),
-         embw,
-         embwT,
-         static_cast<const float*>(embb),
-         decw,
-         static_cast<const float*>(decb),
-         static_cast<float*>(pred),
-         static_cast<float*>(dxm),
-         B, L, V, K, C, C2, M, pool_first};
+  const int Cp = round_up(C, simt::KS);
+  const int nchunk = (C2 + simt::NT - 1) / simt::NT;
+  simt::F32Args a{static_cast<const float*>(x),
+                  static_cast<const float*>(encw),
+                  static_cast<const float*>(encT),
+                  static_cast<const float*>(emb),
+                  static_cast<const float*>(embwT),
+                  static_cast<const float*>(encb),
+                  static_cast<const float*>(embb),
+                  static_cast<const float*>(decw),
+                  static_cast<const float*>(decb),
+                  static_cast<float*>(pred),
+                  static_cast<float*>(dxm),
+                  B, L, V, K, C, C2, M, pool_first, Cp, nchunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = smem_bytes(L, V, K, C, C2, 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      simt::fit_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  int per = 1;
+  cudaError_t err = static_cast<cudaError_t>(grid_width(M, B, &per));
   if (err != cudaSuccess) return static_cast<int>(err);
-  simt::fit_grad_kernel<<<dim3(B, M), simt::THREADS, smem, s>>>(a);
+  err = cudaFuncSetAttribute(simt::fit_grad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes(0));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  simt::fit_grad_kernel<<<dim3(per, M), simt::THREADS, smem_bytes(0), s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return member_reduce(a.pred, a.dxm, static_cast<float*>(fit),
@@ -1338,21 +1667,15 @@ int cnn_ensemble_fit_and_grad_bf16(const void* x, const void* enc_blob,
                static_cast<float*>(dxm),
                B, L, V, K, C, C2, M, pool_first, nchunk};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
   // one block per SM, each on one member, walking samples in strides
-  int per = sms / M;
-  if (per < 1) per = 1;
-  if (per > B) per = B;
-  const size_t smem = smem_bytes(L, V, K, C, C2, 1);
+  int per = 1;
+  cudaError_t err = static_cast<cudaError_t>(grid_width(M, B, &per));
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(tc::fit_grad_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+                             (int)smem_bytes(1));
   if (err != cudaSuccess) return static_cast<int>(err);
-  tc::fit_grad_kernel<<<dim3(per, M), tc::THREADS, smem, s>>>(a);
+  tc::fit_grad_kernel<<<dim3(per, M), tc::THREADS, smem_bytes(1), s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return member_reduce(a.pred, a.dxm, static_cast<float*>(fit),

@@ -1,122 +1,59 @@
 // Kernel A: fused Potts energy + input gradient, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel ppde_tpu/ops/potts_pallas.py:energy_and_grad
-// (_kernel). For flattened one-hots xf [B, P], couplings W [P, P]
-// and fields h [P] (P a multiple of 128; xf, W and h share one type, float32
-// or bfloat16; every sum is float32):
+// (_kernel). For flattened one-hots xf [B, P], couplings W [P, P] and
+// fields h [P] (P a multiple of 128; every sum is float32):
 //
 //     grad = xf @ W + h                                   [B, P]  float32
 //     H    = sum_cols xf * (0.5 * (xf @ W) + h)           [B]     float32
 //
-// What bounds it on the H100: bytes. W (P*P elements, 47 MB in bf16 at
-// GFP's P = 4864) is read once and the float32 gradient written once; the
-// dense product's 2*B*P*P operations stay under that up to B of about 1000.
-// A kernel is then paced by how fast an SM can pull its tiles through L2
-// (about 64 bytes a clock), so tiles are large and many are in flight.
+// W reaches the kernel as n bf16 planes [n, P, P] whose sum is W: a bf16 W
+// is its own single plane; a float32 W is split once, on the host
+// (ops/potts_fused.prepare), into W_hi = bf16(W), W_mid = bf16(W - W_hi) and
+// W_lo = bf16(W - W_hi - W_mid). Three 8-bit significands hold all 24 bits of
+// a float32, so W_hi + W_mid + W_lo == W exactly (outside the subnormal
+// range), and xf's entries (0 and 1) are exact in bf16: every product
+// xf * W_plane is exact, and the float32 path differs from xf @ W in float32
+// only by the order of its float32 sums. h is float32 in both cases.
+//
+// What bounds it on the H100: bytes, up to B of about 1000 in bf16 (W, 47 MB
+// at GFP's P = 4864, read once and the float32 gradient written once); the
+// float32 path reads three planes (142 MB) and does three products
+// (3 * 2*B*P*P operations, 0.15 ms at B = 1024 at the bf16 tensor-core
+// peak), so it is bound by operations from a few hundred rows on. Either way
+// a block is paced by how fast an SM pulls its tiles through L2, so tiles
+// are large and many are in flight.
 //
 // Design: a GEMM with a fused epilogue. Each block owns a 128 x 128 output
-// tile and walks K through a ring of shared-memory stages filled by
-// cp.async (16 bytes a copy); the TPU kernel's sequential-grid accumulator
-// (acc_ref, carried from one column tile to the next) has no counterpart:
-// blocks run in parallel and in no order. Each block writes its tile's
-// gradient and ONE partial energy per row, sum_{cols in tile} xf * (0.5*acc
-// + h), with h and the tile's own xf staged on chip; a second kernel adds
-// the partials of each row in a fixed order. At small B the tiles are too
-// few to fill the card, so K is split over gridDim.z: every split writes a
-// partial gradient tile and the second kernel adds the splits and h in
-// split order. No atomics: H and grad repeat bit for bit.
-// bf16: both operands in the 128-byte swizzle, read by wgmma m64n128k16 from
-// shared memory; 6 stages, one block per SM, two warpgroups of 64 rows. The
-// W tile is staged as it lies in memory (rows of k, columns contiguous) and
-// read MN-major (wgmma's transposed-B form), so any W is taken, symmetric
-// or not, and nothing is transposed on the way.
-// float32 products are FMAs from shared memory (no sampler path runs them).
+// tile and walks K, the planes of each 64-deep stage one after another (so a
+// row of xf with a single 1 gets hi + mid + lo == W exactly), through a ring
+// of 6 shared-memory stages filled by cp.async (16 bytes a copy); both
+// operands sit in the 128-byte swizzle and wgmma m64n128k16 reads them from
+// shared memory, two warpgroups of 64 rows, one block per SM. At small B
+// the split over K (below) cuts between depths, never between the planes of
+// one depth. The W tile is staged as it lies
+// in memory (rows of k, columns contiguous) and read MN-major (wgmma's
+// transposed-B form), so any W is taken, symmetric or not, and nothing is
+// transposed on the way. The TPU kernel's sequential-grid
+// accumulator (acc_ref, carried from one column tile to the next) has no
+// counterpart: blocks run in parallel and in no order. Each block writes its
+// tile's gradient and ONE partial energy per row, sum_{cols in tile}
+// xf * (0.5*acc + h); a second kernel adds the partials of each row in a
+// fixed order. At small B the tiles are too few to fill the card, so K is
+// split over gridDim.z: every split writes a partial gradient tile and the
+// second kernel adds the splits and h in split order. No atomics: H and grad
+// repeat bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BM = 64;    // rows of xf per block
 constexpr int BN = 128;   // columns of W per block (TILE_N)
-constexpr int BK = 32;    // depth of one shared-memory stage
-constexpr int TM = 4;     // rows per thread   (BM / 16)
-constexpr int TN = 8;     // columns per thread (BN / 16)
 constexpr int THREADS = 256;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-potts_grad_kernel(const T* __restrict__ xf, const T* __restrict__ W,
-                  const T* __restrict__ h, float* __restrict__ grad,
-                  float* __restrict__ partial, int B, int P) {
-  __shared__ float As[BK][BM + 4];  // A tile, transposed: As[k][m]
-  __shared__ float Bs[BK][BN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < P; k0 += BK) {
-    for (int i = tid; i < BM * BK; i += THREADS) {
-      const int m = i / BK, k = i % BK, r = row0 + m;
-      As[k][m] = r < B ? to_f(xf[(size_t)r * P + k0 + k]) : 0.f;
-    }
-    for (int i = tid; i < BK * BN; i += THREADS) {
-      const int k = i / BN, n = i % BN;
-      Bs[k][n] = to_f(W[(size_t)(k0 + k) * P + col0 + n]);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // epilogue: gradient tile + one partial energy per row of the tile
-  const int n_tiles = P / BN;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty + 16 * i;
-    float s = 0.f;
-    if (r < B) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int c = col0 + tx + 16 * j;
-        const float hc = to_f(h[c]);
-        grad[(size_t)r * P + c] = acc[i][j] + hc;
-        s += to_f(xf[(size_t)r * P + c]) * (0.5f * acc[i][j] + hc);
-      }
-    }
-    // the 16 threads of one row are 16 consecutive lanes of one warp:
-    // a fixed xor tree adds their sums
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off, 16);
-    if (tx == 0 && r < B) partial[(size_t)r * n_tiles + blockIdx.x] = s;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// bfloat16: cp.async ring -> wgmma (both operands from shared memory in the
+// cp.async ring -> wgmma (both operands bf16, from shared memory in the
 // 128-byte swizzle), two warpgroups of 64 rows each
 // ---------------------------------------------------------------------------
 
@@ -197,17 +134,23 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// One block: rows row0..row0+127 of xf against columns col0..col0+127 of W
-// over the k-stages [kt0, kt1) of its split (blockIdx.z). Without a split
-// (gridDim.z == 1) it writes grad = acc + h; with one it writes its partial
-// product to gpart[z] and potts_finish adds the splits and h in order.
-// Either way it writes one partial energy per row. The load of stage
-// kt + STAGES - 2 is started while the products of stages kt - 1 and kt are
-// in flight.
+// One block: rows row0..row0+127 of xf against columns col0..col0+127 of the
+// planes of W over the depths [64 * d0, 64 * d1) of its split (blockIdx.z);
+// stage kt is depth (kt / PLANES) * 64 of plane kt % PLANES, so the planes
+// of one depth follow one another into the same accumulators, and a split
+// holds whole depths: a row of xf with a single 1 gets hi + mid + lo == W
+// exactly, as a float32 product would (PLANES = 1, a bf16 W: stage kt is
+// depth kt * 64, and the plane costs nothing). Without a split (gridDim.z
+// == 1) it
+// writes grad = acc + h; with one it writes its partial product to gpart[z]
+// and potts_finish adds the splits and h in order. Either way it writes one
+// partial energy per row. The load of stage kt + STAGES - 2 is started while
+// the products of stages kt - 1 and kt are in flight.
+template <int PLANES>
 __global__ void __launch_bounds__(THREADS, 1)
 potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
                         const __nv_bfloat16* __restrict__ W,
-                        const __nv_bfloat16* __restrict__ h,
+                        const float* __restrict__ h,
                         float* __restrict__ grad, float* __restrict__ gpart,
                         float* __restrict__ partial, int B, int P) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -222,12 +165,14 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
   const int row0 = blockIdx.y * TBM, col0 = blockIdx.x * BN;
   const int nsplit = gridDim.z, z = blockIdx.z;
   const int nk = P / TBK;
-  const int kt0 = (int)((long)nk * z / nsplit);
-  const int kt1 = (int)((long)nk * (z + 1) / nsplit);
+  const int kt0 = PLANES * (int)((long)nk * z / nsplit);
+  const int kt1 = PLANES * (int)((long)nk * (z + 1) / nsplit);
 
   auto load_stage = [&](int slot, int kt) {
     const uint32_t sa = sbase + slot * STAGE_BYTES, sw = sa + A_BYTES;
-    const int k0 = kt * TBK;
+    const int plane = kt % PLANES;
+    const int k0 = (kt / PLANES) * TBK;
+    const __nv_bfloat16* Wp = W + (size_t)plane * P * P;
 #pragma unroll
     for (int j = 0; j < TBM * 8 / THREADS; ++j) {
       const int i = tid + j * THREADS, r = i >> 3, c = i & 7;
@@ -239,7 +184,7 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
 #pragma unroll
     for (int j = 0; j < TBK * 16 / THREADS; ++j) {  // W: 16 chunks per row
       const int i = tid + j * THREADS, k = i >> 4, c = i & 15;
-      cp_async16(sw + w_off(k, c), W + (size_t)(k0 + k) * P + col0 + c * 8);
+      cp_async16(sw + w_off(k, c), Wp + (size_t)(k0 + k) * P + col0 + c * 8);
     }
   };
 
@@ -291,7 +236,7 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
   }
   cp_async_commit();
   for (int i = tid; i < BN; i += THREADS)
-    hs[i] = __bfloat162float(h[col0 + i]);
+    hs[i] = h[col0 + i];
   cp_async_wait<0>();
   __syncthreads();
 
@@ -331,7 +276,7 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
 __global__ void potts_finish(const float* __restrict__ partial,
                              float* __restrict__ H, int B, int n_part,
                              int e_blocks, const float* __restrict__ gpart,
-                             const __nv_bfloat16* __restrict__ h,
+                             const float* __restrict__ h,
                              float* __restrict__ grad, int P, int nsplit) {
   if ((int)blockIdx.x < e_blocks) {
     const int b = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
@@ -351,9 +296,7 @@ __global__ void potts_finish(const float* __restrict__ partial,
       (blockIdx.x - e_blocks) * (size_t)blockDim.x + threadIdx.x;
   if (i >= n4) return;
   const int c = (int)((i * 4) % P);
-  float4 s = make_float4(__bfloat162float(h[c]), __bfloat162float(h[c + 1]),
-                         __bfloat162float(h[c + 2]),
-                         __bfloat162float(h[c + 3]));
+  float4 s = *reinterpret_cast<const float4*>(h + c);
   for (int z = 0; z < nsplit; ++z) {
     const float4 v =
         reinterpret_cast<const float4*>(gpart + (size_t)z * B * P)[i];
@@ -370,38 +313,26 @@ int finish(const void* partial, void* H, int B, int n_part, const void* gpart,
   potts_finish<<<e_blocks + (unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(partial), static_cast<float*>(H), B, n_part,
       e_blocks, static_cast<const float*>(gpart),
-      static_cast<const __nv_bfloat16*>(h), static_cast<float*>(grad), P,
+      static_cast<const float*>(h), static_cast<float*>(grad), P,
       nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_f32(const void* xf, const void* W, const void* h, void* grad,
-               void* partial, void* H, int B, int P, cudaStream_t stream) {
-  const dim3 grid(P / BN, (B + BM - 1) / BM);
-  potts_grad_kernel<float><<<grid, THREADS, 0, stream>>>(
-      static_cast<const float*>(xf), static_cast<const float*>(W),
-      static_cast<const float*>(h), static_cast<float*>(grad),
-      static_cast<float*>(partial), B, P);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return finish(partial, H, B, P / BN, nullptr, nullptr, nullptr, P, 1,
-                stream);
-}
-
-int launch_bf16(const void* xf, const void* W, const void* h, void* grad,
-                void* gpart, void* partial, void* H, int B, int P, int nsplit,
-                cudaStream_t stream) {
+template <int PLANES>
+int launch(const void* xf, const void* W, const void* h, void* grad,
+           void* gpart, void* partial, void* H, int B, int P, int nsplit,
+           cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   // + 1024: the ring starts at a multiple of 1024 bytes
   constexpr int smem_bytes = STAGES * STAGE_BYTES + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      potts_grad_kernel_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      potts_grad_kernel_wgmma<PLANES>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(P / BN, (B + TBM - 1) / TBM, nsplit);
-  potts_grad_kernel_wgmma<<<grid, THREADS, smem_bytes, stream>>>(
+  potts_grad_kernel_wgmma<PLANES><<<grid, THREADS, smem_bytes, stream>>>(
       static_cast<const bf16*>(xf), static_cast<const bf16*>(W),
-      static_cast<const bf16*>(h), static_cast<float*>(grad),
+      static_cast<const float*>(h), static_cast<float*>(grad),
       static_cast<float*>(gpart), static_cast<float*>(partial), B, P);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -413,13 +344,11 @@ int launch_bf16(const void* xf, const void* W, const void* h, void* grad,
 
 extern "C" {
 
-// Splits over K the bf16 kernel takes for this shape (1 for float32): as
-// many as give every SM a block (one fits an SM), at most 8
-// (each split writes and re-reads a float32 [B, P] partial product). The
-// caller allocates partial [B, splits * P / 128] and, for splits > 1, gpart
-// [splits, B, P].
-int potts_splits(int B, int P, int dtype) {
-  if (dtype != 1) return 1;
+// Splits over K for this shape: as many as give every SM a block (one fits
+// an SM), at most 8 (each split writes and re-reads a float32 [B, P] partial
+// product) and at most one per 64 deep. The caller allocates partial
+// [B, splits * P / 128] and, for splits > 1, gpart [splits, B, P].
+int potts_splits(int B, int P) {
   const int tiles = (P / BN) * ((B + TBM - 1) / TBM);
   int s = 132 / tiles;
   if (s < 1) s = 1;
@@ -428,16 +357,21 @@ int potts_splits(int B, int P, int dtype) {
   return s;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (xf, W and h). Returns a cudaError_t.
+// xf bf16 [B, P]; W: `planes` bf16 planes [planes, P, P] whose sum is the
+// couplings (1: a bf16 W; 3: a float32 W split by ops/potts_fused.prepare;
+// no other count);
+// h float32 [P]. Returns a cudaError_t.
 int potts_energy_and_grad(const void* xf, const void* W, const void* h,
                           void* grad, void* gpart, void* partial, void* H,
-                          int B, int P, int dtype, int splits, void* stream) {
-  if (P % BN != 0 || B <= 0 || splits < 1 || splits > 8)
+                          int B, int P, int planes, int splits,
+                          void* stream) {
+  if (P % BN != 0 || B <= 0 || (planes != 1 && planes != 3) || splits < 1 ||
+      splits > 8 || splits > P / TBK)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(xf, W, h, grad, partial, H, B, P, s);
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bf16(xf, W, h, grad, gpart, partial, H, B, P, splits, s);
+  return planes == 1
+             ? launch<1>(xf, W, h, grad, gpart, partial, H, B, P, splits, s)
+             : launch<3>(xf, W, h, grad, gpart, partial, H, B, P, splits, s);
 }
 
 }  // extern "C"

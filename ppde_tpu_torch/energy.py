@@ -9,7 +9,10 @@ Counterpart of ``ppde_tpu/energy.py`` with the same uniform API:
 ``ops/cnn_fused.ensemble_apply_and_grad`` and the Potts term through
 ``ops/potts_fused.energy_and_grad``: on CUDA tensors always the kernels (the
 JAX package's ``fused_cnn`` / ``interpret`` switches have no counterpart),
-on CPU tensors their plain versions. The optional transformer term (an ESM2
+from weights each energy prepares once, on CPU tensors their plain
+versions. ``energy``'s supervised term splits max-pool ties whatever
+``pool_bwd`` says, as the JAX package's does: only ``energy_and_grad``
+honours the flag. The optional transformer term (an ESM2
 pseudo-log-likelihood delta, ``models/esm2.load_expert``) is differentiated
 by autograd, its attention through ``ops/attention_fused`` (kernels C and
 C' on CUDA). ``energy`` and ``fitness`` are plain, differentiable PyTorch
@@ -24,7 +27,7 @@ import torch
 
 from ppde_tpu_torch.models import cnn
 from ppde_tpu_torch.models import potts as potts_mod
-from ppde_tpu_torch.ops import cnn_fused
+from ppde_tpu_torch.ops import cnn_fused, potts_fused
 
 
 @dataclass(frozen=True)
@@ -39,30 +42,44 @@ class Energy:
     wt_onehot: Any = None  # [1, L, V] wild-type one-hot (protein domains)
 
 
-def _versions(sup) -> tuple:
-    return tuple(t._version for layer in ("encoder", "embed", "decoder")
-                 for t in sup[layer].values())
-
-
 class _PreparedOnce:
-    """Kernel B's prepared weights of one ensemble, made at the first call
-    on a CUDA tensor and kept (``cnn_fused.prepare_ensemble``), and made
-    anew after an in-place update of a weight (its version counter moved; a
-    write through ``.data`` moves none and is not seen). Another ensemble
-    handed in through ``params`` is prepared on the spot."""
+    """The prepared form of one set of weights, ``prepare(weights)``, made at
+    the first call on a CUDA tensor and kept; made anew after an in-place
+    update of one of ``tensors(weights)`` (its version counter moved) or
+    after one was replaced; a write through ``.data`` moves no counter and
+    is not seen. Other weights handed in through ``params`` are returned as
+    they are (and prepared on the spot by the wrapper)."""
 
-    def __init__(self, sup_ensemble, compute_dtype):
-        self.sup, self.dtype = sup_ensemble, compute_dtype
+    def __init__(self, weights, prepare, tensors):
+        self.weights, self.prepare, self.tensors = weights, prepare, tensors
         self.prepared, self.versions = None, None
 
-    def get(self, sup, x):
-        if sup is not self.sup or x.device.type == "cpu":
-            return sup
-        versions = _versions(sup)
+    def get(self, weights, x):
+        if weights is not self.weights or x.device.type == "cpu":
+            return weights
+        versions = tuple((id(t), t._version) for t in self.tensors(weights))
         if versions != self.versions:
-            self.prepared = cnn_fused.prepare_ensemble(sup, self.dtype)
+            self.prepared = self.prepare(weights)
             self.versions = versions
         return self.prepared
+
+
+def _ensemble_once(sup_ensemble, compute_dtype) -> _PreparedOnce:
+    """Kernel B's prepared weights of a stacked ensemble
+    (``cnn_fused.prepare_ensemble`` for ``compute_dtype``)."""
+    return _PreparedOnce(
+        sup_ensemble,
+        lambda s: cnn_fused.prepare_ensemble(s, compute_dtype),
+        lambda s: [t for layer in ("encoder", "embed", "decoder")
+                   for t in s[layer].values()])
+
+
+def _potts_once(potts_params) -> _PreparedOnce:
+    """Kernel A's prepared couplings (``potts_fused.prepare``: a float32 W
+    split into three bf16 planes)."""
+    return _PreparedOnce(potts_params,
+                         lambda p: potts_fused.prepare(p.W, p.h),
+                         lambda p: (p.W, p.h))
 
 
 def _fit_and_grad(sup, x, compute_dtype, cnn_chunk, pool_bwd):
@@ -95,7 +112,8 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
     supervised CNN.
     """
     params = {"sup": sup_ensemble}
-    prepared = _PreparedOnce(sup_ensemble, compute_dtype)
+    prepared = _ensemble_once(sup_ensemble, compute_dtype)
+    potts_once = _potts_once(potts_params)
     if potts_params is not None:
         params["potts"] = potts_params
     t_apply = None
@@ -104,8 +122,7 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
         t_apply = transformer[1]
 
     def fit_fn(p, x):
-        return cnn.ensemble_apply(p["sup"], x, compute_dtype=compute_dtype,
-                                  pool_bwd=pool_bwd)
+        return cnn.ensemble_apply(p["sup"], x, compute_dtype=compute_dtype)
 
     def energy(p, x):
         fit = fit_fn(p, x)
@@ -140,7 +157,10 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
         e = lam * fit
         grad = lam * fit_grad
         if "potts" in p:
-            pe, pg = potts_mod.score_and_grad(p["potts"], x, delta=True)
+            prep = potts_once.get(p["potts"], x)
+            pe, pg = potts_mod.score_and_grad(
+                p["potts"], x, delta=True,
+                prepared=None if prep is p["potts"] else prep)
             e = e + pe
             grad = grad + pg
         if t_apply is not None:
@@ -159,11 +179,10 @@ def protein_supervised(sup_ensemble, wt_onehot, compute_dtype=None,
                        pool_bwd: str = "split") -> Energy:
     """Supervised-only ablation: E(x) = fitness(x) (energy.py:143-164)."""
     params = {"sup": sup_ensemble}
-    prepared = _PreparedOnce(sup_ensemble, compute_dtype)
+    prepared = _ensemble_once(sup_ensemble, compute_dtype)
 
     def fit_fn(p, x):
-        return cnn.ensemble_apply(p["sup"], x, compute_dtype=compute_dtype,
-                                  pool_bwd=pool_bwd)
+        return cnn.ensemble_apply(p["sup"], x, compute_dtype=compute_dtype)
 
     def energy(p, x):
         fit = fit_fn(p, x)

@@ -9,7 +9,8 @@ L*V up to P, a multiple of 128), so one evaluation is one matmul:
     dH/dx = Jx + h                         # shares the same matmul
 
 ``hamiltonian_and_grad`` goes through ``ops/potts_fused.energy_and_grad``:
-kernel A on a CUDA tensor, its plain version on a CPU tensor.
+kernel A on a CUDA tensor (from couplings prepared once by the caller, or
+on the spot), its plain version on a CPU tensor.
 """
 from __future__ import annotations
 
@@ -82,10 +83,17 @@ def hamiltonian(params: PottsParams, x: torch.Tensor) -> torch.Tensor:
     return 0.5 * (xf * Jx).sum(-1) + xf @ params.h.float()
 
 
-def hamiltonian_and_grad(params: PottsParams, x: torch.Tensor):
-    """Fused (H [B], dH/dx [B, L, V]); x in window coordinates."""
+def hamiltonian_and_grad(params: PottsParams, x: torch.Tensor,
+                         prepared: potts_fused.Prepared | None = None):
+    """Fused (H [B], dH/dx [B, L, V]); x one-hot, in window coordinates.
+    ``prepared``: ``potts_fused.prepare(params.W, params.h)``, kept by the
+    caller (None: the kernel's wrapper prepares on the spot)."""
+    # kernel A reads xf in bf16, which holds one-hots exactly: one copy
+    # pads and casts
+    dt = params.W.dtype if x.device.type == "cpu" else torch.bfloat16
     H, grad_flat = potts_fused.energy_and_grad(
-        params.W, params.h, _pad_flat(params, x, params.W.dtype))
+        params.W if prepared is None else prepared, params.h,
+        _pad_flat(params, x, dt))
     return H, grad_flat[:, : params.data_dim].reshape(x.shape)
 
 
@@ -101,10 +109,12 @@ def score(params: PottsParams, x_full: torch.Tensor, delta: bool = True):
 
 
 def score_and_grad(params: PottsParams, x_full: torch.Tensor,
-                   delta: bool = True):
+                   delta: bool = True,
+                   prepared: potts_fused.Prepared | None = None):
     """(score, d score / d x_full); the gradient is zero outside the
-    window."""
-    H, gw = hamiltonian_and_grad(params, window_slice(params, x_full))
+    window. ``prepared`` as for ``hamiltonian_and_grad``."""
+    H, gw = hamiltonian_and_grad(params, window_slice(params, x_full),
+                                 prepared)
     after = x_full.shape[1] - params.max_pos - 1
     grad = torch.nn.functional.pad(gw, (0, 0, params.min_pos, after))
     return (H - params.wt_H if delta else H), grad

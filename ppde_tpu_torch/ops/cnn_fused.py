@@ -11,16 +11,18 @@ one-hot x [B, L, V] and a stacked ensemble of M members,
     dx  = d sum(fit) / dx                                      [B, L, V]
 
 Bound on the H100: the operations of the embed product (GFP B = 1024:
-2*B*M*T*C*2C = 0.16 TFLOP, about 0.17 ms at the bf16 tensor-core peak); the
-bytes are small. The bf16 kernel follows the member-grid twin's schedule: a
-persistent block per SM stays on one member and walks samples; the member's
-weights, tiled and swizzled once by ``prepare_ensemble``, stream through a
-ring of shared-memory slots (cp.async.bulk + mbarriers); the conv is a
-gather-add of enc_w rows, the embed product and dP run on wgmma with H1 / G1
-as the shared-memory operand, the max-pool's maxima and routed rows are
-taken from the accumulators, and the routed rows of emb_w^T are gathered
-with all loads of four rows in flight (see the .cu source). The float32
-kernel is the first cut's (one block per sample and member, FMAs).
+2*B*M*T*C*2C = 0.16 TFLOP, about 0.17 ms at the bf16 tensor-core peak and
+2.4 ms at the float32 FMA peak); the bytes are small. Both kernels follow
+the member-grid twin's schedule: a persistent block per SM stays on one
+member and walks samples; the member's weights, laid out once by
+``prepare_ensemble``, stream through a ring of shared-memory slots
+(cp.async.bulk + mbarriers); the conv is a gather-add of enc_w rows, the
+max-pool's maxima and routed rows are taken from the accumulators, and the
+routed rows of emb_w^T are gathered with the loads of four rows in flight.
+bf16 (the sampler's ``--compute_dtype bf16``) runs the embed product and dP
+on wgmma with H1 / G1 as the shared-memory operand; float32 (the CLI's
+default) runs them on FMAs from 8 x 8 register tiles, rows in blocks of 128,
+and keeps a bitmask of H1 > 0 for the backward pass (see the .cu source).
 
 Weights are prepared once: ``prepare_ensemble(stacked, dtype)`` returns a
 ``Prepared`` that ``ensemble_apply_and_grad`` takes in place of the stacked
@@ -29,7 +31,8 @@ layout prepares on every call.
 
 The plain version is ``models.cnn.ensemble_apply_and_grad_plain``.
 ``ensemble_apply_and_grad`` runs it for a CPU tensor and the kernel for a
-CUDA tensor; ``launches`` counts kernel launches.
+CUDA tensor; ``launches`` counts kernel launches, ``launches_f32`` those in
+float32.
 """
 from __future__ import annotations
 
@@ -44,7 +47,8 @@ from ppde_tpu_torch.ops import _build
 __all__ = ["ensemble_apply_and_grad", "ensemble_apply_and_grad_plain",
            "prepare_ensemble", "Prepared"]
 
-launches = 0  # kernel launches made by ensemble_apply_and_grad
+launches = 0      # kernel launches made by ensemble_apply_and_grad
+launches_f32 = 0  # those of them in float32
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 kernel's tiles (csrc/cnn_ensemble.cu, namespace tc)
@@ -52,6 +56,9 @@ TILE_K = 64      # depth of a weight tile: 128-byte rows
 MAX_C = 256      # conv channels: 4 tiles deep
 CHUNK = 96       # embed columns per chunk
 KV_PAD = 104     # K*V padded
+# the float32 kernel's layout (namespace simt)
+F32_CHUNK = 128  # columns of a product: an embed chunk; dP (K*V padded)
+F32_DEPTH = 16   # depth of a weight stage: C is padded to a multiple
 
 
 @dataclasses.dataclass
@@ -105,11 +112,22 @@ def prepare_ensemble(stacked, compute_dtype=None) -> Prepared:
     t = {"decw": dec["w"].to(cdt).reshape(M, C2).contiguous(),
          "decb": dec["b"].to(f32).reshape(M).contiguous()}
     if cdt == torch.float32:
-        t.update(encw=encw.contiguous(),
-                 encb=enc["b"].to(f32).reshape(M, C).contiguous(),
-                 embw=emb["w"].to(cdt).contiguous(),
-                 embwT=embwT.contiguous(),
-                 embb=emb["b"].to(f32).reshape(M, C2).contiguous())
+        Cp = -(-C // F32_DEPTH) * F32_DEPTH
+        n_chunk = -(-C2 // F32_CHUNK)
+        t.update(
+            # rows of enc_w [j][c] (the conv's gather)
+            encw=_pad_to(encw, K * V, Cp).contiguous(),
+            # B operand of dP = G1 @ enc_w^T: [c][j]
+            encT=_pad_to(encw.transpose(1, 2), Cp, F32_CHUNK).contiguous(),
+            # B operand of H2 = H1 @ emb_w, chunk by chunk: [ch][c][c2]
+            emb=_pad_to(emb["w"].to(f32), Cp, n_chunk * F32_CHUNK).reshape(
+                M, Cp, n_chunk, F32_CHUNK).transpose(1, 2).contiguous(),
+            # rows of emb_w^T [c2][c] (the gather of G1)
+            embwT=_pad_to(embwT, C2, Cp).contiguous(),
+            encb=_pad_to(enc["b"].to(f32).reshape(M, 1, C), 1,
+                         Cp).reshape(M, Cp).contiguous(),
+            embb=_pad_to(emb["b"].to(f32).reshape(M, 1, C2), 1,
+                         n_chunk * F32_CHUNK).reshape(M, -1).contiguous())
     elif K * V <= KV_PAD and C <= MAX_C:
         n_chunk = -(-C2 // CHUNK)
         t.update(
@@ -131,16 +149,16 @@ def _lib():
     lib = _build.library("cnn_ensemble")
     fn = lib.cnn_ensemble_fit_and_grad
     if fn.argtypes is None:  # declare once: ints would cut the pointers
-        for f in (fn, lib.cnn_ensemble_fit_and_grad_bf16):
-            f.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 8 + [
+        for f, n_ptr in ((fn, 13), (lib.cnn_ensemble_fit_and_grad_bf16, 12)):
+            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + [
                 ctypes.c_void_p]
             f.restype = ctypes.c_int
-        lib.cnn_smem_bytes.argtypes = [ctypes.c_int] * 6
+        lib.cnn_smem_bytes.argtypes = [ctypes.c_int]
         lib.cnn_smem_bytes.restype = ctypes.c_long
         lib.cnn_bf16_ok.argtypes = [ctypes.c_int] * 5
         lib.cnn_bf16_ok.restype = ctypes.c_int
-        for name in ("cnn_max_kv", "cnn_max_c", "cnn_max_t",
-                     "cnn_bf16_chunk"):
+        for name in ("cnn_max_kv", "cnn_max_c", "cnn_max_t", "cnn_max_c2",
+                     "cnn_f32_depth", "cnn_bf16_chunk"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -166,7 +184,7 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
         return ensemble_apply_and_grad_plain(
             prep.stacked if prep is not None else stacked, x, compute_dtype,
             pool_bwd)
-    global launches
+    global launches, launches_f32
     if pool_bwd not in ("split", "first"):
         raise ValueError(f"pool_bwd must be 'split' or 'first': {pool_bwd}")
     if prep is None:
@@ -183,20 +201,23 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
     lib = _lib()
     if cdt == torch.float32:
         if (K * V > lib.cnn_max_kv() or C > lib.cnn_max_c()
-                or L - K + 1 > lib.cnn_max_t() or V % 2):
+                or L - K + 1 > lib.cnn_max_t() or C2 > lib.cnn_max_c2()
+                or (lib.cnn_max_kv(), lib.cnn_f32_depth())
+                != (F32_CHUNK, F32_DEPTH)):
             raise ValueError(
                 f"kernel B (float32) takes K*V <= {lib.cnn_max_kv()}, C <= "
-                f"{lib.cnn_max_c()}, L-K+1 <= {lib.cnn_max_t()} and an even "
-                f"V; got K*V={K * V}, C={C}, L-K+1={L - K + 1}, V={V}")
+                f"{lib.cnn_max_c()}, L-K+1 <= {lib.cnn_max_t()} and 2C <= "
+                f"{lib.cnn_max_c2()}; got K*V={K * V}, C={C}, "
+                f"L-K+1={L - K + 1}, 2C={C2}")
     elif not lib.cnn_bf16_ok(L, V, K, C, C2) or lib.cnn_bf16_chunk() != CHUNK:
         raise ValueError(
             f"kernel B (bfloat16) takes L-K+1 <= 256, K*V <= {KV_PAD}, an "
             f"even V <= 32, C <= {MAX_C}, 2C <= 512, L*V <= 5248 and L <= 320; got "
             f"L={L}, K={K}, V={V}, C={C}, 2C={C2}")
-    smem = lib.cnn_smem_bytes(L, V, K, C, C2, _DTYPES[cdt])
+    smem = lib.cnn_smem_bytes(_DTYPES[cdt])
     if smem > SMEM_LIMIT:
         raise ValueError(f"kernel B needs {smem} bytes of shared memory "
-                         f"(limit {SMEM_LIMIT}) at L={L}, C={C}")
+                         f"(limit {SMEM_LIMIT})")
     f32 = torch.float32
     xc = x.to(cdt).contiguous()
     dev = x.device
@@ -206,7 +227,7 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
     dx = torch.empty((B, L, V), dtype=f32, device=dev)
     if cdt == torch.float32:
         fn, w = lib.cnn_ensemble_fit_and_grad, (
-            t["encw"], t["encb"], t["embw"], t["embwT"], t["embb"])
+            t["encw"], t["encT"], t["emb"], t["embwT"], t["encb"], t["embb"])
     else:
         fn, w = lib.cnn_ensemble_fit_and_grad_bf16, (
             t["enc_blob"], t["emb_blob"], t["embwT"], t["encb"], t["embb"])
@@ -221,4 +242,5 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
         raise RuntimeError(f"kernel B (cnn_ensemble) launch failed: "
                            f"cudaError {err}")
     launches += 1
+    launches_f32 += int(cdt == torch.float32)
     return fit, dx

@@ -240,3 +240,43 @@ def test_bf16_plain_close_to_pallas_interpret_at_a_ragged_size():
                                atol=3e-2)
     a, b = gt.numpy().ravel(), np.asarray(gk, np.float32).ravel()
     assert a @ b / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.99
+
+
+@pytest.mark.parametrize("width", [C, 37])     # C a multiple of 16, and not
+def test_prepared_f32_layout_holds_the_weights(width):
+    """The float32 layout of prepare_ensemble holds the weights, zero-padded:
+    enc_w's rows [j][c] and its transpose [c][j] (128 columns), emb_w in
+    column chunks of 128 [ch][c][c2], emb_w^T's rows [c2][c], the biases and
+    the decoder, C padded to a multiple of 16."""
+    j = jcnn.init_ensemble(jax.random.PRNGKey(width), M, input_size=width)
+    t = convert.cnn_ensemble_from_numpy(jax.tree.map(np.asarray, j), "cpu")
+    tt = cnn_fused.prepare_ensemble(t).tensors
+    K, C2 = 5, 2 * width
+    Cp = -(-width // cnn_fused.F32_DEPTH) * cnn_fused.F32_DEPTH
+    n_chunk = -(-C2 // cnn_fused.F32_CHUNK)
+    enc = t["encoder"]["w"].reshape(M, K * V, width)
+    emb = t["embed"]["w"]
+    assert tt["encw"].shape == (M, K * V, Cp)
+    assert torch.equal(tt["encw"][:, :, :width], enc)
+    assert not tt["encw"][:, :, width:].any()
+    assert tt["encT"].shape == (M, Cp, cnn_fused.F32_CHUNK)
+    assert torch.equal(tt["encT"][:, :width, :K * V], enc.transpose(1, 2))
+    assert not tt["encT"][:, width:].any()
+    assert not tt["encT"][:, :, K * V:].any()
+    assert tt["emb"].shape == (M, n_chunk, Cp, cnn_fused.F32_CHUNK)
+    whole = tt["emb"].transpose(1, 2).reshape(M, Cp, -1)
+    assert torch.equal(whole[:, :width, :C2], emb)
+    assert not whole[:, width:].any() and not whole[:, :, C2:].any()
+    # element (member 1, depth c, column c2) of chunk c2 // 128
+    c, c2 = width - 1, C2 - 1
+    F = cnn_fused.F32_CHUNK
+    assert tt["emb"][1, c2 // F, c, c2 % F] == emb[1, c, c2]
+    assert tt["embwT"].shape == (M, C2, Cp)
+    assert torch.equal(tt["embwT"][:, :, :width], emb.transpose(1, 2))
+    assert torch.equal(tt["encb"][:, :width], t["encoder"]["b"].reshape(M, -1))
+    assert tt["encb"].shape == (M, Cp) and not tt["encb"][:, width:].any()
+    assert tt["embb"].shape == (M, n_chunk * cnn_fused.F32_CHUNK)
+    assert torch.equal(tt["embb"][:, :C2], t["embed"]["b"].reshape(M, -1))
+    assert torch.equal(tt["decw"], t["decoder"]["w"].reshape(M, C2))
+    assert all(v.dtype == torch.float32 and v.is_contiguous()
+               for v in tt.values())

@@ -17,6 +17,7 @@ from ppde_tpu import codec as jcodec, energy as jenergy
 from ppde_tpu.models import cnn as jcnn, esm2 as jesm2, potts as jpotts
 from ppde_tpu_torch import convert, energy
 from ppde_tpu_torch.models import esm2, potts
+from ppde_tpu_torch.ops import potts_fused
 
 torch.set_num_threads(1)
 WT = "ACDEFGHIKLMNPQRS"  # 16 residues
@@ -206,7 +207,7 @@ def test_energy_with_prepared_weights_matches_stacked(rng, dtype):
                              input_size=16)
     x = torch.nn.functional.one_hot(
         torch.from_numpy(rng.integers(0, 20, (6, 18))), 20).float()
-    once = tenergy._PreparedOnce(ens, dtype)
+    once = tenergy._ensemble_once(ens, dtype)
     assert once.get(ens, x) is ens and once.prepared is None
     other = tcnn.init_ensemble(torch.Generator().manual_seed(1), 3,
                                input_size=16)
@@ -230,7 +231,7 @@ def test_prepared_weights_follow_in_place_updates():
 
     ens = tcnn.init_ensemble(torch.Generator().manual_seed(0), 3,
                              input_size=16)
-    once = tenergy._PreparedOnce(ens, torch.bfloat16)
+    once = tenergy._ensemble_once(ens, torch.bfloat16)
     x = torch.empty((2, 18, 20), device="meta")
     first = once.get(ens, x)
     assert first is not ens and once.get(ens, x) is first
@@ -240,3 +241,83 @@ def test_prepared_weights_follow_in_place_updates():
     want = ens["decoder"]["w"].to(torch.bfloat16).reshape(3, -1)
     assert torch.equal(second.tensors["decw"], want)
     assert not torch.equal(first.tensors["decw"], want)
+
+
+def _tie_ensembles():
+    """A 3-member OnehotCNN ensemble (n_tokens 20, kernel 5, width 8) in
+    both packages, from jax.random.split(PRNGKey(0), 3)."""
+    from ppde_tpu.models import layers as jlayers
+
+    keys = jax.random.split(jax.random.PRNGKey(0), 3)
+    j = jlayers.stack_params([jcnn.init(k, 20, 5, 8) for k in keys])
+    return j, convert.cnn_ensemble_from_numpy(jax.tree.map(np.asarray, j),
+                                              "cpu")
+
+
+@pytest.mark.parametrize("pool_bwd", ["split", "first"])
+def test_energy_gradient_matches_jax_for_each_pool_mode(pool_bwd):
+    """The gradient of energy(...)[0].sum() equals the JAX package's for
+    either pool_bwd: there only energy_and_grad honours the flag, and
+    energy's max-pool always splits ties. Two rows of token 0 (every window
+    ties in every channel) and two random rows, L = 12. energy_and_grad
+    still honours the flag: on the tie rows "first" differs from "split",
+    and each mode matches the JAX package's energy_and_grad."""
+    je, te = _tie_ensembles()
+    L = 12
+    toks = np.zeros((4, L), np.int64)
+    toks[2:] = np.random.default_rng(0).integers(0, 20, (2, L))
+    x = jcodec.ints_to_onehot(toks)
+    wt = x[:1]
+    pairs = [
+        (jenergy.protein_supervised(je, jnp.asarray(wt), pool_bwd=pool_bwd),
+         energy.protein_supervised(te, torch.from_numpy(wt),
+                                   pool_bwd=pool_bwd)),
+        (jenergy.protein_poe(None, je, 2.0, jnp.asarray(wt),
+                             pool_bwd=pool_bwd),
+         energy.protein_poe(None, te, 2.0, torch.from_numpy(wt),
+                            pool_bwd=pool_bwd))]
+    for jen, ten in pairs:
+        gj = jax.grad(lambda v: jen.energy(jen.params, v)[0].sum())(
+            jnp.asarray(x))
+        xg = torch.from_numpy(x).requires_grad_(True)
+        ten.energy(ten.params, xg)[0].sum().backward()
+        np.testing.assert_allclose(xg.grad.numpy(), np.asarray(gj), rtol=0,
+                                   atol=1e-6)
+        _, _, g = ten.energy_and_grad(ten.params, torch.from_numpy(x))
+        _, _, gj2 = jen.energy_and_grad(jen.params, jnp.asarray(x))
+        np.testing.assert_allclose(g.numpy(), np.asarray(gj2), rtol=0,
+                                   atol=1e-6)
+        # energy_and_grad routes by the flag, energy always splits
+        split = pool_bwd == "split"
+        assert np.allclose(g[:2].numpy(), xg.grad[:2].numpy(),
+                           atol=1e-6) == split
+
+
+def test_prepared_potts_planes_follow_in_place_updates():
+    """protein_poe keeps kernel A's planes: made once, and made anew after
+    an in-place update of W (x on the meta device, as in the test above;
+    the split itself is plain PyTorch)."""
+    tp = potts.synthetic(WT, seed=3, device="cpu")
+    once = energy._potts_once(tp)
+    x = torch.empty((2, len(WT), 20), device="meta")
+    assert once.get(tp, torch.zeros((2, len(WT), 20))) is tp  # CPU: plain
+    first = once.get(tp, x)
+    assert isinstance(first, potts_fused.Prepared)
+    assert first.planes.shape == (3,) + tuple(tp.W.shape)
+    assert once.get(tp, x) is first
+    tp.W.mul_(2.0)
+    second = once.get(tp, x)
+    assert second is not first and once.get(tp, x) is second
+    assert torch.equal(second.planes.float().sum(0), tp.W)
+    other = potts.synthetic(WT, seed=4, device="cpu")
+    assert once.get(other, x) is other
+    # and the energy's gradient on the CPU is the same with a kept Prepared
+    en = energy.protein_poe(tp, _ens(len(WT))[1], 2.0,
+                            torch.from_numpy(jcodec.seqs_to_onehot([WT])))
+    xs = torch.from_numpy(_x(np.random.default_rng(1), 3, len(WT)))
+    _, _, g = en.energy_and_grad(en.params, xs)
+    prep = potts_fused.prepare(tp.W, tp.h)
+    s0, g0 = potts.score_and_grad(tp, xs)
+    s1, g1 = potts.score_and_grad(tp, xs, prepared=prep)
+    assert torch.equal(s0, s1) and torch.equal(g0, g1)
+    assert g.shape == xs.shape

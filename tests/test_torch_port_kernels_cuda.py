@@ -66,28 +66,92 @@ def test_potts_kernel_matches_plain(dev, dtype, B):
 
 @pytest.mark.parametrize("symmetric", [True, False])
 @pytest.mark.parametrize("B", [1, 37, 64, 130, 1024])
-@pytest.mark.parametrize("P", [128, 640, 4864])
-def test_potts_bf16_at_tile_edges(dev, P, B, symmetric):
-    """The bf16 kernel A at ragged B (one row, a part of a 128-row tile, one
-    over a tile), at one, five and 38 column tiles (which the kernel splits
-    over K in 2, 8 and 3 or 1), for the symmetric couplings and for a W that
-    is not (the kernel reads the W tile as it lies in memory and must give
-    xf @ W, not xf @ W.T); every output repeats bit for bit."""
-    rng = np.random.default_rng(P + B)
+@pytest.mark.parametrize("P", [128, 256, 640, 4864])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_potts_kernel_at_tile_edges(dev, dtype, P, B, symmetric):
+    """Kernel A at ragged B (one row, a part of a 128-row tile, one over a
+    tile), at one, two, five and 38 column tiles (which the kernel splits
+    over K), for the symmetric couplings and for a W that is not (the kernel
+    reads the W tile as it lies in memory and must give xf @ W, not
+    xf @ W.T); from a Prepared (float32: three bf16 planes that sum to W)
+    and from W and h (prepared on the spot): the same bits, and every
+    output repeats bit for bit."""
+    rng = np.random.default_rng(P + B + (dtype == F32))
     L = P // 20
-    W, h, P_ = _potts(rng, L, BF16, dev)
+    W, h, P_ = _potts(rng, L, dtype, dev)
     assert P_ == P and torch.equal(W, W.T)
     if not symmetric:
         W = torch.triu(W).contiguous()
         assert not torch.equal(W, W.T)
     xf = torch.nn.functional.pad(_onehot(rng, B, L, dev).reshape(B, -1),
                                  (0, P - L * 20))
-    H, g = potts_fused.energy_and_grad(W, h, xf)
+    prep = potts_fused.prepare(W, h)
+    if dtype == F32:
+        assert prep.planes.shape == (3, P, P)
+        assert torch.equal(prep.planes.float().sum(0), W)
+    n0, f0 = potts_fused.launches, potts_fused.launches_f32
+    H, g = potts_fused.energy_and_grad(prep, None, xf.to(BF16))
+    assert (potts_fused.launches, potts_fused.launches_f32) == (
+        n0 + 1, f0 + (dtype == F32))
     H0, g0 = potts_fused.energy_and_grad_plain(W, h, xf)
     torch.testing.assert_close(g, g0, rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(H, H0, rtol=1e-5, atol=1e-3)
-    H2, g2 = potts_fused.energy_and_grad(W, h, xf)
+    H1, g1 = potts_fused.energy_and_grad(W, h, xf)
+    assert torch.equal(H, H1) and torch.equal(g, g1)
+    H2, g2 = potts_fused.energy_and_grad(prep, None, xf)
     assert torch.equal(H, H2) and torch.equal(g, g2)
+
+
+def _hand_picked_w():
+    """A 128 x 128 float32 W of +0, -0, large and tiny normal values, values
+    with all 24 significand bits set, and random significands of random
+    exponents (every plane nonzero, the lo plane as large as it gets
+    against the sum)."""
+    rng = np.random.default_rng(9)
+    vals = np.array([0.0, -0.0, 1e38, -3e37, 2.0 ** -100,
+                     -(2.0 ** -90) * 1.5,
+                     np.nextafter(np.float32(1.0), np.float32(2.0)),
+                     np.float32(1.0) - np.float32(2 ** -24),
+                     16777215.0, -0.1, 1 / 3, np.pi], np.float32)
+    all_bits = ((np.arange(40, 240, dtype=np.uint32) << 23) | 0x7FFFFF)
+    # random significands with a bit set in the ranges of both the mid and
+    # the lo plane
+    mant = rng.integers(0, 1 << 23, 128 * 128, dtype=np.uint32) | 0x8080
+    expo = rng.integers(60, 190, 128 * 128, dtype=np.uint32)
+    sign = rng.integers(0, 2, 128 * 128, dtype=np.uint32) << 31
+    w = (sign | expo << 23 | mant).view(np.float32).copy()
+    w[:len(vals)] = vals
+    w[len(vals):len(vals) + len(all_bits)] = all_bits.view(np.float32)
+    return torch.from_numpy(w.reshape(128, 128))
+
+
+@pytest.mark.parametrize("which", ["seeded-4864", "seeded-256",
+                                   "hand-picked"])
+def test_potts_f32_one_1_rows_give_w_bit_for_bit(dev, which):
+    """Rows of xf that each hold a single 1, at k: the plain float32 result
+    is exactly W[k] + h, and the kernel's must be too, bit for bit. This
+    holds only if every plane, lo included, reaches the sums without loss
+    (a lo plane skipped or read as zeros moves grad by ~2^-18 |W|, well
+    inside the tolerance of the random one-hot tests)."""
+    if which == "hand-picked":
+        W = _hand_picked_w().to(dev)
+        h = torch.linspace(-1.0, 1.0, 128, device=dev)
+    else:
+        P = int(which.split("-")[1])
+        W, h, _ = _potts(np.random.default_rng(P), P // 20, F32, dev)
+        W = torch.triu(W).contiguous()
+    P = W.shape[0]
+    prep = potts_fused.prepare(W, h)
+    assert torch.equal(prep.planes.float().sum(0), W)
+    assert bool((prep.planes[2] != 0).any())   # the lo plane is in use
+    eye = torch.eye(P, dtype=BF16, device=dev)
+    rows = torch.randperm(P, generator=torch.Generator().manual_seed(P))
+    for xf in (eye, eye[rows[:37].to(dev)]):   # split over K, and not
+        H, g = potts_fused.energy_and_grad(prep, None, xf)
+        k = xf.float().argmax(-1)
+        assert torch.equal(g, W[k] + h)
+        H0, g0 = potts_fused.energy_and_grad_plain(W, h, xf)
+        assert torch.equal(g, g0) and torch.equal(H, H0)
 
 
 def test_potts_kernel_rejects_bad_input(dev):
@@ -95,6 +159,37 @@ def test_potts_kernel_rejects_bad_input(dev):
     with pytest.raises(ValueError):
         potts_fused.energy_and_grad(W, torch.zeros(100, device=dev),
                                     torch.zeros((4, 100), device=dev))
+    W = torch.zeros((128, 128), device=dev)
+    with pytest.raises(TypeError):   # h of another type than W
+        potts_fused.energy_and_grad(W, torch.zeros(128, device=dev,
+                                                   dtype=BF16),
+                                    torch.zeros((4, 128), device=dev))
+    prep = potts_fused.prepare(W, torch.zeros(128, device=dev))
+    with pytest.raises(ValueError):  # xf of another width
+        potts_fused.energy_and_grad(prep, None,
+                                    torch.zeros((4, 256), device=dev))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_potts_kernel_takes_views_at_odd_offsets(dev, dtype):
+    """W, h and xf that do not start on a 16-byte boundary (views at an odd
+    offset; the kernel reads 16 bytes at a time) are copied, not read
+    misaligned: the same bits as from aligned tensors."""
+    rng = np.random.default_rng(2)
+    W, h, P = _potts(rng, 30, dtype, dev)
+    xf = torch.nn.functional.pad(_onehot(rng, 5, 30, dev).reshape(5, -1),
+                                 (0, P - 600)).to(BF16)
+    H0, g0 = potts_fused.energy_and_grad(W, h, xf)
+
+    def odd(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.data_ptr() % 16 and v.is_contiguous()
+        return v
+
+    H, g = potts_fused.energy_and_grad(odd(W), odd(h), odd(xf))
+    assert torch.equal(H, H0) and torch.equal(g, g0)
 
 
 def _tie_input(B, L, dev):
@@ -163,21 +258,28 @@ def test_cnn_kernel_at_gfp_width(dev):
     (37, 5, 5),                 # L = K: one row per sample
     (24, 40, 128),
     (24, 40, 300),              # more samples than persistent blocks
+    (37, 133, 4),               # T = 129: float32's second row block of one
     (237, 237, 5),              # the main path's widths
+    (256, 260, 3),              # T = 256, C = 256, 2C = 512: the limits
 ])
 @pytest.mark.parametrize("ties", [False, True])
-def test_cnn_bf16_kernel_at_tile_edges(dev, C, L, B, pool, ties):
-    """The bf16 kernel B at the edges of its tiling, from prepared weights
-    and from the stacked layout: equal bits, and both repeat themselves."""
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_cnn_kernel_at_tile_edges(dev, dtype, C, L, B, pool, ties):
+    """Kernel B at the edges of its tiling (float32: row blocks of 128,
+    column chunks of 128, C padded to 16), from prepared weights and from
+    the stacked layout: equal bits, and both repeat themselves."""
     g = torch.Generator(device=dev).manual_seed(C)
     ens = cnn.init_ensemble(g, 3, input_size=C)
     x = (_tie_input(B, L, dev) if ties
          else _onehot(np.random.default_rng(B + L), B, L, dev))
-    prep = cnn_fused.prepare_ensemble(ens, BF16)
+    prep = cnn_fused.prepare_ensemble(ens, dtype)
+    n0, f0 = cnn_fused.launches, cnn_fused.launches_f32
     fit, dx = cnn_fused.ensemble_apply_and_grad(prep, x, None, pool)
-    fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, BF16, pool)
-    _check_cnn(fit, dx, fit0, dx0, BF16)
-    fit2, dx2 = cnn_fused.ensemble_apply_and_grad(ens, x, BF16, pool)
+    assert (cnn_fused.launches, cnn_fused.launches_f32) == (
+        n0 + 1, f0 + (dtype == F32))
+    fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, dtype, pool)
+    _check_cnn(fit, dx, fit0, dx0, dtype)
+    fit2, dx2 = cnn_fused.ensemble_apply_and_grad(ens, x, dtype, pool)
     assert torch.equal(fit, fit2) and torch.equal(dx, dx2)
     if ties and L > 9:  # the tie input makes the two modes differ
         _, dx_other = cnn_fused.ensemble_apply_and_grad(
@@ -196,6 +298,39 @@ def test_cnn_bf16_kernel_takes_relaxed_inputs(dev):
     fit, dx = cnn_fused.ensemble_apply_and_grad(ens, x, BF16)
     fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, BF16)
     _check_cnn(fit, dx, fit0, dx0, BF16)
+
+
+@pytest.mark.parametrize("L", [40, 237])
+def test_cnn_f32_kernel_takes_relaxed_inputs(dev, L):
+    """Inputs that are not one-hot (several nonzero letters, or none, at a
+    position) go through the float32 kernel's general conv path."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    ens = cnn.init_ensemble(g, 3, input_size=24 if L == 40 else 237)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.random((6, L, 20)).astype(np.float32))
+    x = (x * (x > 0.7)).to(dev)       # sparse rows, some of them empty
+    x[0, 3] = 0.0
+    x[0, 3, 5] = 0.5                  # one letter, not of value 1
+    for pool in ("split", "first"):
+        fit, dx = cnn_fused.ensemble_apply_and_grad(ens, x, F32, pool)
+        fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, F32,
+                                                            pool)
+        _check_cnn(fit, dx, fit0, dx0, F32)
+
+
+def test_cnn_f32_kernel_rejects_what_it_does_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = _onehot(np.random.default_rng(0), 2, 40, dev)
+    wide = cnn.init_ensemble(g, 2, input_size=257)          # C > 256
+    with pytest.raises(ValueError):
+        cnn_fused.ensemble_apply_and_grad(wide, x, F32)
+    deep = cnn.init_ensemble(g, 2, input_size=24, kernel_size=7)  # K*V 140
+    with pytest.raises(ValueError):
+        cnn_fused.ensemble_apply_and_grad(deep, x, F32)
+    ens = cnn.init_ensemble(g, 2, input_size=24)
+    long_x = _onehot(np.random.default_rng(0), 2, 300, dev)  # T > 256
+    with pytest.raises(ValueError):
+        cnn_fused.ensemble_apply_and_grad(ens, long_x, F32)
 
 
 def test_cnn_kernel_rejects_bad_input(dev):

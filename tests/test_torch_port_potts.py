@@ -216,3 +216,87 @@ def test_wrapper_takes_a_w_that_is_not_symmetric(pair, rng, dtype):
     assert abs(float(g[0, 21] - (xf.float() @ W.float().T + h.float())[0, 21])
                - 0.5) < 1e-2
     assert H.shape == (3,)
+
+
+def _hand_picked_w():
+    """W holding +0, -0, large, tiny normal values and values with all 24
+    significand bits set (every plane nonzero), padded to 128 x 128."""
+    vals = np.array([0.0, -0.0, 1e38, -3e37, 1.1754944e-38 * 2 ** 40,
+                     2 ** -100, -(2 ** -90) * 1.5,
+                     np.nextafter(np.float32(1.0), np.float32(2.0)),
+                     np.float32(1.0) - np.float32(2 ** -24),
+                     np.float32(16777215.0), np.float32(-0.1),
+                     np.float32(1 / 3), np.float32(np.pi)], np.float32)
+    all_bits = np.frombuffer(
+        (np.arange(256, dtype=np.uint32) << 23 | 0x7FFFFF).astype(np.uint32)
+        .tobytes(), np.float32)
+    all_bits = all_bits[np.isfinite(all_bits) & (np.abs(all_bits) > 1e-30)
+                        & (np.abs(all_bits) < 1e38)]
+    w = np.zeros(128 * 128, np.float32)
+    w[:len(vals)] = vals
+    w[len(vals):len(vals) + len(all_bits)] = all_bits
+    w[-len(all_bits):] = -all_bits
+    return torch.from_numpy(w.reshape(128, 128))
+
+
+@pytest.mark.parametrize("which", ["gfp", "hand-picked"])
+def test_prepare_planes_rebuild_w_bit_for_bit(which):
+    """Kernel A's three bf16 planes of a float32 W add up to W exactly: the
+    seeded GFP-width couplings (P = 4864) and hand-picked values. A bf16 W
+    is its own single plane; h is kept in float32."""
+    if which == "gfp":
+        gfp = ("SKGEELFTGVVPILVELDGDVNGHKFSVSGEGEGDATYGKLTLKFICTTGKLPVPWPTLV"
+               "TTLSYGVQCFSRYPDHMKQHDFFKSAMPEGYVQERTIFFKDDGNYKTRAEVKFEGDTLVNR"
+               "IELKGIDFKEDGNILGHKLEYNYNSHNVYIMADKQKNGIKVNFKIRHNIEDGSVQLADHYQ"
+               "QNTPIGDGPVLLPDNHYLSTQSALSKDPNEKRDHMVLLEFVTAAGITHGMDELYK")
+        tp = potts.synthetic(gfp, seed=0, device="cpu")
+        W, h = tp.W, tp.h
+        assert W.shape == (4864, 4864)
+    else:
+        W = _hand_picked_w()
+        h = torch.linspace(-1.0, 1.0, 128)
+    prep = potts_fused.prepare(W, h)
+    assert prep.planes.dtype == torch.bfloat16
+    assert prep.planes.shape == (3,) + tuple(W.shape)
+    hi, mid, lo = prep.planes.float()
+    bits = W.view(torch.int32)
+    # in either order the kernel's sums can take them: exact, -0 included
+    assert torch.equal(((hi + mid) + lo).view(torch.int32), bits)
+    assert torch.equal((hi + (mid + lo)).view(torch.int32), bits)
+    assert prep.h32.dtype == torch.float32 and torch.equal(prep.h32, h)
+    bf = potts_fused.prepare(W.to(torch.bfloat16), h.to(torch.bfloat16))
+    assert bf.planes.shape == (1,) + tuple(W.shape)
+    assert torch.equal(bf.planes[0], W.to(torch.bfloat16))
+    assert torch.equal(bf.h32, h.to(torch.bfloat16).float())
+
+
+@pytest.mark.parametrize("batch", [5, 130])
+def test_plane_arithmetic_matches_pallas_interpret(pair, batch):
+    """What kernel A computes from the planes, sum_plane xf @ W_plane + h
+    in float32, against the TPU kernel's body in interpret mode on
+    one-hots, at the tolerances of test_plain_matches_pallas_interpret;
+    energy_and_grad from a Prepared on the CPU is the plain version's."""
+    jp, tp = pair
+    x = _x(np.random.default_rng(batch), batch, L=16)
+    xf = jpotts._pad_flat(jp, jnp.asarray(x))
+    Hk, gk = potts_pallas.energy_and_grad(jp.W, jp.h, xf, interpret=True)
+    prep = potts_fused.prepare(tp.W, tp.h)
+    xt = torch.from_numpy(np.array(xf)).to(torch.bfloat16).float()
+    Jx = sum(xt @ plane.float() for plane in prep.planes)
+    gt = Jx + prep.h32
+    Ht = (xt * (0.5 * Jx + prep.h32)).sum(-1)
+    np.testing.assert_allclose(Ht.numpy(), np.asarray(Hk), **E_TOL)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gk), **G_TOL)
+    H0, g0 = potts_fused.energy_and_grad(prep, None, xt)
+    H1, g1 = potts_fused.energy_and_grad(tp.W, tp.h, xt)
+    assert torch.equal(H0, H1) and torch.equal(g0, g1)
+
+
+def test_prepare_refuses_what_the_kernel_does_not_take():
+    W = torch.zeros((256, 256))
+    with pytest.raises(TypeError):
+        potts_fused.prepare(W, torch.zeros(256, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        potts_fused.prepare(torch.zeros((200, 200)), torch.zeros(200))
+    with pytest.raises(ValueError):   # not contiguous
+        potts_fused.prepare(torch.zeros((256, 512))[:, ::2], torch.zeros(256))

@@ -4,10 +4,12 @@
     python tools/profile_port_step.py --transformer
     python tools/profile_port_step.py --kernels
     python tools/profile_port_step.py --phases
+    python tools/profile_port_step.py --potts_dtype f32 --cnn_dtype f32
 
 Builds the GFP configuration of chip_smoke.py (synthetic seeded Potts and a
 seeded 3-member CNN ensemble, bf16, lambda=15, pas_length=2,
-nmut_threshold=10), runs a warm-up, then traces ``--steps`` sampler steps
+nmut_threshold=10; ``--potts_dtype f32 --cnn_dtype f32`` gives the CLI's
+default types), runs a warm-up, then traces ``--steps`` sampler steps
 with torch.profiler and prints one JSON line per population: the step time,
 the device time by kernel name (top 12), the device time of the port's own
 kernels, the device busy share (the union of kernel intervals over the
@@ -15,17 +17,20 @@ traced window) and the card's name and power limit. ``--transformer`` adds
 the random-init transformer-S expert (lambda=1, chip_smoke.py's phase 6) and
 traces one line per chunking of its gradient (chunks of 16 chains, and one
 piece; default 128 chains, 5 steps). ``--kernels`` traces kernels A and B
-alone at GFP width (bf16, B = 128 and 1024) beside ``torch.addmm``, and
+alone at GFP width (bf16 and float32, B = 128 and 1024) beside
+``torch.addmm``, and
 kernels C and C' at the transformer path's calls (bf16, (Z, T, hd) =
 (320, 237, 24) and (2560, 237, 24)) beside scaled_dot_product_attention:
 device microseconds per call by kernel name. ``--phases`` builds kernel B
 with -DCNN_PHASE_CLOCKS and prints the clocks and microseconds each phase of
-one (sample, member) takes in block (0, 0) at B = 1024. Needs a CUDA
+one (sample, member) takes in block (0, 0), bf16 and float32, at B = 128
+and 1024. Needs a CUDA
 device.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -56,20 +61,23 @@ def busy_share(events, window_us):
     return busy / window_us
 
 
-def gfp_kernel_inputs(torch, dev, B):
-    """Kernel A's and B's inputs at GFP width: bf16 Potts, prepared bf16
-    ensemble, B random one-hot sequences (all seeded)."""
+def gfp_kernel_inputs(torch, dev, B, dtype=None):
+    """Kernel A's and B's inputs at GFP width: Potts couplings and ensemble
+    prepared in ``dtype`` (default bf16), B random one-hot sequences (all
+    seeded)."""
     from chip_smoke import GFP_WT, random_onehot
     from ppde_tpu_torch.models import cnn, potts
-    from ppde_tpu_torch.ops import cnn_fused
+    from ppde_tpu_torch.ops import cnn_fused, potts_fused
 
-    pp = potts.synthetic(GFP_WT, seed=0, dtype=torch.bfloat16, device=dev)
+    dtype = dtype or torch.bfloat16
+    pp = potts.synthetic(GFP_WT, seed=0, dtype=dtype, device=dev)
     ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(0), 3,
                             input_size=len(GFP_WT))
     x = random_onehot(torch, torch.Generator(device=dev).manual_seed(12), B,
                       len(GFP_WT), dev)
-    return (pp, potts._pad_flat(pp, x, torch.bfloat16),
-            cnn_fused.prepare_ensemble(ens, torch.bfloat16), x)
+    return (pp, potts_fused.prepare(pp.W, pp.h),
+            potts._pad_flat(pp, x, torch.bfloat16),
+            cnn_fused.prepare_ensemble(ens, dtype), x)
 
 
 def us_by_kernel(torch, fn, reps=20):
@@ -98,14 +106,16 @@ def trace_kernels(torch, dev, card) -> None:
     transformer path's shapes in bf16."""
     from ppde_tpu_torch.ops import attention_fused, cnn_fused, potts_fused
 
-    for B in (128, 1024):
-        pp, xf, prep, x = gfp_kernel_inputs(torch, dev, B)
-        calls = {"kernel_a": lambda: potts_fused.energy_and_grad(pp.W, pp.h,
+    for B, dtype in itertools.product((128, 1024),
+                                      (torch.bfloat16, torch.float32)):
+        pp, pa, xf, prep, x = gfp_kernel_inputs(torch, dev, B, dtype)
+        xw = xf.to(dtype)
+        calls = {"kernel_a": lambda: potts_fused.energy_and_grad(pa, None,
                                                                  xf),
-                 "addmm": lambda: torch.addmm(pp.h, xf, pp.W),
+                 "addmm": lambda: torch.addmm(pp.h, xw, pp.W),
                  "kernel_b": lambda: cnn_fused.ensemble_apply_and_grad(prep,
                                                                        x)}
-        out = {"B": B, "card": card}
+        out = {"B": B, "dtype": str(dtype), "card": card}
         for name, fn in calls.items():
             out[name + "_us_by_kernel"] = us_by_kernel(torch, fn)
         print(json.dumps(out), flush=True)
@@ -128,8 +138,9 @@ def trace_kernels(torch, dev, card) -> None:
 
 
 def trace_phases(torch, dev, card) -> None:
-    """Clocks of each phase of kernel B (bf16) per (sample, member), read
-    from a build with -DCNN_PHASE_CLOCKS, at GFP width and B = 1024."""
+    """Clocks of each phase of kernel B per (sample, member), read from a
+    build with -DCNN_PHASE_CLOCKS, at GFP width: bf16 and float32, B = 128
+    and 1024."""
     import ctypes
     from ppde_tpu_torch.ops import _build, cnn_fused
 
@@ -138,8 +149,17 @@ def trace_phases(torch, dev, card) -> None:
     lib = cnn_fused._lib()
     lib.cnn_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.cnn_phase_clocks.restype = ctypes.c_int
-    B = 1024
-    _, _, prep, x = gfp_kernel_inputs(torch, dev, B)
+    for B, dtype in itertools.product((128, 1024),
+                                      (torch.bfloat16, torch.float32)):
+        phases_of(torch, dev, card, lib, B, dtype)
+
+
+def phases_of(torch, dev, card, lib, B, dtype) -> None:
+    """One line of ``trace_phases``: B samples, the ensemble in dtype."""
+    import ctypes
+    from ppde_tpu_torch.ops import cnn_fused
+
+    *_, prep, x = gfp_kernel_inputs(torch, dev, B, dtype)
     cnn_fused.ensemble_apply_and_grad(prep, x)
     torch.cuda.synchronize()
     if lib.cnn_phase_clocks(None, 1):
@@ -163,7 +183,8 @@ def trace_phases(torch, dev, card) -> None:
     names = ("fetch_and_clear", "conv", "embed_product", "pool",
              "pred_and_scales", "gather_g1", "dp_product", "col2im_store")
     per_sample = {n: c / samples for n, c in zip(names, clocks)}
-    out = {"B": B, "samples_of_block_0": samples, "call_us": call_us,
+    out = {"B": B, "dtype": str(dtype), "samples_of_block_0": samples,
+           "call_us": call_us,
            "sm_clock_mhz_estimate": mhz,
            "clocks_per_sample_member": per_sample,
            "us_per_sample_member": {n: c / mhz
@@ -179,6 +200,10 @@ def main() -> int:
     ap.add_argument("--transformer", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--phases", action="store_true")
+    # the types of the Potts model and of the CNN; the CLI's defaults are
+    # f32 and f32 (its --compute_dtype bf16 makes the CNN bf16)
+    ap.add_argument("--potts_dtype", choices=("bf16", "f32"), default="bf16")
+    ap.add_argument("--cnn_dtype", choices=("bf16", "f32"), default="bf16")
     args = ap.parse_args()
     chains = args.chains or ([128] if args.transformer else [128, 1024])
     steps = args.steps or (5 if args.transformer else 40)
@@ -211,7 +236,10 @@ def main() -> int:
         if args.phases:
             trace_phases(torch, dev, card)
         return 0
-    pp = potts.synthetic(GFP_WT, seed=0, dtype=torch.bfloat16, device=dev)
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    cdt = types[args.cnn_dtype]
+    pp = potts.synthetic(GFP_WT, seed=0, dtype=types[args.potts_dtype],
+                         device=dev)
     ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(0), 3,
                             input_size=len(GFP_WT))
     wt = torch.from_numpy(codec.seqs_to_onehot([GFP_WT])).to(dev)
@@ -223,10 +251,10 @@ def main() -> int:
                               dtype=torch.bfloat16, device=dev)
         energies = [(c, energy_mod.protein_poe(
             pp, ens, lam=1.0, wt_onehot=wt, transformer=tr, chunk_size=c,
-            compute_dtype=torch.bfloat16)) for c in TRANSFORMER_CHUNKS]
+            compute_dtype=cdt)) for c in TRANSFORMER_CHUNKS]
     else:
         energies = [(None, energy_mod.protein_poe(
-            pp, ens, lam=15.0, wt_onehot=wt, compute_dtype=torch.bfloat16))]
+            pp, ens, lam=15.0, wt_onehot=wt, compute_dtype=cdt))]
     for (chunk, en), n in ((e, n) for e in energies for n in chains):
         x0 = wt.repeat(n, 1, 1)
         with torch.no_grad():
@@ -256,6 +284,7 @@ def main() -> int:
                / steps / 1e3 for tag in PORT_KERNELS}
         print(json.dumps({
             "n_chains": n, "steps": steps, "transformer": args.transformer,
+            "potts_dtype": args.potts_dtype, "cnn_dtype": args.cnn_dtype,
             "chunk_size": chunk,
             "step_ms": wall_us / steps / 1e3,
             "device_busy_share": busy_share(kernels, wall_us),
