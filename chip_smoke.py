@@ -44,7 +44,28 @@ no result line):
      launch kernels A and B exactly once a step and once for the initial
      state, A in float32 (the CLI's Potts model) and B in the run's type
      (counters as in 4). The CLI's own
-     output goes to chiprun_out/chip_smoke_cli.log.
+     output goes to chiprun_out/chip_smoke_cli.log;
+  8. checkpoint/resume through the same CLI on the same directory, 128
+     chains, log_every 20: PPDE at the default float32 (kernels A and B in
+     float32, launched in both halves), PPDE-PT (8 levels, bf16), SA and
+     CMA-ES, each cut at 40 steps (generations) with --checkpoint_dir and
+     resumed to 80, held bit for bit against an uncut 80-step run (best_x,
+     best_energy, final population, energy, fitness and oracle
+     histories); each save's time and size, at 128 chains and for PPDE at
+     1024; one warm PPDE segment inside ``profiling.trace``, whose trace
+     must name kernels A and B;
+  9. the MNIST-sum CLI (``ppde_tpu_torch.scripts.mnist_sum.main``) at the
+     reference defaults (128 chains, 200 steps, lambda 10, log_every 50)
+     on seeded stand-ins (``scripts/seeded_mnist.py``) and the tracked
+     64-channel EBM, ``--metrics csv``: PPDE-PAS (pas_length 10),
+     PPDE-GWG, PPDE-PT, SA, MALA-approx, CMA-ES, and PPDE-PAS on the
+     tracked DAE. Gates: finite energies, a binary [128, 784] final_x, an
+     acceptance rate strictly inside (0, 1) for the PPDE runs, each chain's
+     best energy at least its start, the saved bests against a fresh
+     evaluation (phase 4's tolerances), one CSV row per oracle record; no
+     port kernel launched (counters as in 4); launches per step and the
+     device busy share from two traced short runs. The CLI's output goes
+     to chiprun_out/chip_smoke_mnist.log.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -102,6 +123,32 @@ CLI_RUNS = (
 )
 CLI_CHAINS, CLI_LOG_EVERY, CLI_NMUT = 128, 50, 10
 CLI_PROTEIN = "GFP_AEQVI_Sarkisyan2016"
+# phase 8: (label, sampler, extra CLI flags), each cut at CKPT_CUT of
+# CKPT_STEPS and resumed; CKPT_BIG_CHAINS: the save time at 1024 chains
+CKPT_RUNS = (
+    ("PPDE-f32", "PPDE", ()),
+    ("PPDE-PT-bf16", "PPDE-PT", ("--compute_dtype", "bf16",
+                                 "--pt_levels", "8")),
+    ("SA", "simulated_annealing", ()),
+    ("CMAES", "CMAES", ("--cmaes_population_size", "16")),
+)
+CKPT_CUT, CKPT_STEPS, CKPT_LOG_EVERY, CKPT_BIG_CHAINS = 40, 80, 20, 1024
+CKPT_COMPARED = ("best_x", "best_energy", "final_x", "energy_history",
+                 "fitness_history", "oracle_history")
+# phase 9: the MNIST-sum CLI at the reference defaults (128 chains, 200
+# steps, lambda 10, log_every 50): (label, sampler, extra CLI flags)
+MNIST_RUNS = (
+    ("PPDE-PAS", "PPDE", ("--ppde_pas_length", "10")),
+    ("PPDE-GWG", "PPDE", ("--ppde_pas_length", "0")),
+    ("PPDE-PT", "PPDE-PT", ()),
+    ("SA", "simulated_annealing", ()),
+    ("MALA-approx", "MALA-approx", ()),
+    ("CMAES", "CMAES", ()),
+    ("PPDE-PAS-dae", "PPDE", ("--ppde_pas_length", "10",
+                              "--unsupervised_expert", "dae")),
+)
+MNIST_CHAINS, MNIST_STEPS, MNIST_LOG_EVERY = 128, 200, 50
+MNIST_TRACE_STEPS = (10, 20)  # two traced runs: launches per step between
 CLI_ARTIFACTS = ("config.txt", "population.npy", "pred_fitness_scores.npy",
                  "oracle_fitness_scores.npy", "potts_scores.npy",
                  "energy_scores.npy", "energy_history.npy",
@@ -688,6 +735,287 @@ def phase_cli(torch, counters, dev, card):
     return runs, launches
 
 
+def cli_args(de, root, results, label, sampler, steps, log_every, extra,
+             n_chains=None):
+    """The protein CLI's arguments of phase 8 (CLI_CHAINS chains unless
+    ``n_chains``)."""
+    n_chains = n_chains or CLI_CHAINS
+    return de.build_parser().parse_args([
+        "--protein_weights", root, "--protein", CLI_PROTEIN,
+        "--results_path", results, "--sampler", sampler,
+        "--run_signature", label, "--n_iters", str(steps),
+        "--n_chains", str(n_chains), "--log_every", str(log_every),
+        "--nmut_threshold", str(CLI_NMUT), "--energy_lamda", "15",
+        "--disable_MSA_transformer_scoring", *extra])
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """``module.name`` replaced by ``wrap(original)`` inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def phase_checkpoint(torch, counters, dev, card):
+    """Checkpoint/resume through the protein CLI: each of CKPT_RUNS cut at
+    CKPT_CUT steps and resumed to CKPT_STEPS equals the uncut run bit for
+    bit; the save time and size; one warm PPDE segment traced."""
+    from ppde_tpu_torch import checkpoint, profiling, runtime
+    from ppde_tpu_torch.samplers import cma_core
+    from ppde_tpu_torch.samplers.protein import ppde
+    from ppde_tpu_torch.scripts import directed_evolution as de
+    from ppde_tpu_torch.scripts import seeded_protein
+
+    results, saves, captured = [], [], []
+
+    def timed_save(orig):
+        def save(path, *a, **kw):
+            t = time.perf_counter()
+            orig(path, *a, **kw)
+            ms = (time.perf_counter() - t) * 1e3
+            files = ([path] if path.endswith(".npz") else
+                     [os.path.join(path, f) for f in ("state.npz",
+                                                      "records.npz")])
+            saves.append((ms, sum(os.path.getsize(f) for f in files
+                                  if os.path.exists(f))))
+        return save
+
+    def capturing(orig):
+        def get(args, device):
+            runner = orig(args, device)
+
+            def run(**kw):
+                captured.append(runner(**kw))
+                return captured[-1]
+            return run
+        return get
+
+    def cli(args):
+        """(SamplerResult, launches, save times and bytes) of one run."""
+        reset_counters(counters)
+        captured.clear()
+        saves.clear()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            de.main(args)
+        return captured[-1], read_counters(counters), list(saves)
+
+    with tempfile.TemporaryDirectory() as tmp, \
+            patched(de, "get_sampler_runner", capturing), \
+            patched(checkpoint, "save", timed_save), \
+            patched(cma_core, "save_run", timed_save):
+        seeded_protein.write_protein_dir(tmp, CLI_PROTEIN, GFP_WT, seed=0)
+        res_dir = os.path.join(tmp, "results")
+        for label, sampler, extra in CKPT_RUNS:
+            ck = os.path.join(tmp, "ck_" + label)
+
+            def args(steps, *more):
+                return cli_args(de, tmp, res_dir, label, sampler, steps,
+                                CKPT_LOG_EVERY, (*extra, *more))
+            uncut, _, _ = cli(args(CKPT_STEPS))
+            first, got1, saves1 = cli(args(CKPT_CUT, "--checkpoint_dir", ck))
+            resumed, got2, saves2 = cli(args(CKPT_STEPS, "--checkpoint_dir",
+                                             ck))
+            for key in CKPT_COMPARED:
+                a, b = getattr(resumed, key), getattr(uncut, key)
+                check(a.shape == b.shape and np.array_equal(a, b),
+                      f"{label}: resumed {key} differs from the uncut run")
+            if sampler in ("PPDE", "PPDE-PT"):
+                f32 = "_f32" if "--compute_dtype" not in extra else ""
+                for half, got in (("first", got1), ("resumed", got2)):
+                    check(got["potts_energy_f32"] > 0
+                          and got["cnn_ensemble" + f32] > 0,
+                          f"{label}: kernels A and B not launched in the "
+                          f"{half} half: {got}")
+            r = {"run": label, "sampler": sampler, "n_chains": CLI_CHAINS,
+                 "steps": [CKPT_CUT, CKPT_STEPS], "bit_exact": list(
+                     CKPT_COMPARED), "launches_first": got1,
+                 "launches_resumed": got2,
+                 "save_ms": [round(ms, 3) for ms, _ in saves1 + saves2],
+                 "save_bytes": saves1[-1][1],
+                 "steps_per_sec_uncut": uncut.steps_per_sec,
+                 "card": card}
+            results.append(r)
+            print("checkpoint", json.dumps(r), flush=True)
+
+        # the save time beside the segment time at 1024 chains (PPDE f32)
+        ck = os.path.join(tmp, "ck_big")
+        big, _, big_saves = cli(cli_args(
+            de, tmp, res_dir, "big", "PPDE", CKPT_STEPS, CKPT_LOG_EVERY,
+            ("--checkpoint_dir", ck), n_chains=CKPT_BIG_CHAINS))
+        r = {"run": "PPDE-f32-save-time", "n_chains": CKPT_BIG_CHAINS,
+             "save_ms": [round(ms, 3) for ms, _ in big_saves],
+             "save_bytes": big_saves[-1][1],
+             "segment_ms": CKPT_LOG_EVERY / big.steps_per_sec * 1e3,
+             "steps_per_sec": big.steps_per_sec,
+             "wall_steps_per_sec": big.wall_steps_per_sec, "card": card}
+        results.append(r)
+        print("checkpoint", json.dumps(r), flush=True)
+
+        # one warm PPDE segment (float32, the CLI's energy) in a trace
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            a = cli_args(de, tmp, res_dir, "trace", "PPDE", 1, 1, ())
+            en, _, pp, _ = runtime.build_protein_energy(a, dev)
+        pop = runtime.make_initial_protein_population(
+            os.path.join(tmp, CLI_PROTEIN), CLI_CHAINS, dev)
+
+        def segment():
+            ppde.run(en, pop, CKPT_LOG_EVERY, pp.min_pos, pp.max_pos,
+                     cfg=ppde.PPDEConfig(nmut_threshold=CLI_NMUT),
+                     log_every=CKPT_LOG_EVERY, quiet=True, device=dev)
+        segment()
+        trace_dir = os.path.join(tmp, "trace")
+        with profiling.trace(trace_dir):
+            segment()
+        with open(os.path.join(trace_dir, "trace.json")) as f:
+            text = f.read()
+        names = ("potts_grad_kernel_wgmma", "fit_grad_kernel")
+        check(all(n in text for n in names),
+              f"the trace of a PPDE segment does not name {names}")
+        r = {"run": "trace", "trace_bytes": len(text), "names": names,
+             "card": card}
+        results.append(r)
+        print("checkpoint", json.dumps(r), flush=True)
+    return results
+
+
+def traced(torch, fn):
+    """(CUDA kernel launches, device busy microseconds, wall microseconds)
+    of ``fn()`` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, -1.0
+    for a, b in spans:  # the union of the kernels' intervals
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return len(spans), busy, wall_us
+
+
+def phase_mnist(torch, counters, dev, card):
+    """The MNIST-sum CLI at the reference defaults on seeded stand-ins and
+    the tracked EBM / DAE: every sampler, gated; no port kernel runs."""
+    from ppde_tpu_torch.scripts import mnist_sum, seeded_mnist
+
+    runs = []
+    log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_mnist.log")
+    with tempfile.TemporaryDirectory() as tmp, open(log_path, "w") as log:
+        wdir = seeded_mnist.write_weights_dir(os.path.join(tmp, "w"))
+        ddir = seeded_mnist.write_data_dir(os.path.join(tmp, "d"))
+
+        def args(label, sampler, extra, steps, log_every, results):
+            return mnist_sum.build_parser().parse_args([
+                "--mnist_weights", wdir, "--data_dir", ddir,
+                "--results_path", results, "--sampler", sampler,
+                "--suffix", label, "--n_iters", str(steps),
+                "--log_every", str(log_every), "--metrics", "csv", *extra])
+
+        def main(a):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                res = mnist_sum.main(a)
+            log.write(out.getvalue())
+            return res
+
+        for label, sampler, extra in MNIST_RUNS:
+            results = os.path.join(tmp, "r_" + label)
+            a = args(label, sampler, extra, MNIST_STEPS, MNIST_LOG_EVERY,
+                     results)
+            check(a.device == "cuda" and a.n_chains == MNIST_CHAINS
+                  and a.energy_lamda == 10, "the MNIST CLI's defaults moved")
+            log.write(f"==== {label}\n")
+            reset_counters(counters)
+            t = time.perf_counter()
+            res = main(a)
+            main_s = time.perf_counter() - t
+            got = read_counters(counters)
+            check(not any(got.values()),
+                  f"{label}: a port kernel ran on the MNIST path: {got}")
+            n = MNIST_CHAINS
+            e_hist = res.energy_history
+            check(np.isfinite(e_hist).all()
+                  and np.isfinite(res.best_energy).all(),
+                  f"{label}: non-finite energies")
+            fx = res.final_x
+            check(fx.shape == (n, 784) and np.isin(fx, (0.0, 1.0)).all(),
+                  f"{label}: final_x of shape {fx.shape} is not binary")
+            acc = None
+            if res.n_accepted is not None and sampler != "simulated_annealing":
+                acc = float(res.n_accepted.sum()) / (MNIST_STEPS * n)
+                check(0.0 < acc < 1.0, f"{label}: acceptance rate {acc}")
+            if sampler != "CMAES":  # CMA-ES has no chains to track
+                check((res.best_energy >= e_hist[0]).all(),
+                      f"{label}: a chain's best energy is below its start")
+            # the saved bests against a fresh evaluation (plain forward)
+            en = mnist_sum.build_energy(a, dev)
+            pop = np.load(os.path.join(ddir, mnist_sum.WT_FILES[0][0]))
+            x1 = torch.from_numpy(pop.reshape(1, 784)).to(dev).expand(n, -1)
+            with torch.no_grad():
+                e = en.energy(en.params, torch.from_numpy(
+                    np.ascontiguousarray(res.best_x, np.float32)).to(dev),
+                    x1)[0].cpu().numpy()
+            err = float(np.abs(e - res.best_energy).max())
+            check(np.allclose(e, res.best_energy, rtol=1e-3, atol=2e-2),
+                  f"{label}: best energies off a fresh evaluation by {err}")
+            csvs = sorted(f for f in os.listdir(results)
+                          if f.endswith(("_pred_sums.csv",
+                                         "_oracle_sums.csv")))
+            check(len(csvs) == 2, f"{label}: CSV files {csvs}")
+            rows = []
+            for name in csvs:
+                with open(os.path.join(results, name)) as f:
+                    rows.append(f.read().splitlines())
+            # one row per oracle record: steps 0, 50, ..., 200 for the
+            # MCMC samplers; CMA-ES records its oracle at log steps only
+            n_rec = len(res.oracle_history)
+            check(sampler == "CMAES"
+                  or n_rec == MNIST_STEPS // MNIST_LOG_EVERY + 1,
+                  f"{label}: {n_rec} oracle records")
+            want_steps = [str(min(i * MNIST_LOG_EVERY, MNIST_STEPS))
+                          for i in range(n_rec)]
+            for lines in rows:
+                check(lines[0] == ",0.5,0.6,0.7,0.8,0.9"
+                      and [ln.split(",")[0] for ln in lines[1:]]
+                      == want_steps,
+                      f"{label}: CSV rows {lines[:1]} {len(lines) - 1}")
+            # launches per step: the difference of two traced short runs
+            tr = [traced(torch, lambda k=k: main(args(
+                label, sampler, extra, k, k, os.path.join(tmp, "t"))))
+                for k in MNIST_TRACE_STEPS]
+            dk = MNIST_TRACE_STEPS[1] - MNIST_TRACE_STEPS[0]
+            r = {"run": label, "sampler": sampler, "n_chains": n,
+                 "steps": MNIST_STEPS, "steps_per_sec": res.steps_per_sec,
+                 "wall_steps_per_sec": res.wall_steps_per_sec,
+                 "main_s": main_s, "acceptance_rate": acc,
+                 "best_energy_max_abs_err_vs_fresh": err,
+                 "initial_energy": float(e_hist[0, 0]),
+                 "best_energy_median": float(np.median(res.best_energy)),
+                 "oracle_median_last": float(np.median(
+                     res.oracle_history[-1])),
+                 "launches_per_step": (tr[1][0] - tr[0][0]) / dk,
+                 "device_busy_share": ((tr[1][1] - tr[0][1])
+                                       / max(tr[1][2] - tr[0][2], 1e-9)),
+                 "port_kernel_launches": got, "card": card}
+            runs.append(r)
+            print("mnist", json.dumps(r), flush=True)
+    return runs
+
+
 def attention_row(c, c1, way, launches, line):
     """The kernels line's row of kernel C (way "fwd") or C' ("bwd"): the
     chunk-16 call c as the headline, the one-piece call c1 beside it."""
@@ -752,7 +1080,9 @@ def main() -> int:
         "transformer": lambda: phase_transformer(
             torch, codec, energy_mod, potts, cnn, esm2, ppde, counters, dev,
             card),
-        "cli": lambda: phase_cli(torch, counters, dev, card)}
+        "cli": lambda: phase_cli(torch, counters, dev, card),
+        "checkpoint": lambda: phase_checkpoint(torch, counters, dev, card),
+        "mnist": lambda: phase_mnist(torch, counters, dev, card)}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     got = {}
     for name, run in phases.items():
@@ -820,6 +1150,7 @@ def main() -> int:
         json.dump({"card": card, "build_s": build_s, "kernel_a": pa,
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,
                    "transformer_sampler": tr_runs, "cli": cli_runs,
+                   "checkpoint": got["checkpoint"], "mnist": got["mnist"],
                    **kernels}, f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

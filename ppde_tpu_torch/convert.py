@@ -64,3 +64,38 @@ def oracle_from_numpy(coef, intercept, inv_sqrt_reg, potts_params: PottsParams,
                               intercept=_tensor(intercept, device),
                               inv_sqrt_reg=_tensor(inv_sqrt_reg, device),
                               potts=potts_params)
+
+
+def _hwio_tree(t, device):
+    """A JAX-layout MNIST tree as the port's: every conv kernel ("w" of 4
+    dims, 5 with a member axis) permuted (3, 2, 0, 1) on its last four
+    dims. That takes HWIO [kh,kw,in,out] to OIHW, and the JAX package's
+    transposed-conv layout [kh,kw,out,in] to torch's [in,out,kh,kw], which
+    needs no spatial flip: the JAX package flips at call time to compute
+    what torch's ConvTranspose2d computes. Other leaves are unchanged."""
+    if isinstance(t, dict):
+        out = {}
+        for k, v in t.items():
+            a = np.asarray(v) if k == "w" else None
+            if a is not None and a.ndim >= 4:
+                lead = tuple(range(a.ndim - 4))
+                v = np.ascontiguousarray(a.transpose(
+                    lead + tuple(len(lead) + i for i in (3, 2, 0, 1))))
+            out[k] = _hwio_tree(v, device)
+        return out
+    if isinstance(t, (list, tuple)):
+        return [_hwio_tree(v, device) for v in t]
+    return _tensor(t, device)
+
+
+def mnist_from_numpy(tree, device="cuda"):
+    """An MNIST parameter tree of the JAX package as the port's: a
+    regression net or stacked ensemble (``mnist_nets.regression_init`` /
+    ``regression_init_ensemble``), the ResNet EBM (``ebm_init``, ``mean``
+    included) or the DAE (``dae_init``; its decoder's transposed convs
+    change layout too)."""
+    return _hwio_tree(tree, utils.resolve_device(device))
+
+
+mnist_regression_from_numpy = ebm_from_numpy = dae_from_numpy = \
+    mnist_from_numpy

@@ -1,9 +1,11 @@
-"""Product-of-experts energy composition (protein domain).
+"""Product-of-experts energy composition.
 
 Counterpart of ``ppde_tpu/energy.py`` with the same uniform API:
   * ``energy(params, x) -> (e, fit)``
   * ``energy_and_grad(params, x) -> (e, fit, grad_x)``
   * ``fitness(params, x) -> fit``
+(the MNIST energies take ``(params, x2, x1)``: x2 evolves, x1 is the fixed
+summand; their gradient is autograd's, with respect to x2 only).
 
 ``energy_and_grad`` takes the supervised term through
 ``ops/cnn_fused.ensemble_apply_and_grad`` and the Potts term through
@@ -25,7 +27,7 @@ from typing import Any, Callable
 
 import torch
 
-from ppde_tpu_torch.models import cnn
+from ppde_tpu_torch.models import cnn, mnist_nets
 from ppde_tpu_torch.models import potts as potts_mod
 from ppde_tpu_torch.ops import cnn_fused, potts_fused
 
@@ -196,3 +198,62 @@ def protein_supervised(sup_ensemble, wt_onehot, compute_dtype=None,
     return Energy(params=params, energy=energy,
                   energy_and_grad=energy_and_grad, fitness=fit_fn,
                   wt_onehot=wt_onehot)
+
+
+# ---------------------------------------------------------------------------
+# MNIST energies (binary images; x2 evolves, x1 is the fixed summand)
+# ---------------------------------------------------------------------------
+
+def _autograd_x2(e_and_fit, x2):
+    """(e, fit, d sum(e) / d x2), detached; autograd is switched on here
+    because the samplers call energy_and_grad under no_grad."""
+    with torch.enable_grad():
+        v = x2.detach().requires_grad_(True)
+        e, fit = e_and_fit(v)
+        (g,) = torch.autograd.grad(e.sum(), v)
+    return e.detach(), fit.detach(), g
+
+
+def mnist_poe(unsup_params, sup_ensemble, lam: float,
+              unsup_kind: str = "ebm") -> Energy:
+    """E(x2; x1) = log p_unsup(x2) + lam * predicted_sum(x1, x2).
+
+    unsup_kind: 'ebm' (ResNet EBM + Bernoulli base, mlp.py:175-196) or
+    'dae' (reconstruction log-prob, nets.py:162-168). Parity with
+    MNISTProductOfExperts (energy.py:13-51), with the supervised-attr bug
+    fixed, as in the JAX package.
+    """
+    log_prob = (mnist_nets.ebm_log_prob if unsup_kind == "ebm"
+                else mnist_nets.dae_log_prob)
+    params = {"unsup": unsup_params, "sup": sup_ensemble}
+
+    def fit_fn(p, x2, x1):
+        return mnist_nets.regression_ensemble_apply(p["sup"], x1, x2)
+
+    def energy(p, x2, x1):
+        fit = fit_fn(p, x2, x1)
+        return log_prob(p["unsup"], x2) + lam * fit, fit
+
+    def energy_and_grad(p, x2, x1):
+        return _autograd_x2(lambda v: energy(p, v, x1), x2)
+
+    return Energy(params=params, energy=energy,
+                  energy_and_grad=energy_and_grad, fitness=fit_fn)
+
+
+def mnist_supervised(sup_ensemble) -> Energy:
+    """Supervised-only MNIST energy (energy.py:54-68)."""
+    params = {"sup": sup_ensemble}
+
+    def fit_fn(p, x2, x1):
+        return mnist_nets.regression_ensemble_apply(p["sup"], x1, x2)
+
+    def energy(p, x2, x1):
+        fit = fit_fn(p, x2, x1)
+        return fit, fit
+
+    def energy_and_grad(p, x2, x1):
+        return _autograd_x2(lambda v: energy(p, v, x1), x2)
+
+    return Energy(params=params, energy=energy,
+                  energy_and_grad=energy_and_grad, fitness=fit_fn)

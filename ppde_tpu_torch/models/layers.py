@@ -1,18 +1,47 @@
-"""Functional layers over plain parameter dicts, in the JAX package's layout.
+"""Functional layers over plain parameter dicts.
 
-Counterpart of ``ppde_tpu/models/layers.py``: conv1d inputs are NLC with
-kernels [k, in, out]; linear weights are [in, out]. Keeping the layout lets
-parameters cross between the packages unchanged (``convert.py``).
+Counterpart of ``ppde_tpu/models/layers.py``. conv1d inputs are NLC with
+kernels [k, in, out] and linear weights are [in, out], the JAX package's
+layout, so those parameters cross between the packages unchanged
+(``convert.py``). The 2-D layers take torch's own layout: NCHW
+activations, OIHW conv kernels and [in, out, kh, kw] transposed-conv
+kernels (``convert.py`` carries the JAX package's HWIO ones over).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
 
 
 def linear(p, x: torch.Tensor) -> torch.Tensor:
     return x @ p["w"] + p["b"]
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(x)."""
+    return F.silu(x)
+
+
+def conv2d(p, x: torch.Tensor, stride: int = 1,
+           padding: int = 0) -> torch.Tensor:
+    """Conv2d; x [N,C,H,W], kernel [out,in,kh,kw]."""
+    return F.conv2d(x, p["w"], p["b"], stride=stride, padding=padding)
+
+
+def conv_transpose2d(p, x: torch.Tensor, stride: int = 2, padding: int = 1,
+                     output_padding: int = 1) -> torch.Tensor:
+    """ConvTranspose2d; x [N,C,H,W], kernel [in,out,kh,kw].
+    out = (in - 1) * stride - 2 * padding + k + output_padding."""
+    return F.conv_transpose2d(x, p["w"], p["b"], stride=stride,
+                              padding=padding, output_padding=output_padding)
+
+
+def batchnorm2d(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode BatchNorm2d over the channel dim of an NCHW input."""
+    return F.batch_norm(x, p["mean"], p["var"], p["gamma"], p["beta"],
+                        training=False, eps=eps)
 
 
 def conv1d(p, x: torch.Tensor) -> torch.Tensor:
@@ -33,6 +62,8 @@ def stack_params(param_list):
     first = param_list[0]
     if isinstance(first, dict):
         return {k: stack_params([p[k] for p in param_list]) for k in first}
+    if isinstance(first, list):
+        return [stack_params(list(ps)) for ps in zip(*param_list)]
     return torch.stack(param_list, dim=0)
 
 
@@ -54,3 +85,24 @@ def init_conv1d(generator: torch.Generator, k: int, c_in: int, c_out: int,
     bound = 1.0 / math.sqrt(c_in * k)
     return {"w": _uniform(generator, (k, c_in, c_out), bound, dtype),
             "b": _uniform(generator, (c_out,), bound, dtype)}
+
+
+def init_conv2d(generator: torch.Generator, kh: int, kw: int, c_in: int,
+                c_out: int, dtype=torch.float32):
+    bound = 1.0 / math.sqrt(c_in * kh * kw)
+    return {"w": _uniform(generator, (c_out, c_in, kh, kw), bound, dtype),
+            "b": _uniform(generator, (c_out,), bound, dtype)}
+
+
+def init_conv_transpose2d(generator: torch.Generator, kh: int, kw: int,
+                          c_in: int, c_out: int, dtype=torch.float32):
+    bound = 1.0 / math.sqrt(c_in * kh * kw)
+    return {"w": _uniform(generator, (c_in, c_out, kh, kw), bound, dtype),
+            "b": _uniform(generator, (c_out,), bound, dtype)}
+
+
+def init_batchnorm2d(c: int, dtype=torch.float32, device=None):
+    return {"gamma": torch.ones(c, dtype=dtype, device=device),
+            "beta": torch.zeros(c, dtype=dtype, device=device),
+            "mean": torch.zeros(c, dtype=dtype, device=device),
+            "var": torch.ones(c, dtype=dtype, device=device)}

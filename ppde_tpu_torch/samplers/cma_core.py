@@ -13,8 +13,9 @@ eigendecomposition). ``diag=True`` selects sep-CMA-ES (Ros & Hansen 2008):
 the covariance restricted to its diagonal, the rank-1/rank-mu learning
 rates times (d+2)/3, every update O(popsize * d) and no eigendecomposition,
 which keeps the GFP-sized search space (d = 237 * 20 = 4740) tractable.
-``diag=None`` (default) selects sep-CMA above AUTO_DIAG_DIM. The JAX
-package's ``get_state`` / ``set_state`` wait for the checkpoint port.
+``diag=None`` (default) selects sep-CMA above AUTO_DIAG_DIM.
+``get_state`` / ``set_state`` carry the whole host state (the numpy
+generator's too) for checkpoints.
 """
 from __future__ import annotations
 
@@ -142,3 +143,71 @@ class CMAES:
         X = self.ask()
         f = np.asarray(objective(X), np.float64)
         return X, f
+
+    # -- checkpointing (flat dict of numpy arrays; json-packed RNG state) --
+
+    def get_state(self) -> dict:
+        import json
+
+        st = {"mean": self.mean, "sigma": np.float64(self.sigma),
+              "pc": self.pc, "ps": self.ps, "C": self.C, "D": self.D,
+              "eigen_stale": np.int64(self.eigen_stale),
+              "generation": np.int64(self.generation),
+              "diag": np.bool_(self.diag),
+              "rng_state": np.frombuffer(
+                  json.dumps(self.rng.bit_generator.state).encode(),
+                  np.uint8)}
+        if self.diag:
+            st["invsqrtD"] = self.invsqrtD
+        else:
+            st["B"] = self.B
+            st["invsqrtC"] = self.invsqrtC
+        return st
+
+    def set_state(self, st: dict) -> None:
+        import json
+
+        if bool(st["diag"]) != self.diag:
+            # not an assert: must survive `python -O`, else a full-model
+            # checkpoint silently assigns mismatched-shape C/D into sep-CMA
+            raise ValueError(
+                "checkpoint covariance model "
+                f"({'diag' if bool(st['diag']) else 'full'}) mismatches this "
+                f"instance ({'diag' if self.diag else 'full'})")
+        self.mean = np.asarray(st["mean"], np.float64)
+        self.sigma = float(st["sigma"])
+        self.pc = np.asarray(st["pc"], np.float64)
+        self.ps = np.asarray(st["ps"], np.float64)
+        self.C = np.asarray(st["C"], np.float64)
+        self.D = np.asarray(st["D"], np.float64)
+        self.eigen_stale = int(st["eigen_stale"])
+        self.generation = int(st["generation"])
+        if self.diag:
+            self.invsqrtD = np.asarray(st["invsqrtD"], np.float64)
+        else:
+            self.B = np.asarray(st["B"], np.float64)
+            self.invsqrtC = np.asarray(st["invsqrtC"], np.float64)
+        self.rng.bit_generator.state = json.loads(
+            bytes(st["rng_state"]).decode())
+
+
+def save_run(path: str, es: CMAES, step: int, **arrays) -> None:
+    """Write a CMA-ES run's host state (``cmaes_state.npz``): the
+    generation count ``step``, the sampler's ``arrays`` (archive,
+    histories; a list of rows is stacked, an empty one stored as [0]) and
+    ``es``'s state under ``es_*`` keys, atomically."""
+    from ppde_tpu_torch import checkpoint
+
+    arrays = {k: ((np.stack(v, 0) if v else np.zeros((0,)))
+                  if isinstance(v, list) else v) for k, v in arrays.items()}
+    checkpoint._atomic_savez(path, step=np.int64(step), **arrays,
+                             **{"es_" + k: v
+                                for k, v in es.get_state().items()})
+
+
+def load_run(path: str, es: CMAES):
+    """Restore ``es`` from ``save_run``'s file; returns (step, the file's
+    arrays)."""
+    z = np.load(path, allow_pickle=False)
+    es.set_state({k[3:]: z[k] for k in z.files if k.startswith("es_")})
+    return int(z["step"]), z

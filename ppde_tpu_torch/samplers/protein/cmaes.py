@@ -11,11 +11,14 @@ where the reference calls a stale ``get_fitness`` (:106,:124).
 The ask/tell loop is host numpy (``samplers/cma_core.py``, seeded by
 ``seed``: no device random numbers); each generation's candidates are
 scored in one device call, and its energies come back to the host for
-``tell``. Checkpoint/resume waits for the checkpoint port.
+``tell``. With ``checkpoint_dir`` the host state (archive, histories and
+the ES) is written to ``cmaes_state.npz`` at every log step and a run
+resumes from it.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
@@ -24,6 +27,7 @@ import torch
 from ppde_tpu_torch import utils
 from ppde_tpu_torch.energy import Energy
 from ppde_tpu_torch.samplers import base
+from ppde_tpu_torch.samplers import cma_core
 from ppde_tpu_torch.samplers.cma_core import CMAES
 
 
@@ -39,7 +43,8 @@ class CMAESConfig:
 def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
         max_pos: int, oracle=None, cfg: CMAESConfig | None = None,
         log_every: int = 50, quiet: bool = False, seed: int = 0,
-        device="cuda") -> base.SamplerResult:
+        device="cuda",
+        checkpoint_dir: str | None = None) -> base.SamplerResult:
     """num_steps generations; the result's bests are the final top-K."""
     cfg = cfg or CMAESConfig()
     device = utils.resolve_device(device)
@@ -74,13 +79,25 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
                                                  n_chains - len(idx))])
         return np.stack([seq_arch[i] for i in idx], 0), e[idx]
 
+    start_step = 0
+    ck_path = (os.path.join(checkpoint_dir, "cmaes_state.npz")
+               if checkpoint_dir else None)
     with torch.no_grad():
         e0, fit0 = energy.energy(eparams, x0)
         energy_history.append(e0.cpu().numpy())
         fitness_history.append(fit0.cpu().numpy())
+        if ck_path and os.path.exists(ck_path):
+            start_step, z = cma_core.load_run(ck_path, es)
+            seq_arch, e_arch = list(z["seq_arch"]), list(z["e_arch"])
+            fitness_history = list(z["fitness_history"])
+            energy_history = list(z["energy_history"])
+            oracle_history = list(z["oracle_history"])
+            if not quiet:
+                print(f"[resume] CMA-ES at generation {start_step} from "
+                      f"{ck_path}", flush=True)
 
         t0 = time.perf_counter()
-        for step in range(num_steps):
+        for step in range(start_step, num_steps):
             X = es.ask()
             e, full = batch_energy(torch.from_numpy(X).to(device,
                                                           torch.float32))
@@ -101,6 +118,13 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
                 # re-seed the archive with the current top-K (reference
                 # :108-110)
                 seq_arch, e_arch = list(seqs), list(es_top)
+                if ck_path:
+                    cma_core.save_run(
+                        ck_path, es, step + 1, seq_arch=seqs,
+                        e_arch=np.asarray(e_arch),
+                        fitness_history=fitness_history,
+                        energy_history=energy_history,
+                        oracle_history=oracle_history)
                 if not quiet:
                     eq = np.quantile(es_top, [0.5, 0.9])
                     fq = np.quantile(fit_top, [0.5, 0.9])
@@ -116,8 +140,9 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
             oracle_history.append(oracle[1](oracle[0], seqs_d).cpu().numpy())
 
     # the loop is host-paced (one device call and one readback a
-    # generation): its rate is the wall rate
-    rate = num_steps / max(elapsed, 1e-9)
+    # generation): its rate is the wall rate, over the generations run in
+    # this process
+    rate = (num_steps - start_step) / max(elapsed, 1e-9)
     return base.SamplerResult(
         best_x=seqs, best_energy=es_top, best_fitness=best_fit,
         energy_history=np.stack(

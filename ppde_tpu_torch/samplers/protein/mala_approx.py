@@ -44,7 +44,8 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
         max_pos: int, oracle=None, cfg: MALAConfig | None = None,
         generator: torch.Generator | None = None,
         draws: base.Draws | None = None, log_every: int = 50,
-        quiet: bool = False, device="cuda") -> base.SamplerResult:
+        quiet: bool = False, device="cuda",
+        checkpoint_dir: str | None = None) -> base.SamplerResult:
     """Same contract as ppde.run."""
     cfg = cfg or MALAConfig()
     device = utils.resolve_device(device)
@@ -99,7 +100,7 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
             step_fn=step, ctx=ctx, init_state=(logits0, (e0, fit0, x0)),
             draws=draws, num_steps=num_steps, log_every=log_every,
             oracle_fn=oracle_fn, log_fn=base.default_log("MALA-approx"),
-            quiet=quiet)
+            quiet=quiet, checkpoint_dir=checkpoint_dir)
         final_x = assemble(ctx, hard_of(final_logits))
     return base.package_result(e0=e0, fit0=fit0, x0_traj_head=x0[0],
                                traj_tokens=True, best=best, final_x=final_x,

@@ -209,8 +209,8 @@ def make_step(energy: Energy, cfg: PPDEConfig, window_ok: torch.Tensor,
 def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
         max_pos: int, oracle=None, cfg: PPDEConfig | None = None,
         generator: torch.Generator | None = None, draws: Draws | None = None,
-        log_every: int = 50, quiet: bool = False,
-        device="cuda") -> base.SamplerResult:
+        log_every: int = 50, quiet: bool = False, device="cuda",
+        checkpoint_dir: str | None = None) -> base.SamplerResult:
     """Sampler contract parity with BaseSampler.run (base_sampler.py:7-15).
 
     initial_population: [N, L, V] one-hots; chain 0 is the wild type.
@@ -218,6 +218,8 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
     generator: torch.Generator on ``device`` (default: seed 0); draws:
     overrides the generator with another source of the step's random
     numbers (tests replay the JAX package's draws through it).
+    checkpoint_dir: persist the run there and resume from it
+    (``base.run_segmented``).
     """
     device = utils.resolve_device(device)
     cfg = cfg or PPDEConfig()
@@ -247,7 +249,7 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
                                                (e0, fit0, x0)),
             draws=draws, num_steps=num_steps, log_every=log_every,
             oracle_fn=oracle_fn, log_fn=base.default_log("PPDE"),
-            quiet=quiet)
+            quiet=quiet, checkpoint_dir=checkpoint_dir)
     return base.package_result(e0=e0, fit0=fit0, x0_traj_head=x0[0],
                                traj_tokens=True, best=best, final_x=final_x,
                                rec=rec)

@@ -68,7 +68,8 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
         max_pos: int, oracle=None, cfg: PTConfig | None = None,
         generator: torch.Generator | None = None,
         draws: base.Draws | None = None, log_every: int = 50,
-        quiet: bool = False, device="cuda") -> base.SamplerResult:
+        quiet: bool = False, device="cuda",
+        checkpoint_dir: str | None = None) -> base.SamplerResult:
     """Same contract as ppde.run; chains [c*M:(c+1)*M] run at ladder level
     c (level 0 = cold, beta = 1: those chains sample the actual target)."""
     cfg = cfg or PTConfig()
@@ -101,7 +102,7 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
             init_state=((x0, (e0, fit0, grad0), (e0, fit0, x0)), 0),
             draws=draws, num_steps=num_steps, log_every=log_every,
             oracle_fn=oracle_fn, log_fn=base.default_log("PT-PPDE"),
-            quiet=quiet)
+            quiet=quiet, checkpoint_dir=checkpoint_dir)
     return base.package_result(e0=e0, fit0=fit0, x0_traj_head=x0[0],
                                traj_tokens=True, best=best, final_x=final_x,
                                rec=rec)

@@ -30,7 +30,8 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
         max_pos: int, oracle=None, cfg: RandomConfig | None = None,
         generator: torch.Generator | None = None,
         draws: base.Draws | None = None, log_every: int = 50,
-        quiet: bool = False, device="cuda") -> base.SamplerResult:
+        quiet: bool = False, device="cuda",
+        checkpoint_dir: str | None = None) -> base.SamplerResult:
     """Same contract as ppde.run."""
     cfg = cfg or RandomConfig()
     draws, x0, mu, e0, fit0 = sa.start(energy, initial_population,
@@ -54,7 +55,7 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
             step_fn=step, ctx=ctx, init_state=(x0, (e0, fit0, x0)),
             draws=draws, num_steps=num_steps, log_every=log_every,
             oracle_fn=oracle_fn, log_fn=base.default_log("Random"),
-            quiet=quiet)
+            quiet=quiet, checkpoint_dir=checkpoint_dir)
     return base.package_result(e0=e0, fit0=fit0, x0_traj_head=x0[0],
                                traj_tokens=True, best=best, final_x=final_x,
                                rec=rec)

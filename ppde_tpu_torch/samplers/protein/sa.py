@@ -13,7 +13,9 @@ Random numbers, in order: at the start of a run the [n] uniforms of mu;
 per step the Poisson edit counts [n], the Gumbel noise over positions
 [n, L], the value draws [n, max_edits] in [0, V-1), the accept uniforms
 [n]. The step counter is a host integer, so the temperature is a host
-number and a step syncs nothing.
+number and a step syncs nothing; a checkpoint saves it as a leaf. A
+resumed run draws mu again from its freshly seeded generator before the
+checkpoint's generator state replaces that state, so mu is the uncut run's.
 """
 from __future__ import annotations
 
@@ -130,7 +132,8 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
         max_pos: int, oracle=None, cfg: SAConfig | None = None,
         generator: torch.Generator | None = None,
         draws: base.Draws | None = None, log_every: int = 50,
-        quiet: bool = False, device="cuda") -> base.SamplerResult:
+        quiet: bool = False, device="cuda",
+        checkpoint_dir: str | None = None) -> base.SamplerResult:
     """Same contract as ppde.run."""
     cfg = cfg or SAConfig()
     draws, x0, mu, e0, fit0 = start(energy, initial_population,
@@ -145,7 +148,8 @@ def run(energy: Energy, initial_population, num_steps: int, min_pos: int,
             step_fn=step, ctx=ctx, init_state=(x0, e0, fit0, 0,
                                                (e0, fit0, x0)),
             draws=draws, num_steps=num_steps, log_every=log_every,
-            oracle_fn=oracle_fn, log_fn=base.default_log("SA"), quiet=quiet)
+            oracle_fn=oracle_fn, log_fn=base.default_log("SA"), quiet=quiet,
+            checkpoint_dir=checkpoint_dir)
     return base.package_result(e0=e0, fit0=fit0, x0_traj_head=x0[0],
                                traj_tokens=True, best=best, final_x=final_x,
                                rec=rec)

@@ -12,10 +12,12 @@ defaults, the same run-directory naming ({sampler}[_{signature}]_{seed}_
     run raises unless ``--device cpu`` is given (no silent CPU run);
   * ``--fused_cnn`` is accepted and does nothing: on CUDA the kernels
     always run;
-  * ``--checkpoint_dir`` and the ``--mesh_*`` flags raise
-    NotImplementedError until checkpointing and the multi-device port
-    exist; MSA-Transformer scoring prints a ``[skip]`` line until the
-    metrics port.
+  * the ``--mesh_*`` flags raise NotImplementedError until the
+    multi-device port exists; MSA-Transformer scoring prints a ``[skip]``
+    line until the metrics port;
+  * a ``--checkpoint_dir`` written by the JAX CLI is refused (a PRNG key
+    where the port keeps a ``torch.Generator`` state); the port resumes
+    from its own.
 
 ``--seed`` seeds ``np.random`` and the sampler's ``torch.Generator`` on the
 device (CMA-ES: its numpy ask/tell).
@@ -42,10 +44,6 @@ SAMPLERS = ("PPDE", "PPDE-PT", "simulated_annealing", "Random",
 
 def refuse_unported(args) -> None:
     """The flags whose capability the port does not have yet raise."""
-    if args.checkpoint_dir:
-        raise NotImplementedError(
-            "--checkpoint_dir: checkpoint/resume is not ported yet "
-            "(ROADMAP.md Queue 1 item 10)")
     if args.mesh_dp or args.mesh_tp > 1 or args.mesh_ep > 1 \
             or args.mesh_sp > 1:
         raise NotImplementedError(
@@ -58,7 +56,8 @@ def refuse_unported(args) -> None:
 def get_sampler_runner(args, device):
     """runner(**kw) -> SamplerResult for ``args.sampler``."""
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    common = dict(generator=gen, device=device)
+    ck = args.checkpoint_dir or None
+    common = dict(generator=gen, device=device, checkpoint_dir=ck)
     if args.sampler == "PPDE":
         cfg = ppde.PPDEConfig(pas_length=args.ppde_pas_length,
                               nmut_threshold=args.nmut_threshold,
@@ -93,7 +92,7 @@ def get_sampler_runner(args, device):
         initial_variance=args.cmaes_initial_variance,
         diag={"auto": None, "full": False, "sep": True}[args.cmaes_cov])
     return lambda **kw: cmaes.run(cfg=cfg, seed=args.seed, device=device,
-                                  **kw)
+                                  checkpoint_dir=ck, **kw)
 
 
 def main(args):
@@ -222,8 +221,8 @@ def build_parser():
                         "into the timestamped run dir); PARITY.md's tables "
                         "cite these")
     g.add_argument("--checkpoint_dir", type=str, default="",
-                   help="not ported yet: a non-empty value raises "
-                        "(ROADMAP.md Queue 1 item 10)")
+                   help="persist sampler state here and auto-resume "
+                        "(capability absent from the reference)")
     g.add_argument("--fused_cnn", action="store_true",
                    help="accepted and ignored: on CUDA the CNN ensemble "
                         "always runs its fused kernel")

@@ -1,6 +1,6 @@
 """Device-side sequence utilities and device selection.
 
-Counterpart of ``ppde_tpu/utils.py`` (the parts the PPDE sampler uses).
+Counterpart of ``ppde_tpu/utils.py`` (the parts the samplers use).
 """
 from __future__ import annotations
 
@@ -45,3 +45,9 @@ def position_window_mask(seq_len: int, vocab_size: int, min_pos: int,
     pos = torch.arange(seq_len, device=device)
     ok = (pos >= min_pos) & (pos <= max_pos)
     return ok[:, None].expand(seq_len, vocab_size).contiguous()
+
+
+def flip_bits(x: torch.Tensor, changes: torch.Tensor) -> torch.Tensor:
+    """Binary-domain flip: x, changes in {0,1} [N,D]; flips where
+    changes == 1."""
+    return (1.0 - x) * changes + x * (1.0 - changes)

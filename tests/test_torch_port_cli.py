@@ -1,7 +1,8 @@
 """The port's CLI (ppde_tpu_torch/scripts/directed_evolution.py) against the
 JAX package's (scripts/directed_evolution.py): the flag surface, the
 artifact contract of tests/test_cli.py:80 for each of the six samplers, the
-printed wild-type energy, and what the port refuses. Runs on the CPU
+printed wild-type energy, what the port refuses, and ``--checkpoint_dir``
+(a cut run resumed writes the uncut run's artifacts). Runs on the CPU
 (``--device cpu``) on a seeded protein directory (L = 20, 4-8 chains, a few
 steps); the WT energies printed by the two CLIs agree to 1e-3 (the "%.3f"
 they print)."""
@@ -149,7 +150,6 @@ def test_msa_scoring_is_skipped_and_named(root, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--checkpoint_dir", "ck"), "item 10"),
     (("--mesh_dp", "2"), "item 15"),
     (("--mesh_tp", "2"), "item 15"),
     (("--mesh_ep", "3"), "item 15"),
@@ -159,6 +159,31 @@ def test_unported_flags_are_refused(root, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         _main(_argv(root, tmp_path, "--device", "cpu", *extra))
     assert not (tmp_path / PROTEIN).exists()
+
+
+@pytest.mark.parametrize("sampler,extra", [
+    ("PPDE", ()), ("PPDE-PT", ("--pt_levels", "4")),
+    ("simulated_annealing", ()), ("Random", ()), ("MALA-approx", ()),
+    ("CMAES", ("--cmaes_population_size", "8")),
+])
+def test_checkpoint_dir_resumes_bit_exact(root, tmp_path, capsys, sampler,
+                                          extra):
+    """--checkpoint_dir: a run cut after 3 of 6 steps (generations) and
+    resumed writes the uncut run's artifacts bit for bit."""
+    def run(results, n, *ck):
+        argv = _argv(root, tmp_path / results, "--device", "cpu",
+                     "--sampler", sampler, *extra, *ck)
+        argv[argv.index("--n_iters") + 1] = str(n)
+        return _main(argv)
+    ref = run("ref", 6)
+    ck = ("--checkpoint_dir", str(tmp_path / "ck"))
+    run("cut", 3, *ck)
+    capsys.readouterr()
+    got = run("resumed", 6, *ck)
+    assert "[resume]" in capsys.readouterr().out
+    for f in ARTIFACTS[1:-1]:
+        np.testing.assert_array_equal(np.load(got / f), np.load(ref / f),
+                                      err_msg=f)
 
 
 def test_unknown_sampler_is_refused(root, tmp_path):

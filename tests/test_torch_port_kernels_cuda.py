@@ -613,3 +613,33 @@ def test_sa_and_pt_steps_do_not_sync(dev, protein_root):
 
         _no_sync(one_pt)
         assert pstate[0][1] == 4
+
+
+@pytest.mark.parametrize("cdt", ["f32", "bf16"])
+def test_ppde_resume_is_bit_exact_on_card(dev, protein_root, tmp_path, cdt):
+    """The protein PPDE path on the card (kernels A and B), cut after 4 of
+    8 steps with --checkpoint_dir and resumed: the uncut run's artifacts
+    bit for bit, A and B launched in both halves."""
+    from ppde_tpu_torch.scripts import directed_evolution as de
+
+    def run(results, steps, *ck):
+        args = de.build_parser().parse_args([
+            "--protein_weights", protein_root, "--protein", "P",
+            "--results_path", str(tmp_path / results), "--n_iters",
+            str(steps), "--n_chains", "8", "--log_every", "2",
+            "--nmut_threshold", "4", "--energy_lamda", "3",
+            "--disable_MSA_transformer_scoring", "--compute_dtype", cdt,
+            *ck])
+        a0, b0 = potts_fused.launches, cnn_fused.launches
+        run_dir = de.main(args)
+        assert potts_fused.launches > a0 and cnn_fused.launches > b0
+        return run_dir
+    ref = run("ref", 8)
+    ck = ("--checkpoint_dir", str(tmp_path / "ck"))
+    run("cut", 4, *ck)
+    got = run("resumed", 8, *ck)
+    for f in ("population.npy", "energy_scores.npy", "pred_fitness_scores.npy",
+              "oracle_fitness_scores.npy", "energy_history.npy",
+              "fitness_history.npy"):
+        np.testing.assert_array_equal(np.load(got / f), np.load(ref / f),
+                                      err_msg=f)
