@@ -65,7 +65,21 @@ no result line):
      evaluation (phase 4's tolerances), one CSV row per oracle record; no
      port kernel launched (counters as in 4); launches per step and the
      device busy share from two traced short runs. The CLI's output goes
-     to chiprun_out/chip_smoke_mnist.log.
+     to chiprun_out/chip_smoke_mnist.log;
+ 10. protein evaluation on the same seeded GFP directory: the protein CLI
+     (PPDE, 200 steps, 128 chains) with MSA-Transformer scoring on over
+     500 rows of the tracked GFP synthetic alignment, once without weights
+     (the [skip] line) and once with an msa-S file written here (scores);
+     ``eval_proteins.main`` on the first run at full width (msa-1b, random
+     init, bf16, --update_summary): finite scores, the summary's density
+     keys, ms per masked column, the share of the bf16 peak, peak memory,
+     and one masked column in bf16 against float32 (EVAL_LOGP_TOL);
+     ``eval_expert_correlation.main`` (512 mutants, transformer-S and
+     msa-1b columns): every rho finite, kernel C launched 12 x (1 +
+     512 / 64) = 108 times and C', A, B never; ``select_lambda``,
+     ``calibrate_oracle_scale --out_npz`` (its round-trip assertions) on a
+     UBE4B-layout directory with the tracked fit, and ``make_figures``.
+     Output: chiprun_out/chip_smoke_eval.log.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -105,9 +119,11 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # no-TC f32, dense bf16 TC
 SAMPLER_RUNS = ((128, 300, 100), (1024, 40, 20))   # chains, steps, log_every
 # (Z, T, hd) of kernels C and C': the transformer path's calls at chunk 16
 # and in one piece (ESM2-S: 20 heads, hd 24), the M and L head widths, the
-# longest T, and a small ragged case
+# longest T, a small ragged case, and eval_expert_correlation's calls (a
+# chunk of 64 mutants, and the wild type alone)
 ATTN_CASES = ((320, 237, 24), (2560, 237, 24), (320, 237, 32),
-              (320, 237, 64), (20, 512, 64), (7, 33, 16))
+              (320, 237, 64), (20, 512, 64), (7, 33, 16),
+              (1280, 237, 24), (20, 237, 24))
 TRANSFORMER_RUN = (128, 40, 20)                    # chains, steps, log_every
 TRANSFORMER_CHUNKS = (16, None)
 # phase 7: (label, sampler, steps, extra CLI flags) at CLI_CHAINS chains
@@ -149,6 +165,16 @@ MNIST_RUNS = (
 )
 MNIST_CHAINS, MNIST_STEPS, MNIST_LOG_EVERY = 128, 200, 50
 MNIST_TRACE_STEPS = (10, 20)  # two traced runs: launches per step between
+# phase 10: protein evaluation at full width. The scorer is msa-1b (random
+# init, bf16) with 500 alignment rows of the tracked GFP synthetic
+# alignment; the population is a 200-step PPDE CLI run at 128 chains
+EVAL_MSA = os.path.join("data", "proteins", "synthetic",
+                        "GFP_AEQVI_Sarkisyan2016_synth.a2m")
+EVAL_MSAT, EVAL_MSA_SIZE, EVAL_STEPS = "msa-1b", 500, 200
+EVAL_SMALL_MSAT = "msa-S"       # the CLI's scoring run with a weights file
+EVAL_MUTANTS, EVAL_MAX_MUT, EVAL_ESM_CHUNK = 512, 4, 64
+EVAL_LOGP_TOL = 0.1  # msa-1b bf16 log-probs against float32, one column
+UBE4B = "UBE4B_MOUSE_Klevit2013-nscor_log2_ratio"
 CLI_ARTIFACTS = ("config.txt", "population.npy", "pred_fitness_scores.npy",
                  "oracle_fitness_scores.npy", "potts_scores.npy",
                  "energy_scores.npy", "energy_history.npy",
@@ -1016,22 +1042,282 @@ def phase_mnist(torch, counters, dev, card):
     return runs
 
 
+def msat_flops(name, R, C):
+    """Operations of one MSA-Transformer forward over an R x C alignment:
+    the projections and FFN (8 D^2 + 2 D F multiply-adds a token a layer),
+    the tied row attention (2 R C^2 D) and the column attention (2 C R^2 D);
+    the LM head at one position is left out."""
+    from ppde_tpu_torch.models import msa_transformer as msat
+
+    cfg = msat.CONFIGS[name]
+    D, Fd = cfg["dim"], cfg["ffn"]
+    macs = (R * C * (8 * D * D + 2 * D * Fd) + 2 * R * C * C * D
+            + 2 * C * R * R * D)
+    return 2 * macs * cfg["layers"]
+
+
+@contextlib.contextmanager
+def timed_marginals(torch, msat, out):
+    """``msat.masked_marginals`` timed (it ends in a copy to the host, so
+    its wall time is the device's) and its columns and alignment size
+    recorded into ``out``."""
+    def wrap(orig):
+        def run(params, wt_window, msa_rows, cols, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = orig(params, wt_window, msa_rows, cols, *a, **kw)
+            out.update(seconds=time.perf_counter() - t, columns=len(cols),
+                       rows=1 + len(msa_rows), tokens=len(wt_window) + 1)
+            return res
+        return run
+    with patched(msat, "masked_marginals", wrap):
+        yield
+
+
+def phase_eval(torch, counters, dev, card):
+    """Protein evaluation on the card: the protein CLI with MSA-Transformer
+    scoring on (no weights: the [skip] line; an msa-S file: scores),
+    eval_proteins at full width (msa-1b, 500 rows, 128 chains),
+    eval_expert_correlation (kernel C on its transformer column),
+    select_lambda, calibrate_oracle_scale --out_npz and make_figures."""
+    from ppde_tpu_torch import io as pio
+    from ppde_tpu_torch.models import esm2, msa_transformer as msat
+    from ppde_tpu_torch.scripts import (calibrate_oracle_scale,
+                                        eval_expert_correlation,
+                                        eval_proteins, make_figures,
+                                        seeded_protein, select_lambda)
+    from ppde_tpu_torch.scripts import directed_evolution as de
+
+    results, launches = {}, {name: 0 for name in counters}
+    msa_path = os.path.join(ROOT, EVAL_MSA)
+    log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_eval.log")
+    with tempfile.TemporaryDirectory() as tmp, open(log_path, "w") as log:
+        def run(label, fn, a):
+            out = io.StringIO()
+            reset_counters(counters)
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(out), warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                res = fn(a)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            got = read_counters(counters)
+            for name, n in got.items():
+                launches[name] += n
+            log.write(f"==== {label}\n{out.getvalue()}")
+            return res, out.getvalue(), got, secs
+
+        seeded_protein.write_protein_dir(tmp, CLI_PROTEIN, GFP_WT, seed=0)
+        rng = np.random.default_rng(5)
+        seeded_protein.write_protein_dir(
+            tmp, UBE4B, "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"),
+                                           104)), seed=2)
+        protein_dir = os.path.join(tmp, CLI_PROTEIN)
+
+        # 1. the protein CLI with scoring on: no weights, then an msa-S file
+        # written here in training.save_ckpt's layout (leaves p0..pN, keys
+        # sorted, float32)
+        ck = os.path.join(tmp, "msat_S.npz")
+        init = msat.init(torch.Generator().manual_seed(3), torch.float32,
+                         name=EVAL_SMALL_MSAT)
+        np.savez_compressed(ck, step=0, treedef="msa-S", **{
+            f"p{i}": a.numpy() for i, a in enumerate(esm2._flatten(init))})
+        cli = {}
+        for label, extra in (("no-weights", ()),
+                             ("msa-S", ("--msa_transformer_weights", ck,
+                                        "--msa_transformer_model",
+                                        EVAL_SMALL_MSAT))):
+            a = de.build_parser().parse_args([
+                "--protein_weights", tmp, "--protein", CLI_PROTEIN,
+                "--results_path", os.path.join(tmp, "results"),
+                "--run_signature", label, "--n_iters", str(EVAL_STEPS),
+                "--n_chains", str(CLI_CHAINS), "--log_every",
+                str(CLI_LOG_EVERY), "--nmut_threshold", str(CLI_NMUT),
+                "--energy_lamda", "15", "--msa_path", msa_path,
+                "--msa_size", str(EVAL_MSA_SIZE), *extra])
+            with timed_marginals(torch, msat, tm := {}):
+                run_dir, out, got, secs = run(f"cli {label}", de.main, a)
+            files = sorted(os.listdir(run_dir))
+            with open(os.path.join(run_dir, "summary.json")) as f:
+                summary = json.load(f)
+            want = {"potts_energy_f32": EVAL_STEPS + 1,
+                    "cnn_ensemble_f32": EVAL_STEPS + 1,
+                    "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+            check(all(got[k] == n for k, n in want.items()),
+                  f"cli {label}: kernel launches {got}, not {want}")
+            if label == "no-weights":
+                check("[skip] MSA-Transformer scoring unavailable: No "
+                      "MSA-Transformer weights" in out
+                      and files == sorted(CLI_ARTIFACTS)
+                      and "evolutionary_density" not in summary,
+                      f"cli {label}: no [skip] line, or scores: {files}")
+                scored_run = run_dir
+            else:
+                scores = np.load(os.path.join(run_dir,
+                                              "transformer_scores.npy"))
+                check(files == sorted(CLI_ARTIFACTS
+                                      + ("transformer_scores.npy",))
+                      and scores.shape == (CLI_CHAINS,)
+                      and np.isfinite(scores).all()
+                      and "MSATransformer quantiles" in out
+                      and "evolutionary_density" in summary,
+                      f"cli {label}: scores {scores.shape} {files}")
+            cli[label] = {"main_s": secs, "launches": got,
+                          "masked_marginals": tm,
+                          "evolutionary_density":
+                              summary.get("evolutionary_density"),
+                          "steps_per_sec": summary["steps_per_sec"]}
+        results["cli"] = cli
+        print("eval cli", json.dumps(cli), flush=True)
+
+        # 2. eval_proteins at full width on the unscored run
+        a = eval_proteins.build_parser().parse_args([
+            "--runs_glob", str(scored_run), "--protein_weights", tmp,
+            "--protein", CLI_PROTEIN, "--allow_random_esm",
+            "--msa_transformer_model", EVAL_MSAT, "--msa_path", msa_path,
+            "--msa_size", str(EVAL_MSA_SIZE), "--update_summary"])
+        torch.cuda.reset_peak_memory_stats()
+        with timed_marginals(torch, msat, tm := {}):
+            _, out, got, secs = run("eval_proteins", eval_proteins.main, a)
+        peak = torch.cuda.max_memory_allocated()
+        scores = np.load(os.path.join(scored_run, "transformer_scores.npy"))
+        with open(os.path.join(scored_run, "summary.json")) as f:
+            summary = json.load(f)
+        check(scores.shape == (CLI_CHAINS,) and np.isfinite(scores).all()
+              and "evolutionary_density" in summary
+              and summary["density_msa_size"] == EVAL_MSA_SIZE,
+              f"eval_proteins: scores {scores.shape}, summary "
+              f"{sorted(summary)}")
+        check(not any(got.values()),
+              f"eval_proteins: a port kernel ran: {got}")
+        check(tm["rows"] == EVAL_MSA_SIZE and tm["tokens"] == len(GFP_WT) + 1,
+              f"eval_proteins: alignment {tm}")
+        ms_col = tm["seconds"] * 1e3 / tm["columns"]
+        flops = msat_flops(EVAL_MSAT, tm["rows"], tm["tokens"])
+        r = {"scorer": EVAL_MSAT, "n_chains": CLI_CHAINS,
+             "alignment": [tm["rows"], tm["tokens"]],
+             "columns": tm["columns"], "marginals_s": tm["seconds"],
+             "main_s": secs, "ms_per_column": ms_col,
+             "tflop_per_column": flops / 1e12,
+             "bf16_peak_share": flops / (ms_col * 1e-3) / PEAK_OPS["bfloat16"],
+             "peak_memory_gb": peak / 1e9,
+             "evolutionary_density": summary["evolutionary_density"],
+             "card": card}
+
+        # one masked column of the population in bf16 against float32
+        wt_idx = np.array(["ACDEFGHIKLMNPQRSTVWY".index(c) for c in GFP_WT])
+        pop = np.load(os.path.join(scored_run, "population.npy"))
+        col = int(np.flatnonzero((pop.argmax(-1) != wt_idx).any(0))[0])
+        msa = pio.load_msa(msa_path)
+        idxs = np.random.default_rng(0).choice(
+            len(msa), size=min(EVAL_MSA_SIZE - 1, len(msa)), replace=False)
+        rows = [msa[i][1] for i in idxs]
+        lp = {}
+        for dt in (torch.bfloat16, torch.float32):
+            params = msat.load(None, allow_random=True, dtype=dt,
+                               name=EVAL_MSAT, device=dev)
+            lp[dt] = msat.masked_marginals(params, GFP_WT, rows, [col],
+                                           heads=msat.heads_of(EVAL_MSAT))
+            del params
+        err = float(np.abs(lp[torch.bfloat16] - lp[torch.float32]).max())
+        sums = [float(np.exp(v).sum()) for v in lp.values()]
+        check(err <= EVAL_LOGP_TOL and all(abs(x - 1) <= 1e-3 for x in sums),
+              f"msa-1b column {col}: bf16 against float32 {err} (limit "
+              f"{EVAL_LOGP_TOL}), row sums {sums}")
+        r.update({"column_checked": col, "bf16_vs_f32_max_abs_err": err,
+                  "bf16_vs_f32_limit": EVAL_LOGP_TOL, "row_sums": sums})
+        results["eval_proteins"] = r
+        print("eval eval_proteins", json.dumps(r), flush=True)
+
+        # 3. eval_expert_correlation: kernel C on the transformer column
+        a = eval_expert_correlation.build_parser().parse_args([
+            "--protein_weights", tmp, "--protein", CLI_PROTEIN,
+            "--n_mutants", str(EVAL_MUTANTS), "--max_mutations",
+            str(EVAL_MAX_MUT), "--esm_model", "transformer-S",
+            "--esm_chunk", str(EVAL_ESM_CHUNK), "--msat_model", EVAL_MSAT,
+            "--msa_path", msa_path, "--msa_size", str(EVAL_MSA_SIZE)])
+        torch.cuda.reset_peak_memory_stats()
+        with timed_marginals(torch, msat, tm := {}):
+            res, out, got, secs = run("eval_expert_correlation",
+                                      eval_expert_correlation.main, a)
+        n_layers = esm2.CONFIGS["transformer-S"]["layers"]
+        want_c = n_layers * (1 + -(-EVAL_MUTANTS // EVAL_ESM_CHUNK))
+        want = {"flash_attention_fwd": want_c, "flash_attention_bwd": 0,
+                "potts_energy": 0, "cnn_ensemble": 0}
+        check(all(got[k] == n for k, n in want.items()),
+              f"eval_expert_correlation: kernel launches {got}, not {want}")
+        rho = res["spearman_vs_oracle"]
+        check(set(rho) >= {"potts", "cnn_ensemble", "transformer_random",
+                           "msat_random"}
+              and all(np.isfinite(v) and -1 <= v <= 1 for v in rho.values()),
+              f"eval_expert_correlation: rho {rho}")
+        ms_col = tm["seconds"] * 1e3 / tm["columns"]
+        r = {"n_mutants": EVAL_MUTANTS, "max_mutations": EVAL_MAX_MUT,
+             "spearman_vs_oracle": rho, "launches": got, "main_s": secs,
+             "columns": tm["columns"], "marginals_s": tm["seconds"],
+             "ms_per_column": ms_col,
+             "bf16_peak_share": (msat_flops(EVAL_MSAT, tm["rows"],
+                                            tm["tokens"])
+                                 / (ms_col * 1e-3) / PEAK_OPS["bfloat16"]),
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "card": card}
+        results["eval_expert_correlation"] = r
+        print("eval eval_expert_correlation", json.dumps(r), flush=True)
+
+        # 4. select_lambda, calibrate_oracle_scale (its round-trip
+        # assertions), make_figures
+        lam, _, got, _ = run("select_lambda", select_lambda.main,
+                             select_lambda.build_parser().parse_args([
+                                 "--protein_weights", tmp, "--protein",
+                                 CLI_PROTEIN]))
+        check(np.isfinite(lam) and lam > 0, f"select_lambda: {lam}")
+        out_npz = os.path.join(tmp, "scalematched.npz")
+        rec, _, got2, _ = run(
+            "calibrate_oracle_scale", calibrate_oracle_scale.main,
+            calibrate_oracle_scale.build_parser().parse_args([
+                "--protein_weights", tmp, "--protein", UBE4B,
+                "--potts_npz", os.path.join(ROOT, "weights", UBE4B,
+                                            "potts.npz"),
+                "--out_npz", out_npz]))
+        check(rec.get("out_npz") == out_npz and os.path.exists(out_npz),
+              "calibrate_oracle_scale wrote no artifact")
+        rows_fig, _, got3, _ = run(
+            "make_figures", make_figures.main,
+            make_figures.build_parser().parse_args([
+                "--runs_glob", os.path.join(tmp, "results", CLI_PROTEIN,
+                                            "*"),
+                "--protein_weights", tmp, "--protein", CLI_PROTEIN,
+                "--out_json", os.path.join(tmp, "figures.json")]))
+        check(len(rows_fig) == 2 and all(
+            "evolutionary_density_p50" in row for row in rows_fig),
+            f"make_figures: {rows_fig}")
+        check(not any({**got, **got2, **got3}.values()),
+              "a port kernel ran in select_lambda, calibrate_oracle_scale "
+              "or make_figures")
+        results["calibration"] = {"lambda": lam, "record": rec, "card": card}
+        print("eval calibration", json.dumps(results["calibration"]),
+              flush=True)
+    return results, launches
+
+
+def attention_numbers(r, way):
+    """One phase-5 record's numbers of kernel C (way "fwd") or C' ("bwd")."""
+    return {"shape": [r["Z"], r["T"], r["hd"]],
+            "max_abs_err": r[f"max_abs_err_{way}"],
+            "ms": r[f"{way}_ms"], "plain_ms": r[f"{way}_plain_ms"],
+            "bound_ms": r[f"{way}_bound_ms"],
+            "bound_by": r[f"{way}_bound_by"],
+            "library_ms": r[f"{way}_library_ms_sdpa"]}
+
+
 def attention_row(c, c1, way, launches, line):
     """The kernels line's row of kernel C (way "fwd") or C' ("bwd"): the
     chunk-16 call c as the headline, the one-piece call c1 beside it."""
-    def numbers(r):
-        return {"ms": r[f"{way}_ms"], "plain_ms": r[f"{way}_plain_ms"],
-                "bound_ms": r[f"{way}_bound_ms"],
-                "bound_by": r[f"{way}_bound_by"],
-                "library_ms": r[f"{way}_library_ms_sdpa"]}
     return {"name": f"flash_attention_{way}", "route": "cuda",
             "source": "ppde_tpu_torch/csrc/flash_attention.cu",
             "replaces": f"ppde_tpu/ops/attention_pallas.py:{line}",
-            "launches": launches, "max_abs_err": c[f"max_abs_err_{way}"],
-            **numbers(c), "shape": [c["Z"], c["T"], c["hd"]],
-            "one_piece": {"shape": [c1["Z"], c1["T"], c1["hd"]],
-                          "max_abs_err": c1[f"max_abs_err_{way}"],
-                          **numbers(c1)}}
+            "launches": launches, **attention_numbers(c, way),
+            "one_piece": attention_numbers(c1, way)}
 
 
 def main() -> int:
@@ -1082,7 +1368,8 @@ def main() -> int:
             card),
         "cli": lambda: phase_cli(torch, counters, dev, card),
         "checkpoint": lambda: phase_checkpoint(torch, counters, dev, card),
-        "mnist": lambda: phase_mnist(torch, counters, dev, card)}
+        "mnist": lambda: phase_mnist(torch, counters, dev, card),
+        "eval": lambda: phase_eval(torch, counters, dev, card)}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     got = {}
     for name, run in phases.items():
@@ -1095,7 +1382,8 @@ def main() -> int:
     runs, launches = got["sampler"]
     tr_runs, tr_launches = got["transformer"]
     cli_runs, cli_launches = got["cli"]
-    for more in (tr_launches, cli_launches):
+    eval_runs, eval_launches = got["eval"]
+    for more in (tr_launches, cli_launches, eval_launches):
         for name, n in more.items():
             launches[name] += n
 
@@ -1128,8 +1416,9 @@ def main() -> int:
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": None, "B": b["B"], "dtype": b["dtype"]}
 
-    c, c1 = (next(r for r in pc if (r["Z"], r["T"], r["hd"]) == case
-                  and r["dtype"] == "bfloat16") for case in ATTN_CASES[:2])
+    c, c1, ce = (next(r for r in pc if (r["Z"], r["T"], r["hd"]) == case
+                      and r["dtype"] == "bfloat16")
+                 for case in ATTN_CASES[:2] + ((1280, 237, 24),))
     n_a, n_a32 = launches["potts_energy"], launches["potts_energy_f32"]
     n_b, n_b32 = launches["cnn_ensemble"], launches["cnn_ensemble_f32"]
     kernels = {"kernels": [
@@ -1144,6 +1433,17 @@ def main() -> int:
         attention_row(c, c1, "fwd", launches["flash_attention_fwd"], 83),
         attention_row(c, c1, "bwd", launches["flash_attention_bwd"], 108),
     ]}
+    # kernel C's launches by path: the transformer sampler (phase 6) and
+    # the evaluation's transformer column (phase 10)
+    for row in kernels["kernels"]:
+        name = row["name"]
+        if name not in ("flash_attention_fwd", "flash_attention_bwd"):
+            continue
+        row["launches_by_path"] = {
+            "transformer_sampler": tr_launches[name],
+            "eval_expert_correlation": eval_launches[name]}
+        if name == "flash_attention_fwd":  # the evaluation's chunk of 64
+            row["eval_expert_correlation"] = attention_numbers(ce, "fwd")
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel the main path runs was not launched: {kernels}")
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1151,7 +1451,7 @@ def main() -> int:
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,
                    "transformer_sampler": tr_runs, "cli": cli_runs,
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
-                   **kernels}, f, indent=1)
+                   "eval": eval_runs, **kernels}, f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -55,6 +55,12 @@ def esm2_from_numpy(tree, device="cuda"):
     return _tree(tree, utils.resolve_device(device))
 
 
+# An MSA-Transformer parameter tree of the JAX package
+# (``models/msa_transformer.py`` layout, bf16 leaves as ml_dtypes
+# ``bfloat16``) as the port's dict of tensors, dtypes kept.
+msa_transformer_from_numpy = esm2_from_numpy
+
+
 def oracle_from_numpy(coef, intercept, inv_sqrt_reg, potts_params: PottsParams,
                       device="cuda") -> LinearOracleParams:
     """LinearOracleParams from the JAX package's coef [S, 1+L*V], intercept

@@ -1,12 +1,17 @@
-"""Population metrics of a run's summary, and the MNIST run's writers.
+"""Evaluation metrics and artifact writers.
 
-Counterpart of ``diversity_pct``, ``exploration`` (reference
-make_figures.py:29-49) and the MNIST writers (reference metrics.py:103-134,
-mnist_sum.py:36-58) of ``ppde_tpu/metrics.py``. The CSVs are written with
-numpy in pandas' ``to_csv`` layout (no pandas needed); the plots, the GIF
-and the population grid import matplotlib or PIL when called
-(``WRITER_PACKAGES`` names which). The rest of that module (Potts and
-MSA-Transformer scoring) waits for the metrics port.
+Counterpart of ``ppde_tpu/metrics.py``:
+  * proteins_potts_score: delta Hamiltonian of a population (reference
+    metrics.py:14-19);
+  * proteins_transformer_score: MSA-Transformer masked-marginal
+    evolutionary density (reference metrics.py:22-76), one forward per
+    unique mutated column instead of one per (variant, mutation) pair;
+  * population diversity / exploration (reference make_figures.py:29-49);
+    n_hops (reference metrics.py:78-85) is in ``utils``;
+  * the MNIST writers (reference metrics.py:103-134, mnist_sum.py:36-58).
+The CSVs are written with numpy in pandas' ``to_csv`` layout (no pandas
+needed); the plots, the GIF and the population grid import matplotlib or
+PIL when called (``WRITER_PACKAGES`` names which).
 """
 from __future__ import annotations
 
@@ -15,7 +20,21 @@ import os
 import numpy as np
 import torch
 
-from ppde_tpu_torch import codec, utils
+from ppde_tpu_torch import codec, io as pio, utils
+
+
+def proteins_potts_score(population: np.ndarray, protein_dir: str,
+                         device="cuda") -> np.ndarray:
+    """Delta-Hamiltonian of a one-hot population [N, L, 20] under the
+    protein directory's Potts model (``runtime.load_potts``)."""
+    from ppde_tpu_torch import runtime
+    from ppde_tpu_torch.models import potts as potts_mod
+
+    device = utils.resolve_device(device)
+    pp = runtime.load_potts(protein_dir, device=device)
+    with torch.no_grad():
+        x = torch.as_tensor(np.asarray(population, np.float32), device=device)
+        return potts_mod.score(pp, x, delta=True).cpu().numpy()
 
 
 def diversity_pct(population: np.ndarray) -> float:
@@ -29,6 +48,74 @@ def exploration(population: np.ndarray, wt_onehot: np.ndarray):
     d = utils.mut_distance(torch.as_tensor(np.asarray(population)),
                            torch.as_tensor(np.asarray(wt_onehot))).numpy()
     return float(d.mean()), float(d.std())
+
+
+def proteins_transformer_score(population: np.ndarray, protein_dir: str,
+                               msa_location: str, msa_size: int,
+                               weights_path: str | None = None,
+                               allow_random: bool = False,
+                               seed: int = 0,
+                               msa_model: str = "msa-1b",
+                               device="cuda") -> np.ndarray:
+    """Evolutionary density via MSA-Transformer masked marginals.
+
+    For each variant, for each of its mutations inside the Potts window:
+    mask that column in the WT row of a [msa_size, window] alignment, run
+    the MSA Transformer, accumulate log p(mut) - log p(wt). Mutation effects
+    are taken as additive (reference metrics.py:40-76), so each unique
+    mutated column costs one forward however many variants mutate it; a
+    variant with no mutation in the window scores 0.0.
+
+    The context rows are the JAX package's draw: ``msa_size - 1`` rows of
+    the alignment without replacement from ``np.random.default_rng(seed)``.
+    ``msa_model``: msa_transformer.CONFIGS key ("msa-1b" for a converted
+    fair-esm checkpoint, or a smaller config's family-trained .npz).
+    """
+    from ppde_tpu_torch import runtime
+    from ppde_tpu_torch.models import msa_transformer as msat
+
+    device = utils.resolve_device(device)
+    pp = runtime.load_potts(protein_dir, device=device)
+    wt = pio.read_fasta(os.path.join(protein_dir, "wt.fasta"))[0]
+    lo, hi = pp.min_pos, pp.max_pos
+
+    msa = pio.load_msa(msa_location)
+    rng = np.random.default_rng(seed)
+    idxs = rng.choice(len(msa), size=min(msa_size - 1, len(msa)),
+                      replace=False)
+    msa_rows = [msa[i][1] for i in idxs]
+
+    params = msat.load(weights_path, allow_random=allow_random,
+                       name=msa_model, device=device)
+
+    seqs = codec.onehot_to_seqs(population)
+    # per-variant mutations inside the window, and the unique masked columns
+    muts_per_variant = []
+    needed_cols = set()
+    for s in seqs:
+        muts = [(i, wt[i], s[i]) for i in range(len(wt))
+                if s[i] != wt[i] and lo <= i <= hi]
+        muts_per_variant.append(muts)
+        needed_cols.update(i for i, _, _ in muts)
+
+    if not needed_cols:
+        return np.zeros(len(seqs))
+
+    cols = sorted(needed_cols)
+    logp = msat.masked_marginals(params, wt[lo:hi + 1], msa_rows,
+                                 [c - lo for c in cols],
+                                 heads=msat.heads_of(msa_model))
+    col_to_row = {c: k for k, c in enumerate(cols)}
+
+    scores = np.zeros(len(seqs))
+    for v, muts in enumerate(muts_per_variant):
+        total = 0.0
+        for (i, wt_aa, mut_aa) in muts:
+            row = logp[col_to_row[i]]
+            total += float(row[msat.ESM_TOK_TO_IDX[mut_aa]]
+                           - row[msat.ESM_TOK_TO_IDX[wt_aa]])
+        scores[v] = total
+    return scores
 
 
 # ---------------------------------------------------------------------------

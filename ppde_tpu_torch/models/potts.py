@@ -61,6 +61,12 @@ def _flatten_couplings(J: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(W)
 
 
+def _unflatten_couplings(W: np.ndarray, L: int) -> np.ndarray:
+    """Inverse of _flatten_couplings: [L*V, L*V] -> [L,L,V,V]."""
+    J = W.reshape(L, VOCAB, L, VOCAB)  # [j,l,i,k]
+    return np.transpose(J, (2, 0, 3, 1))
+
+
 def _pad_flat(params: PottsParams, x: torch.Tensor,
               dtype=None) -> torch.Tensor:
     """[B, L, V] -> zero-padded flat [B, P], cast to ``dtype`` if given (one
@@ -159,6 +165,13 @@ def load_npz(path: str, wt_seq: str, dtype=torch.float32,
                   int(z["offset"]), wt_seq, dtype, device)
 
 
+def save_npz(path: str, J: np.ndarray, h: np.ndarray, index_list: np.ndarray,
+             reg_coef: float, offset: int) -> None:
+    """Write the artifact ``load_npz`` of either package reads."""
+    np.savez_compressed(path, J=J, h=h, index_list=index_list,
+                        reg_coef=reg_coef, offset=offset)
+
+
 def load_pickle(protein_dir: str, dtype=torch.float32,
                 device="cuda") -> PottsParams:
     """Load the reference's potts.pkl + wt.fasta artifact pair (keys J_ij
@@ -202,3 +215,10 @@ def synthetic(wt_seq: str, min_pos: int = 0, max_pos: int | None = None,
     W = np.pad(W, ((0, P - W.shape[0]), (0, P - W.shape[1])))
     hf = np.pad(h.reshape(-1), (0, P - L * VOCAB))
     return _with_wt_H(W, hf, L, min_pos, max_pos, 1.0, wt_seq, dtype, device)
+
+
+def as_dense_J(params: PottsParams) -> np.ndarray:
+    """Recover the [L,L,V,V] coupling tensor (float64, for export)."""
+    lv = params.data_dim
+    W = params.W.detach().cpu().double().numpy()[:lv, :lv]
+    return _unflatten_couplings(W, params.seq_len)

@@ -159,12 +159,14 @@ def _q(v, qs=(0.2, 0.4, 0.5, 0.6, 0.8, 0.9, 1.0)):
 
 
 def cell_summary(args, run_dir, *, population, wt_onehot, oracle_scores,
-                 fitness, energy, potts_scores, steps_per_sec,
-                 wall_steps_per_sec, potts_provenance) -> dict:
+                 fitness, energy, potts_scores, transformer_scores,
+                 steps_per_sec, wall_steps_per_sec,
+                 potts_provenance) -> dict:
     """Machine-readable summary of a run (the JAX package's keys):
-    diversity, exploration, score quantiles, throughput, and the config
-    and provenance needed to read them without the run directory. The
-    MSA-Transformer density keys wait for the metrics port."""
+    diversity, exploration, score quantiles, throughput, the config and
+    provenance needed to read them without the run directory, and, when
+    ``transformer_scores`` is not None, the MSA-Transformer's evolutionary
+    density with the scorer that gave it."""
     em, es = metrics.exploration(population, wt_onehot)
     summary = {
         "protein": args.protein,
@@ -190,8 +192,14 @@ def cell_summary(args, run_dir, *, population, wt_onehot, oracle_scores,
         "steps_per_sec": round(float(steps_per_sec), 2),
         "wall_steps_per_sec": round(float(wall_steps_per_sec), 2),
         "run_dir": str(run_dir),
+        # stable copy location (if any): post-hoc density scoring
+        # (scripts/eval_proteins.py --update_summary) updates both files
         "summary_json": getattr(args, "summary_json", "") or None,
     }
+    if transformer_scores is not None:
+        summary["evolutionary_density"] = _q(transformer_scores)
+        summary["msa_transformer_model"] = args.msa_transformer_model
+        summary["msa_transformer_weights"] = args.msa_transformer_weights
     return summary
 
 

@@ -13,8 +13,7 @@ defaults, the same run-directory naming ({sampler}[_{signature}]_{seed}_
   * ``--fused_cnn`` is accepted and does nothing: on CUDA the kernels
     always run;
   * the ``--mesh_*`` flags raise NotImplementedError until the
-    multi-device port exists; MSA-Transformer scoring prints a ``[skip]``
-    line until the metrics port;
+    multi-device port exists;
   * a ``--checkpoint_dir`` written by the JAX CLI is refused (a PRNG key
     where the port keeps a ``torch.Generator`` state); the port resumes
     from its own.
@@ -33,7 +32,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ppde_tpu_torch import runtime, utils
+from ppde_tpu_torch import metrics, runtime, utils
 from ppde_tpu_torch.models import potts as potts_mod
 from ppde_tpu_torch.samplers.protein import (cmaes, mala_approx, ppde, pt,
                                              random_search, sa)
@@ -143,16 +142,25 @@ def main(args):
     np.save(results_path / "energy_history.npy", res.energy_history)
     np.save(results_path / "fitness_history.npy", res.fitness_history)
 
+    tscore = None
     if not args.disable_MSA_transformer_scoring:
-        print("[skip] MSA-Transformer scoring unavailable: not ported yet "
-              "(ROADMAP.md Queue 1 item 13)", flush=True)
+        try:
+            tscore = metrics.proteins_transformer_score(
+                np.asarray(res.best_x), protein_dir, args.msa_path,
+                args.msa_size, weights_path=args.msa_transformer_weights,
+                msa_model=args.msa_transformer_model, device=device)
+            print(f"MSATransformer quantiles: {np.quantile(tscore, qs)}")
+            np.save(results_path / "transformer_scores.npy", tscore)
+        except FileNotFoundError as e:
+            print(f"[skip] MSA-Transformer scoring unavailable: {e}",
+                  flush=True)
 
     summary = runtime.cell_summary(
         args, results_path, population=res.best_x,
         wt_onehot=pop[:1].cpu().numpy(), oracle_scores=best_oracle,
         fitness=np.asarray(res.best_fitness),
         energy=np.asarray(res.best_energy), potts_scores=potts_score,
-        steps_per_sec=res.steps_per_sec,
+        transformer_scores=tscore, steps_per_sec=res.steps_per_sec,
         wall_steps_per_sec=res.wall_steps_per_sec,
         potts_provenance=runtime.potts_provenance(protein_dir,
                                                   args.potts_npz))

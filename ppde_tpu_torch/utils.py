@@ -1,9 +1,10 @@
 """Device-side sequence utilities and device selection.
 
-Counterpart of ``ppde_tpu/utils.py`` (the parts the samplers use).
+Counterpart of ``ppde_tpu/utils.py``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # finite stand-in for -inf: over-budget chains with no revertible position
@@ -51,3 +52,19 @@ def flip_bits(x: torch.Tensor, changes: torch.Tensor) -> torch.Tensor:
     """Binary-domain flip: x, changes in {0,1} [N,D]; flips where
     changes == 1."""
     return (1.0 - x) * changes + x * (1.0 - changes)
+
+
+def n_hops(population: torch.Tensor, wt: torch.Tensor):
+    """(mean, std) of one-sided hops ((x - wt) > 0 summed) across a
+    population [N,L,V] against wt [L,V] or [1,L,V]; the std with ddof=1
+    (reference metrics.py:78-85)."""
+    diff = (population - wt.reshape((1,) + tuple(wt.shape[-2:]))) > 0
+    hops = diff.float().sum((-2, -1))
+    return hops.mean(), hops.std(unbiased=True)
+
+
+def quantiles(v, qs=(0.5, 0.9)):
+    """Host-side quantiles of v (a tensor or an array) for log lines."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.quantile(np.asarray(v), list(qs))

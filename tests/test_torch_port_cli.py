@@ -139,14 +139,60 @@ def test_wt_energy_line_matches_jax_cli(root, tmp_path, capsys, monkeypatch):
             == json.loads((tmp_path / "s" / "jax.json").read_text()).keys())
 
 
-def test_msa_scoring_is_skipped_and_named(root, tmp_path, capsys):
-    argv = [a for a in _argv(root, tmp_path, "--device", "cpu", "--n_iters",
-                             "2")
+def _scoring_argv(root, tmp_path, *extra):
+    """The CLI with MSA-Transformer scoring on, over a 6-row alignment of
+    the 20-residue wild type."""
+    a2m = tmp_path / "toy.a2m"
+    rows = [WT, WT[::-1], WT[5:] + WT[:5], WT.replace("K", "R"),
+            WT.replace("S", "-"), WT[::2] + WT[1::2]]
+    a2m.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(rows)))
+    return [a for a in _argv(root, tmp_path / "res", "--device", "cpu",
+                             "--n_iters", "2", "--msa_path", str(a2m),
+                             "--msa_size", "4", *extra)
             if a != "--disable_MSA_transformer_scoring"]
-    run_dir = _main(argv)
+
+
+def test_msa_scoring_is_skipped_and_named(root, tmp_path, capsys):
+    """Without weights the run prints the JAX CLI's [skip] line with
+    msa_transformer.load's FileNotFoundError and writes no scores."""
+    from ppde_tpu_torch.models import msa_transformer
+
+    run_dir = _main(_scoring_argv(root, tmp_path))
     out = capsys.readouterr().out
-    assert re.search(r"\[skip\] MSA-Transformer scoring.*item 13", out)
+    with pytest.raises(FileNotFoundError) as e:
+        msa_transformer.load(None, device="cpu")
+    assert f"[skip] MSA-Transformer scoring unavailable: {e.value}\n" in out
     assert sorted(os.listdir(run_dir)) == sorted(ARTIFACTS)
+    summary = json.loads((run_dir / "summary.json").read_text())
+    assert "evolutionary_density" not in summary
+
+
+def test_msa_scoring_writes_transformer_scores(root, tmp_path, capsys):
+    """With an msa-tiny checkpoint (the JAX package's training.save_ckpt of
+    float32 weights, as its trainer writes them)
+    the run scores its best population: the quantile line,
+    transformer_scores.npy, and the density keys in summary.json."""
+    import jax
+    import jax.numpy as jnp
+
+    from ppde_tpu import training
+    from ppde_tpu.models import msa_transformer as jmsat
+
+    ck = str(tmp_path / "msat.npz")
+    training.save_ckpt(ck, jmsat.init(jax.random.PRNGKey(0), jnp.float32,
+                                      name="msa-tiny"), 0)
+    run_dir = _main(_scoring_argv(root, tmp_path, "--msa_transformer_weights",
+                                  ck, "--msa_transformer_model", "msa-tiny"))
+    out = capsys.readouterr().out
+    assert "MSATransformer quantiles: [" in out and "[skip]" not in out
+    assert sorted(os.listdir(run_dir)) == sorted(
+        ARTIFACTS + ["transformer_scores.npy"])
+    scores = np.load(run_dir / "transformer_scores.npy")
+    assert scores.shape == (8,) and np.isfinite(scores).all()
+    summary = json.loads((run_dir / "summary.json").read_text())
+    assert summary["evolutionary_density"] == jruntime._q(scores)
+    assert summary["msa_transformer_model"] == "msa-tiny"
+    assert summary["msa_transformer_weights"] == ck
 
 
 @pytest.mark.parametrize("extra,match", [

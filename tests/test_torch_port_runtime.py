@@ -336,15 +336,18 @@ def test_metrics_and_cell_summary_match_jax(tmp_path):
         protein=PROTEIN, sampler="PPDE", seed=1, n_iters=10, n_chains=10,
         energy_function="product_of_experts", unsupervised_expert="potts",
         energy_lamda=5.0, nmut_threshold=4, ppde_reference_reverse=False,
-        run_signature="sig", summary_json="")
-    scores = {k: rng.normal(size=10) for k in ("o", "f", "e", "p")}
+        run_signature="sig", summary_json="",
+        msa_transformer_model="msa-S", msa_transformer_weights="w.npz")
+    scores = {k: rng.normal(size=10) for k in ("o", "f", "e", "p", "t")}
     kw = dict(population=pop, wt_onehot=wt, oracle_scores=scores["o"],
               fitness=scores["f"], energy=scores["e"],
               potts_scores=scores["p"], steps_per_sec=12.345,
               wall_steps_per_sec=10.0, potts_provenance="synthetic")
-    assert (runtime.cell_summary(args, tmp_path, **kw)
-            == jruntime.cell_summary(args, tmp_path, transformer_scores=None,
-                                     **kw))
+    for t in (None, scores["t"]):
+        got = runtime.cell_summary(args, tmp_path, transformer_scores=t, **kw)
+        assert got == jruntime.cell_summary(args, tmp_path,
+                                            transformer_scores=t, **kw)
+        assert ("evolutionary_density" in got) == (t is not None)
     runtime.dump_config(args, tmp_path / "a.txt")
     jruntime.dump_config(args, tmp_path / "b.txt")
     assert (tmp_path / "a.txt").read_text() == (tmp_path / "b.txt").read_text()

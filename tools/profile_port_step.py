@@ -5,6 +5,7 @@
     python tools/profile_port_step.py --kernels
     python tools/profile_port_step.py --phases
     python tools/profile_port_step.py --potts_dtype f32 --cnn_dtype f32
+    python tools/profile_port_step.py --msat
 
 Builds the GFP configuration of chip_smoke.py (synthetic seeded Potts and a
 seeded 3-member CNN ensemble, bf16, lambda=15, pas_length=2,
@@ -24,7 +25,11 @@ kernels C and C' at the transformer path's calls (bf16, (Z, T, hd) =
 device microseconds per call by kernel name. ``--phases`` builds kernel B
 with -DCNN_PHASE_CLOCKS and prints the clocks and microseconds each phase of
 one (sample, member) takes in block (0, 0), bf16 and float32, at B = 128
-and 1024. Needs a CUDA
+and 1024. ``--msat`` traces one batch of masked columns of the MSA
+Transformer as chip_smoke.py's phase 10 scores them (random-init msa-1b,
+bf16, 500 rows of the GFP synthetic alignment, 4 columns a forward): the
+device time a column by class of kernel (matrix products, softmax, layer
+norm, GELU, the rest) and by name, and the busy share. Needs a CUDA
 device.
 """
 from __future__ import annotations
@@ -36,6 +41,8 @@ import os
 import subprocess
 import sys
 import time
+
+import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # name fragments of the port's hand-written kernels in the trace (kernel A:
@@ -137,6 +144,66 @@ def trace_kernels(torch, dev, card) -> None:
         print(json.dumps(out), flush=True)
 
 
+# classes of the MSA Transformer's kernels by name fragment (the first that
+# matches; "other" is the elementwise passes, casts and copies)
+MSAT_CLASSES = (("matmul", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")),
+                ("softmax", ("softmax",)), ("layer_norm", ("layer_norm",)),
+                ("gelu", ("gelu",)))
+
+
+def trace_msat(torch, dev, card, reps=2) -> None:
+    """Device time of masked_marginals at chip_smoke.py's phase 10 size."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from chip_smoke import EVAL_MSA, EVAL_MSA_SIZE, EVAL_MSAT, GFP_WT
+    from ppde_tpu_torch import io as pio
+    from ppde_tpu_torch.models import msa_transformer as msat
+
+    msa = pio.load_msa(os.path.join(ROOT, EVAL_MSA))
+    idxs = np.random.default_rng(0).choice(
+        len(msa), size=EVAL_MSA_SIZE - 1, replace=False)
+    rows = [msa[i][1] for i in idxs]
+    params = msat.load(None, allow_random=True, name=EVAL_MSAT, device=dev)
+    cols = [10, 60, 110, 160]
+
+    def fn():
+        return msat.masked_marginals(params, GFP_WT, rows, cols,
+                                     heads=msat.heads_of(EVAL_MSAT))
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_cols = reps * len(cols)
+    by_name: dict[str, float] = {}
+    by_class: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+        cls = next((c for c, frags in MSAT_CLASSES
+                    if any(f in e.name.lower() for f in frags)), "other")
+        by_class[cls] = by_class.get(cls, 0.0) + e.device_time
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    print(json.dumps({
+        "scorer": EVAL_MSAT, "rows": EVAL_MSA_SIZE, "tokens": len(GFP_WT) + 1,
+        "columns_per_forward": len(cols),
+        "wall_ms_per_column": wall_us / n_cols / 1e3,
+        "device_ms_per_column": sum(by_class.values()) / n_cols / 1e3,
+        "device_busy_share": busy_share(kernels, wall_us),
+        "launches_per_column": len(kernels) / n_cols,
+        "device_ms_per_column_by_class": {
+            k: v / n_cols / 1e3 for k, v in sorted(
+                by_class.items(), key=lambda kv: -kv[1])},
+        "device_ms_per_column_by_kernel": {
+            k[:80]: v / n_cols / 1e3 for k, v in top},
+        "card": card}), flush=True)
+
+
 def trace_phases(torch, dev, card) -> None:
     """Clocks of each phase of kernel B per (sample, member), read from a
     build with -DCNN_PHASE_CLOCKS, at GFP width: bf16 and float32, B = 128
@@ -200,6 +267,7 @@ def main() -> int:
     ap.add_argument("--transformer", action="store_true")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--phases", action="store_true")
+    ap.add_argument("--msat", action="store_true")
     # the types of the Potts model and of the CNN; the CLI's defaults are
     # f32 and f32 (its --compute_dtype bf16 makes the CNN bf16)
     ap.add_argument("--potts_dtype", choices=("bf16", "f32"), default="bf16")
@@ -230,6 +298,9 @@ def main() -> int:
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.msat:
+        trace_msat(torch, dev, card)
+        return 0
     if args.kernels or args.phases:
         if args.kernels:
             trace_kernels(torch, dev, card)
