@@ -80,6 +80,21 @@ no result line):
      ``calibrate_oracle_scale --out_npz`` (its round-trip assertions) on a
      UBE4B-layout directory with the tracked fit, and ``make_figures``.
      Output: chiprun_out/chip_smoke_eval.log.
+ 11. training and fitting, each entry point's main on the tracked GFP
+     alignment: finetune_esm at transformer-S (full width and depth,
+     random init, batch 32, 200 steps, --val_frac 0.1): every logged loss
+     finite, the held-out CE after below the one before, kernel C launched
+     12 x (200 + 2 x 4) and C' 12 x 200 times, the checkpoint reloaded
+     and run in the protein CLI as --esm_weights; at transformer-L cut to
+     4 layers with --lora_rank 8 (20 steps, remat: C 2 x 4 x 20 and C'
+     4 x 20 launches, the _lora_ files and the merged file); fit_potts at
+     its defaults (the loss falls) and sample_potts_msa from the fit (500
+     sequences, finite QC correlations); finetune_msa at msa-S (200 steps,
+     reloaded); the three MNIST trainers (synthetic source), their
+     checkpoints read back equal and loaded by mnist_sum and
+     eval_mnist_ebm. Steps/s, tokens/s, the ESM runs' share of the bf16
+     peak (model FLOPs over the training time) and peak memory. Output:
+     chiprun_out/chip_smoke_training.log.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -96,6 +111,7 @@ import io
 import itertools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -119,11 +135,13 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # no-TC f32, dense bf16 TC
 SAMPLER_RUNS = ((128, 300, 100), (1024, 40, 20))   # chains, steps, log_every
 # (Z, T, hd) of kernels C and C': the transformer path's calls at chunk 16
 # and in one piece (ESM2-S: 20 heads, hd 24), the M and L head widths, the
-# longest T, a small ragged case, and eval_expert_correlation's calls (a
-# chunk of 64 mutants, and the wild type alone)
+# longest T, a small ragged case, eval_expert_correlation's calls (a chunk
+# of 64 mutants, and the wild type alone), and finetune_esm's: a batch of
+# 32 at transformer-S and -L (hd 64), and the held-out CE's 200 sequences
 ATTN_CASES = ((320, 237, 24), (2560, 237, 24), (320, 237, 32),
               (320, 237, 64), (20, 512, 64), (7, 33, 16),
-              (1280, 237, 24), (20, 237, 24))
+              (1280, 237, 24), (20, 237, 24), (640, 237, 24),
+              (640, 237, 64), (4000, 237, 24))
 TRANSFORMER_RUN = (128, 40, 20)                    # chains, steps, log_every
 TRANSFORMER_CHUNKS = (16, None)
 # phase 7: (label, sampler, steps, extra CLI flags) at CLI_CHAINS chains
@@ -174,6 +192,22 @@ EVAL_MSAT, EVAL_MSA_SIZE, EVAL_STEPS = "msa-1b", 500, 200
 EVAL_SMALL_MSAT = "msa-S"       # the CLI's scoring run with a weights file
 EVAL_MUTANTS, EVAL_MAX_MUT, EVAL_ESM_CHUNK = 512, 4, 64
 EVAL_LOGP_TOL = 0.1  # msa-1b bf16 log-probs against float32, one column
+# phase 11: training and fitting on the tracked GFP alignment (2,000 rows
+# and the wild type). finetune_esm at transformer-S (full width and depth,
+# random init, the CLI's defaults: batch 32, lr 1e-4, warmup 100,
+# reweighting) cut from 5,000 to TRAIN_S_STEPS steps; at transformer-L
+# (full width, cut to TRAIN_L_LAYERS layers: the merged 33-layer file alone
+# is 2.6 GB to compress) with LoRA; fit_potts at its defaults (500 steps);
+# sample_potts_msa with POTTS_SEQS chains and POTTS_SWEEPS sweeps (200 at
+# its default); finetune_msa at msa-S cut from 3,000 steps; the MNIST
+# trainers on the synthetic source, cut from 25,000 / 40,000 / 10,000
+TRAIN_S_STEPS, TRAIN_VAL_FRAC, TRAIN_LOG_EVERY = 200, 0.1, 50
+TRAIN_L_STEPS, TRAIN_L_LAYERS, TRAIN_LORA_RANK = 20, 4, 8
+TRAIN_CLI_STEPS = 10  # the protein CLI on the fine-tuned expert
+POTTS_SEQS, POTTS_SWEEPS = 500, 50
+TRAIN_MSA_STEPS = 200
+MNIST_TRAIN_STEPS = {"regression": 200, "dae": 100, "ebm": 40}
+EBM_EVAL_STEPS = 200
 UBE4B = "UBE4B_MOUSE_Klevit2013-nscor_log2_ratio"
 CLI_ARTIFACTS = ("config.txt", "population.npy", "pred_fitness_scores.npy",
                  "oracle_fitness_scores.npy", "potts_scores.npy",
@@ -1300,6 +1334,370 @@ def phase_eval(torch, counters, dev, card):
     return results, launches
 
 
+def esm_train_flops(name, batch, T):
+    """Model FLOPs of one ESM2 training step: 6 N tokens (N: the weight
+    matrices' parameters, the embedding and its tied head included) plus
+    attention's two products of 2 B T^2 D a layer, three times over
+    (forward and backward). A remat's second forward is not counted."""
+    from ppde_tpu_torch.models import esm2
+
+    cfg = esm2.CONFIGS[name]
+    D, Fd, L = cfg["dim"], cfg["ffn"], cfg["layers"]
+    n = L * (4 * D * D + 2 * D * Fd) + D * D + 2 * esm2.ESM_VOCAB * D
+    return 6 * n * batch * T + 12 * L * batch * T * T * D
+
+
+def logged(pattern, out):
+    """The floats of every printed line that matches ``pattern`` (one
+    group: the number)."""
+    return [float(v) for v in re.findall(pattern, out)]
+
+
+def phase_training(torch, counters, dev, card):
+    """Training and fitting through their entry points at full width on
+    the tracked GFP alignment: finetune_esm at transformer-S (kernels C
+    and C' on every step, launches held to their formula; held-out CE
+    must fall; the checkpoint scores in the protein CLI), at transformer-L
+    with LoRA (C' at hd = 64 under remat), fit_potts and
+    sample_potts_msa, finetune_msa at msa-S, the three MNIST trainers on
+    the synthetic source, eval_mnist_ebm and mnist_sum on what they
+    wrote."""
+    from ppde_tpu_torch import training
+    from ppde_tpu_torch.models import esm2, mnist_nets, potts_fit
+    from ppde_tpu_torch.models import msa_transformer as msat
+    from ppde_tpu_torch import convert
+    from ppde_tpu_torch.scripts import directed_evolution as de
+    from ppde_tpu_torch.scripts import (eval_mnist_ebm, finetune_esm,
+                                        finetune_msa, fit_potts, mnist_sum,
+                                        sample_potts_msa, seeded_mnist,
+                                        seeded_protein,
+                                        train_binary_mnist_dae,
+                                        train_binary_mnist_ebm,
+                                        train_binary_mnist_regression)
+
+    results, launches = {}, {name: 0 for name in counters}
+    by_run = {}
+    msa_path = os.path.join(ROOT, EVAL_MSA)
+    log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_training.log")
+    with tempfile.TemporaryDirectory() as tmp, open(log_path, "w") as log:
+        def run(label, module, argv, trainer=None, log_every=None):
+            """module.main on argv under the launch counters; with
+            ``trainer`` (a name in ``training`` or ``potts_fit``) that
+            call is timed alone, with its peak memory, and its steps
+            after the first (each ends in an optimizer step) apart."""
+            a = module.build_parser().parse_args(argv)
+            check(a.device == "cuda", f"{label}: --device is {a.device}")
+            tm, marks = {}, []
+
+            def wrap(fn):
+                def timed(*args, **kw):
+                    if log_every:
+                        kw["log_every"] = log_every
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    t = time.perf_counter()
+                    res = fn(*args, **kw)
+                    torch.cuda.synchronize()
+                    end = time.perf_counter()
+                    n = marks[-1][0]
+                    tm.update(seconds=end - t, steps=n,
+                              first_step_s=marks[0][1] - t,
+                              later_steps_per_sec=(n - 1) / (
+                                  marks[-1][1] - marks[0][1]),
+                              peak_memory_gb=torch.cuda.max_memory_allocated()
+                              / 1e9)
+                    return res
+                return timed
+
+            def mark(step):
+                # the first step ends in a sync; the later ones are timed
+                # when the host has queued them (the steps are host-paced)
+                def marked(self, grads):
+                    step(self, grads)
+                    if self.count == 1:
+                        torch.cuda.synchronize()
+                    marks.append((self.count, time.perf_counter()))
+                return marked
+
+            host = potts_fit if trainer == "fit" else training
+            out = io.StringIO()
+            reset_counters(counters)
+            t = time.perf_counter()
+            with contextlib.ExitStack() as stack:
+                if trainer:
+                    stack.enter_context(patched(host, trainer, wrap))
+                    stack.enter_context(patched(training.Adam, "step", mark))
+                stack.enter_context(contextlib.redirect_stdout(out))
+                stack.enter_context(warnings.catch_warnings())
+                warnings.simplefilter("ignore", UserWarning)
+                res = module.main(a)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            got = read_counters(counters)
+            for name, n in got.items():
+                launches[name] += n
+            by_run[label] = got
+            log.write(f"==== {label}\n{out.getvalue()}")
+            return res, out.getvalue(), got, secs, tm
+
+        seeded_protein.write_protein_dir(tmp, CLI_PROTEIN, GFP_WT, seed=0)
+        wt_fasta = os.path.join(tmp, CLI_PROTEIN, "wt.fasta")
+        n_rows = len(open(msa_path).read().split(">")) - 1
+        n_val = max(1, int(round(TRAIN_VAL_FRAC * n_rows)))
+        T = len(GFP_WT)
+
+        def esm_record(label, name, tm, out, steps, batch):
+            ce = logged(r"\[esm_mlm\] iter \d+ ce (\S+)", out)
+            check(ce and all(np.isfinite(ce)),
+                  f"{label}: logged losses {ce}")
+            flops = esm_train_flops(name, batch, T)
+            sps = tm["later_steps_per_sec"]
+            check(tm["steps"] == steps, f"{label}: {tm['steps']} steps")
+            return {"model": name, "steps": steps, "batch": batch, "T": T,
+                    "train_s": tm["seconds"],
+                    "first_step_s": tm["first_step_s"],
+                    "steps_per_sec_whole_call": steps / tm["seconds"],
+                    "steps_per_sec": sps, "tokens_per_sec": sps * batch * T,
+                    "tflop_per_step": flops / 1e12,
+                    "bf16_peak_share": flops * sps / PEAK_OPS["bfloat16"],
+                    "peak_memory_gb": tm["peak_memory_gb"],
+                    "loss_first_logged": ce[0], "loss_last_logged": ce[-1],
+                    "card": card}
+
+        # 1. finetune_esm at transformer-S, full width and depth
+        out_s = os.path.join(tmp, "esm_S")
+        _, out, got, secs, tm = run(
+            "finetune_esm transformer-S", finetune_esm,
+            ["--msa", msa_path, "--wt_fasta", wt_fasta, "--esm_model",
+             "transformer-S", "--out", out_s, "--n_iters",
+             str(TRAIN_S_STEPS), "--val_frac", str(TRAIN_VAL_FRAC),
+             "--log_every", str(TRAIN_LOG_EVERY)], "train_esm_mlm")
+        n_layers = esm2.CONFIGS["transformer-S"]["layers"]
+        # every step one forward and one backward a layer; the held-out CE
+        # before and after: 4 repeats of one forward a layer each
+        want = {"flash_attention_fwd": n_layers * (TRAIN_S_STEPS + 2 * 4),
+                "flash_attention_bwd": n_layers * TRAIN_S_STEPS,
+                "potts_energy": 0, "cnn_ensemble": 0}
+        check(all(got[k] == n for k, n in want.items()),
+              f"finetune_esm S: kernel launches {got}, not {want}")
+        before, after = logged(r"held-out masked CE \w+: (\S+)", out)
+        check(np.isfinite([before, after]).all() and after < before,
+              f"finetune_esm S: held-out CE {before} -> {after}")
+        r = esm_record("finetune_esm S", "transformer-S", tm, out,
+                       TRAIN_S_STEPS, 32)
+        final_s = f"{out_s}_ckpt_{TRAIN_S_STEPS}.npz"
+        loaded = esm2.load_npz_checkpoint(final_s, "transformer-S",
+                                          torch.bfloat16, dev)
+        check(len(loaded["layers"]) == n_layers, "transformer-S reload")
+        del loaded
+        r.update({"main_s": secs, "n_val": n_val, "heldout_ce_before":
+                  before, "heldout_ce_after": after, "launches": got,
+                  "launches_want": want})
+        # the fine-tuned expert in the protein CLI
+        res_dir = os.path.join(tmp, "results")
+        run_dir, out, got, secs, _ = run(
+            "directed_evolution --esm_weights", de,
+            ["--protein_weights", tmp, "--protein", CLI_PROTEIN,
+             "--results_path", res_dir, "--run_signature", "esm_ft",
+             "--unsupervised_expert", "transformer-S", "--esm_weights",
+             final_s, "--n_iters", str(TRAIN_CLI_STEPS), "--n_chains", "32",
+             "--log_every", "5", "--nmut_threshold", str(CLI_NMUT),
+             "--energy_lamda", "1", "--disable_MSA_transformer_scoring"])
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            summary = json.load(f)
+        e = np.load(os.path.join(run_dir, "energy_history.npy"))
+        check(np.isfinite(e).all() and got["flash_attention_fwd"]
+              >= n_layers * TRAIN_CLI_STEPS
+              and got["flash_attention_bwd"] >= n_layers * TRAIN_CLI_STEPS,
+              f"the CLI on the fine-tuned expert: launches {got}")
+        r["cli_with_esm_weights"] = {"steps": TRAIN_CLI_STEPS, "n_chains": 32,
+                                     "steps_per_sec": summary["steps_per_sec"],
+                                     "launches": got}
+        results["finetune_esm_S"] = r
+        print("training finetune_esm_S", json.dumps(r), flush=True)
+
+        # 2. transformer-L (depth cut) with LoRA: remat, hd = 64
+        full_l = esm2.CONFIGS["transformer-L"]
+        esm2.CONFIGS["transformer-L"] = dict(full_l, layers=TRAIN_L_LAYERS)
+        try:
+            out_l = os.path.join(tmp, "esm_L")
+            _, out, got, secs, tm = run(
+                "finetune_esm transformer-L LoRA", finetune_esm,
+                ["--msa", msa_path, "--wt_fasta", wt_fasta, "--esm_model",
+                 "transformer-L", "--out", out_l, "--n_iters",
+                 str(TRAIN_L_STEPS), "--lora_rank", str(TRAIN_LORA_RANK),
+                 "--ckpt_every", str(TRAIN_L_STEPS // 2), "--log_every",
+                 str(TRAIN_L_STEPS // 2)], "train_esm_mlm")
+            # remat: a forward, then the forward again and the backward
+            want = {"flash_attention_fwd": 2 * TRAIN_L_LAYERS * TRAIN_L_STEPS,
+                    "flash_attention_bwd": TRAIN_L_LAYERS * TRAIN_L_STEPS}
+            check(all(got[k] == n for k, n in want.items()),
+                  f"finetune_esm L: kernel launches {got}, not {want}")
+            files = sorted(os.path.basename(f) for f in os.listdir(tmp)
+                           if f.startswith("esm_L"))
+            want_files = sorted([f"esm_L_lora_{TRAIN_L_STEPS // 2}.npz",
+                                 f"esm_L_lora_{TRAIN_L_STEPS}.npz",
+                                 f"esm_L_ckpt_{TRAIN_L_STEPS}.npz"])
+            check(files == want_files, f"finetune_esm L wrote {files}")
+            merged = esm2.load_npz_checkpoint(
+                f"{out_l}_ckpt_{TRAIN_L_STEPS}.npz", "transformer-L",
+                torch.bfloat16, dev)
+            check(len(merged["layers"]) == TRAIN_L_LAYERS,
+                  "transformer-L merged reload")
+            del merged
+            r = esm_record("finetune_esm L", "transformer-L", tm, out,
+                           TRAIN_L_STEPS, 32)
+        finally:
+            esm2.CONFIGS["transformer-L"] = full_l
+        r.update({"layers": TRAIN_L_LAYERS, "lora_rank": TRAIN_LORA_RANK,
+                  "main_s": secs, "files": files, "launches": got})
+        results["finetune_esm_L_lora"] = r
+        print("training finetune_esm_L_lora", json.dumps(r), flush=True)
+
+        # 3. fit_potts at its defaults, then sample_potts_msa from the fit
+        fit_npz = os.path.join(tmp, "gfp_potts.npz")
+        hist, out, got, secs, tm = run(
+            "fit_potts", fit_potts, ["--msa", msa_path, "--out", fit_npz],
+            "fit")
+        check(len(hist) == 500 and np.isfinite(hist).all()
+              and hist[-1] < hist[0], f"fit_potts: loss {hist[0]} -> "
+              f"{hist[-1]} over {len(hist)} steps")
+        P = T * 20
+        ops = 4 * n_rows * P * P  # X @ W and its weight gradient a step
+        sps = tm["later_steps_per_sec"]
+        results["fit_potts"] = {
+            "steps": len(hist), "rows": n_rows, "P": P,
+            "fit_s": tm["seconds"], "first_step_s": tm["first_step_s"],
+            "steps_per_sec": sps, "tflop_per_step": ops / 1e12,
+            "f32_peak_share": ops * sps / PEAK_OPS["float32"],
+            "peak_memory_gb": tm["peak_memory_gb"],
+            "loss_first": hist[0], "loss_last": hist[-1], "main_s": secs,
+            "launches": got, "card": card}
+        print("training fit_potts", json.dumps(results["fit_potts"]),
+              flush=True)
+        (seqs, rec), out, got, secs, _ = run(
+            "sample_potts_msa", sample_potts_msa,
+            ["--protein_weights", tmp, "--protein", CLI_PROTEIN,
+             "--potts_npz", fit_npz, "--n_seqs", str(POTTS_SEQS),
+             "--n_sweeps", str(POTTS_SWEEPS), "--qc_msa", msa_path,
+             "--out_json", os.path.join(tmp, "qc.json")])
+        r1, r2 = rec["single_site_freq_r"], rec["pair_covariance_r"]
+        check(len(seqs) == POTTS_SEQS and r1 is not None and r2 is not None
+              and np.isfinite([r1, r2]).all(),
+              f"sample_potts_msa: QC r {r1}, {r2}")
+        results["sample_potts_msa"] = {
+            "n_seqs": POTTS_SEQS, "n_sweeps": POTTS_SWEEPS, "main_s": secs,
+            "sweeps_per_sec": POTTS_SWEEPS / secs, "qc": rec,
+            "launches": got, "card": card}
+        print("training sample_potts_msa",
+              json.dumps(results["sample_potts_msa"]), flush=True)
+
+        # 4. finetune_msa at msa-S
+        out_m = os.path.join(tmp, "msa_S")
+        _, out, got, secs, tm = run(
+            "finetune_msa msa-S", finetune_msa,
+            ["--msa", msa_path, "--msa_model", "msa-S", "--out", out_m,
+             "--n_iters", str(TRAIN_MSA_STEPS), "--val_frac",
+             str(TRAIN_VAL_FRAC), "--log_every", str(TRAIN_LOG_EVERY)],
+            "train_msa_mlm")
+        ce = logged(r"\[msa_mlm\] iter \d+ ce (\S+)", out)
+        before, after = logged(r"held-out masked CE \w+: (\S+)", out)
+        check(ce and np.isfinite(ce + [before, after]).all(),
+              f"finetune_msa: losses {ce}, held-out {before} -> {after}")
+        check(not any(got.values()), f"finetune_msa: a port kernel ran: "
+              f"{got}")
+        m = msat.load(f"{out_m}_ckpt_{TRAIN_MSA_STEPS}.npz",
+                      dtype=torch.bfloat16, name="msa-S", device=dev)
+        check(len(m["layers"]) == msat.CONFIGS["msa-S"]["layers"],
+              "msa-S reload")
+        sps = tm["later_steps_per_sec"]
+        results["finetune_msa_S"] = {
+            "steps": TRAIN_MSA_STEPS, "block": [16, T + 1],
+            "train_s": tm["seconds"], "first_step_s": tm["first_step_s"],
+            "steps_per_sec": sps,
+            "tokens_per_sec": sps * 16 * (T + 1),
+            "peak_memory_gb": tm["peak_memory_gb"],
+            "loss_first_logged": ce[0], "loss_last_logged": ce[-1],
+            "heldout_ce_before": before, "heldout_ce_after": after,
+            "main_s": secs, "card": card}
+        print("training finetune_msa_S",
+              json.dumps(results["finetune_msa_S"]), flush=True)
+
+        # 5. the MNIST trainers on the synthetic source, into a weights
+        # directory of seeded stand-ins without the tracked npz files
+        wdir = seeded_mnist.write_weights_dir(os.path.join(tmp, "mw"))
+        for f in seeded_mnist.NPZ_FILES:
+            os.remove(os.path.join(wdir, f))
+        ddir = seeded_mnist.write_data_dir(os.path.join(tmp, "md"))
+        mnist = {}
+        trained = {}
+        for label, module, trainer, pattern, extra in (
+                ("regression", train_binary_mnist_regression,
+                 "train_regression", r"\[regression\] iter \d+ mse (\S+)",
+                 ["--output_dir", os.path.join(tmp, "mreg")]),
+                ("dae", train_binary_mnist_dae, "train_dae",
+                 r"\[dae\] iter \d+ bce (\S+)", ["--output_dir", wdir]),
+                ("ebm", train_binary_mnist_ebm, "train_ebm",
+                 r"\[ebm\] iter \d+ obj (\S+)", ["--output_dir", wdir])):
+            steps = MNIST_TRAIN_STEPS[label]
+            res, out, got, secs, tm = run(
+                f"train_binary_mnist_{label}", module,
+                ["--mnist_source", "synthetic", "--n_iters", str(steps),
+                 "--ckpt_every", str(steps), *extra], trainer,
+                log_every=steps // 4)
+            losses = logged(pattern, out)
+            check(len(losses) == 4 and np.isfinite(losses).all(),
+                  f"{label}: logged losses {losses}")
+            check(not any(got.values()), f"{label}: a port kernel ran")
+            trained[label] = res[0] if label == "regression" else res
+            mnist[label] = {"steps": steps, "train_s": tm["seconds"],
+                            "first_step_s": tm["first_step_s"],
+                            "steps_per_sec": tm["later_steps_per_sec"],
+                            "peak_memory_gb": tm["peak_memory_gb"],
+                            "loss_first_logged": losses[0],
+                            "loss_last_logged": losses[-1], "card": card}
+            if label == "regression":
+                mnist[label]["val_rounding_accuracy"] = float(res[1])
+        # the port-written checkpoints read back equal, and load in
+        # mnist_sum and eval_mnist_ebm
+        for label, init, glob_ in (
+                ("dae", mnist_nets.dae_init(torch.Generator(), 16, 64),
+                 "mnist_binary_dae"),
+                ("ebm", mnist_nets.ebm_init(torch.Generator(), 64,
+                                            mean=np.full(784, 0.5)),
+                 "mnist_ebm")):
+            path = os.path.join(
+                wdir, f"{glob_}_ckpt_{MNIST_TRAIN_STEPS[label]}.npz")
+            tree, _ = mnist_nets.load_npz(path, init)
+            back = convert.mnist_from_numpy(tree, dev)
+            check(all(torch.equal(a, b) for a, b in zip(
+                esm2._flatten(back), esm2._flatten(trained[label]))),
+                f"{label}: the checkpoint does not read back equal")
+            ms, out, got, secs, _ = run(
+                f"mnist_sum {label}", mnist_sum,
+                ["--mnist_weights", wdir, "--data_dir", ddir,
+                 "--results_path", os.path.join(tmp, "mr_" + label),
+                 "--unsupervised_expert", label, "--n_iters", "20",
+                 "--n_chains", "32", "--log_every", "10", "--metrics",
+                 "csv"])
+            check(np.isfinite(ms.energy_history).all(),
+                  f"mnist_sum on the trained {label}: energies")
+            mnist[label]["mnist_sum_steps_per_sec"] = ms.steps_per_sec
+        rows, out, got, secs, _ = run(
+            "eval_mnist_ebm", eval_mnist_ebm,
+            ["--weights_dir", wdir, "--data_dir", ddir, "--out_dir",
+             os.path.join(tmp, "er"), "--sample_steps", str(EBM_EVAL_STEPS)])
+        check(f"mnist_ebm_ckpt_{MNIST_TRAIN_STEPS['ebm']}.npz" in out
+              and all(np.isfinite(v).all() for v in rows.values()),
+              f"eval_mnist_ebm: {rows}")
+        mnist["eval_mnist_ebm"] = {"logp": rows, "sample_steps":
+                                   EBM_EVAL_STEPS, "main_s": secs}
+        results["mnist"] = mnist
+        print("training mnist", json.dumps(mnist), flush=True)
+    results["launches_by_run"] = by_run
+    return results, launches
+
+
 def attention_numbers(r, way):
     """One phase-5 record's numbers of kernel C (way "fwd") or C' ("bwd")."""
     return {"shape": [r["Z"], r["T"], r["hd"]],
@@ -1369,7 +1767,8 @@ def main() -> int:
         "cli": lambda: phase_cli(torch, counters, dev, card),
         "checkpoint": lambda: phase_checkpoint(torch, counters, dev, card),
         "mnist": lambda: phase_mnist(torch, counters, dev, card),
-        "eval": lambda: phase_eval(torch, counters, dev, card)}
+        "eval": lambda: phase_eval(torch, counters, dev, card),
+        "training": lambda: phase_training(torch, counters, dev, card)}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     got = {}
     for name, run in phases.items():
@@ -1383,7 +1782,8 @@ def main() -> int:
     tr_runs, tr_launches = got["transformer"]
     cli_runs, cli_launches = got["cli"]
     eval_runs, eval_launches = got["eval"]
-    for more in (tr_launches, cli_launches, eval_launches):
+    train_runs, train_launches = got["training"]
+    for more in (tr_launches, cli_launches, eval_launches, train_launches):
         for name, n in more.items():
             launches[name] += n
 
@@ -1416,9 +1816,11 @@ def main() -> int:
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": None, "B": b["B"], "dtype": b["dtype"]}
 
-    c, c1, ce = (next(r for r in pc if (r["Z"], r["T"], r["hd"]) == case
-                      and r["dtype"] == "bfloat16")
-                 for case in ATTN_CASES[:2] + ((1280, 237, 24),))
+    c, c1, ce, cs, cl = (
+        next(r for r in pc if (r["Z"], r["T"], r["hd"]) == case
+             and r["dtype"] == "bfloat16")
+        for case in ATTN_CASES[:2] + ((1280, 237, 24), (640, 237, 24),
+                                      (640, 237, 64)))
     n_a, n_a32 = launches["potts_energy"], launches["potts_energy_f32"]
     n_b, n_b32 = launches["cnn_ensemble"], launches["cnn_ensemble_f32"]
     kernels = {"kernels": [
@@ -1433,15 +1835,25 @@ def main() -> int:
         attention_row(c, c1, "fwd", launches["flash_attention_fwd"], 83),
         attention_row(c, c1, "bwd", launches["flash_attention_bwd"], 108),
     ]}
-    # kernel C's launches by path: the transformer sampler (phase 6) and
-    # the evaluation's transformer column (phase 10)
+    # kernels C and C' by path: the transformer sampler (phase 6), the
+    # evaluation's transformer column (phase 10), finetune_esm and the CLI
+    # run on its checkpoint (phase 11); finetune_esm's shapes' numbers
     for row in kernels["kernels"]:
         name = row["name"]
         if name not in ("flash_attention_fwd", "flash_attention_bwd"):
             continue
+        by_run = train_runs["launches_by_run"]
         row["launches_by_path"] = {
             "transformer_sampler": tr_launches[name],
-            "eval_expert_correlation": eval_launches[name]}
+            "eval_expert_correlation": eval_launches[name],
+            "finetune_esm": sum(by_run[k][name] for k in (
+                "finetune_esm transformer-S",
+                "finetune_esm transformer-L LoRA")),
+            "cli_on_finetuned_esm":
+                by_run["directed_evolution --esm_weights"][name]}
+        way = name.rsplit("_", 1)[1]
+        row["finetune_esm"] = attention_numbers(cs, way)
+        row["finetune_esm_L"] = attention_numbers(cl, way)
         if name == "flash_attention_fwd":  # the evaluation's chunk of 64
             row["eval_expert_correlation"] = attention_numbers(ce, "fwd")
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
@@ -1451,7 +1863,8 @@ def main() -> int:
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,
                    "transformer_sampler": tr_runs, "cli": cli_runs,
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
-                   "eval": eval_runs, **kernels}, f, indent=1)
+                   "eval": eval_runs, "training": train_runs, **kernels},
+                  f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

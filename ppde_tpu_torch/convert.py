@@ -105,3 +105,24 @@ def mnist_from_numpy(tree, device="cuda"):
 
 mnist_regression_from_numpy = ebm_from_numpy = dae_from_numpy = \
     mnist_from_numpy
+
+
+def mnist_to_numpy(tree):
+    """The exact inverse of ``mnist_from_numpy``: a port MNIST tree as numpy
+    arrays in the JAX layout (every conv kernel permuted (2, 3, 1, 0) on its
+    last four dims: OIHW -> HWIO, [in,out,kh,kw] -> [kh,kw,out,in]), for
+    checkpoints that either package loads."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "w" and isinstance(v, torch.Tensor) and v.dim() >= 4:
+                a = v.detach().cpu().numpy()
+                lead = tuple(range(a.ndim - 4))
+                out[k] = np.ascontiguousarray(a.transpose(
+                    lead + tuple(len(lead) + i for i in (2, 3, 1, 0))))
+            else:
+                out[k] = mnist_to_numpy(v)
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [mnist_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy()

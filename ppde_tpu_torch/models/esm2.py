@@ -17,7 +17,7 @@ parameter layout: a plain dict of tensors, weights ``[in, out]``,
     the fixed 20 -> 33 vocabulary permutation;
   * converters from fair-esm state dicts and native npz checkpoints (the
     ``p0..pN`` leaf order of the JAX package's tree, so a file written by
-    either package loads in the other), and LoRA merging.
+    either package loads in the other), and LoRA adapters (init, merge).
 
 The attention core goes through ``ops/attention_fused.flash_attention``:
 kernels C and C' on a CUDA tensor (always: there is no switch and no einsum
@@ -268,14 +268,15 @@ def forward_logits(params, x_onehot: torch.Tensor, heads: int = 20,
 
     ``heads`` is static: the architecture's config stays out of the
     parameter dict. ``remat``: ``torch.utils.checkpoint`` around every
-    layer, so that an input gradient keeps only the layers' boundary
-    residuals and recomputes one forward; off by default, on for
-    transformer-L in ``load_expert`` (the memory of its whole-batch
-    gradient).
+    layer when autograd records, so that a gradient (with respect to the
+    input or to the weights: LoRA adapters leave the embedding frozen)
+    keeps only the layers' boundary residuals and recomputes one forward;
+    off by default, on for transformer-L in ``load_expert`` and the
+    trainers (the memory of its whole-batch gradient).
     """
     h = embed_tokens(params, x_onehot)
     approx_gelu = _use_approx_gelu(params)
-    remat = remat and torch.is_grad_enabled() and h.requires_grad
+    remat = remat and torch.is_grad_enabled()
     for layer in params["layers"]:
         if remat:
             h = checkpoint(transformer_layer, layer, h, heads, approx_gelu,
@@ -390,10 +391,37 @@ def load_npz_checkpoint(path: str, name: str, dtype=torch.bfloat16,
 
 
 # ---------------------------------------------------------------------------
-# LoRA adapters: merging (the trainable side waits for the MLM trainer)
+# LoRA adapters (parameter-efficient family fine-tuning)
 # ---------------------------------------------------------------------------
 
+# every per-layer matmul is adaptable; embed and lm_dense stay frozen (the
+# LM head is tied to embed)
 LORA_TARGETS = ("q", "k", "v", "o", "fc1", "fc2")
+
+
+def lora_init(generator: torch.Generator, name: str, rank: int,
+              dtype=torch.float32) -> dict:
+    """Zero-delta LoRA adapter tree for config ``name`` on
+    ``generator.device``: per layer and target W [i, o], a down-projection
+    a [i, r] ~ normal / sqrt(i) and an up-projection b [r, o] of zeros, so
+    the merged model equals the base exactly at first."""
+    cfg = CONFIGS[name]
+    D, Fd = cfg["dim"], cfg["ffn"]
+    shapes = {"q": (D, D), "k": (D, D), "v": (D, D), "o": (D, D),
+              "fc1": (D, Fd), "fc2": (Fd, D)}
+    device = utils.resolve_device(generator.device)
+
+    def one():
+        out = {}
+        for t in LORA_TARGETS:
+            i, o = shapes[t]
+            a = torch.randn((i, rank), generator=generator, device=device)
+            out[t] = {"a": (a / math.sqrt(i)).to(dtype),
+                      "b": torch.zeros((rank, o), dtype=dtype,
+                                       device=device)}
+        return out
+
+    return {"layers": [one() for _ in range(cfg["layers"])]}
 
 
 def lora_merge(params: dict, lora: dict, alpha: float = 16.0) -> dict:

@@ -39,7 +39,16 @@ def conv_transpose2d(p, x: torch.Tensor, stride: int = 2, padding: int = 1,
 
 
 def batchnorm2d(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """Inference-mode BatchNorm2d over the channel dim of an NCHW input."""
+    """Inference-mode BatchNorm2d over the channel dim of an NCHW input.
+    When ``mean`` or ``var`` requires grad (a trainer's leaves: the JAX
+    package trains them as parameters) it is written out, since
+    ``F.batch_norm`` gives running statistics no gradient."""
+    if p["mean"].requires_grad or p["var"].requires_grad:
+        def c(t):
+            return t[None, :, None, None]
+
+        return ((x - c(p["mean"])) * c(torch.rsqrt(p["var"] + eps))
+                * c(p["gamma"]) + c(p["beta"]))
     return F.batch_norm(x, p["mean"], p["var"], p["gamma"], p["beta"],
                         training=False, eps=eps)
 

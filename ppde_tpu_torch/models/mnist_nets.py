@@ -233,6 +233,15 @@ def dae_log_prob(params, x: torch.Tensor) -> torch.Tensor:
         logits, x, reduction="none").sum(-1)
 
 
+def dae_corrupt(draws, x: torch.Tensor, max_p: int = 15) -> torch.Tensor:
+    """Flip a random <= max_p% of pixels, one rate for the whole batch
+    (training-time noising, nets.py:123-131). Draws ``randint(max_p + 1,
+    [])`` (the percent) and ``uniform(x.shape)`` (the flips)."""
+    p = draws.randint(max_p + 1, ()).float() / 100.0
+    flip = (draws.uniform(x.shape) < p).to(x.dtype)
+    return (1 - x) * flip + x * (1 - flip)
+
+
 # ---------------------------------------------------------------------------
 # the JAX trainer's checkpoints
 # ---------------------------------------------------------------------------

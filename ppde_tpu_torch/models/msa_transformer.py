@@ -157,18 +157,27 @@ def _column_attention(p, x, H):
     """Column attention on x [B, R, C, D]: attention across rows within
     each column, q divided by sqrt(hd). One batched product over the C
     columns per (item, head), reading q, k and v where they lie (strided
-    matrices, no copies); an (item, head)'s scores are [C, R, R]."""
+    matrices, no copies); an (item, head)'s scores are [C, R, R]. Under
+    autograd (the trainer) the products' outputs are stacked, since an
+    ``out=`` product is not differentiable."""
     B, R, C, D = x.shape
     hd = D // H
     q, k, v = _qkv(p, x, H)                                    # [B,R,C,H,hd]
     q = q / math.sqrt(hd)
+    grad = torch.is_grad_enabled() and q.requires_grad
     out = torch.empty((B, H, C, R, hd), dtype=x.dtype, device=x.device)
+    outs = []
     for b in range(B):
         for h in range(H):
             qh, kh, vh = (t[b, :, :, h].transpose(0, 1)        # [C, R, hd]
                           for t in (q, k, v))
             w = torch.softmax(torch.bmm(qh, kh.transpose(1, 2)), -1)
-            torch.bmm(w, vh, out=out[b, h])
+            if grad:
+                outs.append(torch.bmm(w, vh))
+            else:
+                torch.bmm(w, vh, out=out[b, h])
+    if grad:
+        out = torch.stack(outs).reshape(B, H, C, R, hd)
     out = out.permute(0, 3, 2, 1, 4).reshape(B, R, C, D)
     return _linear(p["o"], out)
 

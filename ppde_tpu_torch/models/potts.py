@@ -10,7 +10,9 @@ L*V up to P, a multiple of 128), so one evaluation is one matmul:
 
 ``hamiltonian_and_grad`` goes through ``ops/potts_fused.energy_and_grad``:
 kernel A on a CUDA tensor (from couplings prepared once by the caller, or
-on the spot), its plain version on a CPU tensor.
+on the spot), its plain version on a CPU tensor. ``gibbs_sweep`` /
+``gibbs_sample`` draw from the model (plain products, as in the JAX
+package).
 """
 from __future__ import annotations
 
@@ -124,6 +126,70 @@ def score_and_grad(params: PottsParams, x_full: torch.Tensor,
     after = x_full.shape[1] - params.max_pos - 1
     grad = torch.nn.functional.pad(gw, (0, 0, params.min_pos, after))
     return (H - params.wt_H if delta else H), grad
+
+
+# ---------------------------------------------------------------------------
+# Gibbs sampling from the Boltzmann law p(x) ∝ exp(β·H(x)) (H is maximised
+# by the samplers, so this is the stationary law of their energy)
+# ---------------------------------------------------------------------------
+
+def _field(params: PottsParams, x: torch.Tensor) -> torch.Tensor:
+    """F = x_flat @ W [B, P] in float32: the per-(position, letter)
+    coupling field."""
+    return _pad_flat(params, x).float() @ params.W.float()
+
+
+def gibbs_sweep(params: PottsParams, x: torch.Tensor, F: torch.Tensor,
+                draws, beta: float = 1.0):
+    """One systematic-scan Gibbs sweep over all window positions.
+
+    Exact single-site conditionals: with W symmetric and its diagonal
+    blocks zero, position i's conditional logits are
+    β·(h_i + F[:, iV:(i+1)V]).
+    The field is kept incrementally: resampling position i adds one
+    [B,V]×[V,P] product (new minus old one-hot times V rows of W). Draws
+    ``gumbel([B, V])`` a position (Gumbel-max, as ``jax.random.categorical``).
+
+    x: [B, L, V] one-hot; F: ``_field(params, x)``. Returns (x, F) after
+    resampling every position once; x is not changed in place.
+    """
+    L, V = params.seq_len, VOCAB
+    x = x.clone()
+    W = params.W.float()
+    h = params.h.float()
+    for i in range(L):
+        sl = slice(i * V, (i + 1) * V)
+        logits = beta * (h[sl][None] + F[:, sl])
+        new = torch.nn.functional.one_hot(
+            (draws.gumbel(logits.shape) + logits).argmax(-1), V).to(x.dtype)
+        F = F + (new - x[:, i]).float() @ W[sl]
+        x[:, i] = new
+    return x, F
+
+
+@torch.no_grad()
+def gibbs_sample(params: PottsParams, generator: torch.Generator,
+                 n_chains: int, n_sweeps: int, x0: torch.Tensor | None = None,
+                 beta: float = 1.0) -> torch.Tensor:
+    """Sample [n_chains, L, V] window one-hots from p(x) ∝ exp(β·H(x)).
+
+    ``x0``: initial window one-hots; None = independent per-position draws
+    from softmax(β·h) (``gumbel([n_chains, L, V])``). Every random number
+    comes from a ``samplers.base.Draws`` on ``generator``.
+    """
+    from ppde_tpu_torch.samplers.base import Draws
+
+    draws = Draws(generator)
+    L, V = params.seq_len, VOCAB
+    if x0 is None:
+        logits = beta * params.h[: L * V].float().reshape(1, L, V)
+        x0 = torch.nn.functional.one_hot(
+            (draws.gumbel((n_chains, L, V)) + logits).argmax(-1),
+            V).float()
+    x, F = x0, _field(params, x0)
+    for _ in range(n_sweeps):
+        x, F = gibbs_sweep(params, x, F, draws, beta)
+    return x
 
 
 def _with_wt_H(W: np.ndarray, h: np.ndarray, L: int, min_pos: int,

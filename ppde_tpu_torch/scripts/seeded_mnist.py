@@ -12,9 +12,11 @@ makes what ``scripts/mnist_sum.py`` (both packages' CLIs) reads:
     trainer checkpoints ``mnist_ebm_ckpt_20000.npz`` and
     ``mnist_binary_dae_ckpt_40000.npz``;
   * in the data directory, the six wild-type pairs of ``WT_FILES``:
-    binary 28 x 28 images from a numpy seed, each with 13-19% ones (the
-    density of binarised MNIST digits), and ``mnist_mean.npy``, the tracked
-    EBM checkpoint's own Bernoulli mean.
+    binary [1, 28, 28] images from a numpy seed, each with 13-19% ones (the
+    density of binarised MNIST digits), which are also the ten seed digits
+    and the two held-out ``validation_*`` digits that ``data/mnist.py``'s
+    ``augmented`` source and ``eval_mnist_ebm`` read, and
+    ``mnist_mean.npy``, the tracked EBM checkpoint's own Bernoulli mean.
 
 The reference's regression ensemble, oracle, wild-type digits and
 ``mnist_mean.npy`` are not in the repository; runs on these stand-ins can be
@@ -62,7 +64,7 @@ def write_data_dir(out: str, seed: int = 0) -> str:
             density = rng.uniform(0.13, 0.19)
             img = np.zeros(784, np.float32)
             img[rng.choice(784, int(round(density * 784)), replace=False)] = 1
-            np.save(os.path.join(out, f), img.reshape(28, 28))
+            np.save(os.path.join(out, f), img.reshape(1, 28, 28))
     mean = np.load(os.path.join(TRACKED, NPZ_FILES[0]))[EBM_MEAN_LEAF]
     np.save(os.path.join(out, "mnist_mean.npy"), mean)
     return out

@@ -6,6 +6,10 @@ Marked ``cuda``: each test skips where torch.cuda.is_available() is False
 (``--noconftest``: the repo's conftest imports JAX, which that machine
 lacks). The cases are chip_smoke.py's at small sizes.
 """
+import contextlib
+import io
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -501,6 +505,123 @@ def test_esm2_tiny_on_card_matches_cpu(dev, dtype, tol):
     assert attention_fused.launches_bwd == n_b + 2
     torch.testing.assert_close(y1.cpu(), y0, **tol)
     torch.testing.assert_close(g1.cpu(), g0, **tol)
+
+
+# ---------------------------------------------------------------------------
+# training: kernels C and C' at finetune_esm's shapes, one trainer step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("Z,T,hd", [(640, 237, 24), (640, 237, 64),
+                                    (640, 238, 24), (640, 238, 64)])
+def test_attention_kernels_at_finetune_shapes(dev, dtype, Z, T, hd):
+    """A batch of 32 sequences of GFP length (T = 237; 238 with one more
+    token) at transformer-S (hd 24) and -L (hd 64)."""
+    q, k, v, dout = _qkv(Z, T, hd, dtype, dev, seed=Z + T + hd, n=4)
+    o = attention_fused.flash_attention(q, k, v)
+    got = attention_fused.flash_attention_bwd(q, k, v, dout)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        o.float(), attention_fused.attention_plain(q, k, v).float(),
+        **_attn_tol(dtype))
+    for a, b in zip(got, attention_fused.attention_bwd_plain(q, k, v,
+                                                             dout)):
+        torch.testing.assert_close(a.float(), b.float(), **_attn_tol(dtype))
+
+
+def test_esm_mlm_step_on_card_matches_cpu(dev):
+    """One bf16 masked-LM loss and its weight gradient of a tiny ESM2 on
+    the card (kernels C, C') against the CPU's plain path, within the
+    bf16 bound of test_esm2_tiny_on_card_matches_cpu (of each leaf's
+    largest gradient); then two trainer steps on the card from the same
+    draws: C and C' once a layer a step, losses within the same bound."""
+    from ppde_tpu_torch import training
+
+    esm2.CONFIGS["tiny"] = dict(layers=2, dim=32, heads=4, ffn=64)
+    params = esm2.init(torch.Generator().manual_seed(0), "tiny",
+                       dtype=F32, scale=0.2)
+    rng = np.random.default_rng(1)
+    tok = torch.from_numpy(rng.integers(4, 24, (4, 21)))
+    is_sel = torch.from_numpy(rng.random((4, 21)) < 0.3)
+    corrupt = torch.where(is_sel, esm2.MASK_IDX, tok)
+
+    def loss_and_grads(p, device):
+        p = esm2._map_leaves(p, lambda _, a: a.to(device).requires_grad_())
+        loss = training.esm_mlm_loss(p, tok.to(device), corrupt.to(device),
+                                     is_sel.to(device), 4, BF16)
+        return loss.detach().cpu(), [g.cpu() for g in torch.autograd.grad(
+            loss, esm2._flatten(p))]
+
+    l0, g0 = loss_and_grads(params, "cpu")
+    n_f, n_b = attention_fused.launches_fwd, attention_fused.launches_bwd
+    l1, g1 = loss_and_grads(params, dev)
+    assert attention_fused.launches_fwd == n_f + 2
+    assert attention_fused.launches_bwd == n_b + 2
+    torch.testing.assert_close(l1, l0, rtol=5e-2, atol=5e-2)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=5e-2,
+                                   atol=5e-2 * float(b.abs().max()))
+
+    class Fixed:
+        """The same batch each step on ``device``: rows 0-3, the selected
+        positions all <mask>."""
+
+        def __init__(self, device):
+            self.device, self.first = device, False
+
+        def rows(self, weights, n):
+            return torch.arange(n, device=self.device)
+
+        def uniform(self, shape):  # selection, then the 80/10/10 draw
+            self.first = not self.first
+            u = (~is_sel).float() if self.first else torch.zeros(shape)
+            return u.to(self.device)
+
+        def randint(self, high, shape):
+            return torch.zeros(shape, dtype=torch.long, device=self.device)
+
+    losses = {}
+    for device in ("cpu", dev):
+        n_f, n_b = attention_fused.launches_fwd, attention_fused.launches_bwd
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            training.train_esm_mlm(tok.numpy(), name="tiny", params=params,
+                                   n_iters=2, batch_size=4, lr=1e-3,
+                                   warmup=1, log_every=1, chunk=1,
+                                   device=device, draws=Fixed(device))
+        losses[str(device)] = torch.tensor([float(v) for v in re.findall(
+            r"ce (\S+)", buf.getvalue())])
+        assert len(losses[str(device)]) == 2
+        if device is dev:
+            assert attention_fused.launches_fwd == n_f + 4
+            assert attention_fused.launches_bwd == n_b + 4
+    torch.testing.assert_close(losses["cuda"], losses["cpu"], rtol=5e-2,
+                               atol=5e-2)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_esm_mlm_steps_do_not_sync(dev, weighted, monkeypatch):
+    """Quiet trainer steps after the first queue on the device with no
+    host sync (the loss goes to the host only where it is printed), rows
+    drawn uniformly and by sequence weights."""
+    from ppde_tpu_torch import training
+
+    esm2.CONFIGS["tiny"] = dict(layers=2, dim=32, heads=4, ffn=64)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(4, 24, (16, 21))
+    w = rng.uniform(0.1, 1.0, 16) if weighted else None
+    step = training.Adam.step
+
+    def strict(self, grads):  # from the end of the first step on
+        step(self, grads)
+        torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(training.Adam, "step", strict)
+    try:
+        training.train_esm_mlm(toks, name="tiny", n_iters=3, batch_size=4,
+                               quiet=True, device=dev, seq_weights=w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 # ---------------------------------------------------------------------------

@@ -62,14 +62,15 @@ def test_parser_defaults_match_jax():
 
 
 def test_seeded_directories(dirs):
-    """Six wild-type pairs of binary images at 13-19% ones, the tracked
+    """Six wild-type pairs of binary images at 13-19% ones, [1, 28, 28]
+    as the seed and held-out digits that data/mnist.py reads, the tracked
     EBM's mean, the regression members and oracle in the reference
     state-dict layout, the two tracked trainer checkpoints."""
     w, d = dirs
     for pair in mnist_sum.WT_FILES.values():
         for f in pair:
             img = np.load(os.path.join(d, f))
-            assert img.shape == (28, 28) and set(np.unique(img)) <= {0, 1}
+            assert img.shape == (1, 28, 28) and set(np.unique(img)) <= {0, 1}
             assert 0.125 <= img.mean() <= 0.195
     np.testing.assert_array_equal(
         np.load(os.path.join(d, "mnist_mean.npy")),

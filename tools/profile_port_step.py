@@ -6,6 +6,7 @@
     python tools/profile_port_step.py --phases
     python tools/profile_port_step.py --potts_dtype f32 --cnn_dtype f32
     python tools/profile_port_step.py --msat
+    python tools/profile_port_step.py --train
 
 Builds the GFP configuration of chip_smoke.py (synthetic seeded Potts and a
 seeded 3-member CNN ensemble, bf16, lambda=15, pas_length=2,
@@ -29,8 +30,13 @@ and 1024. ``--msat`` traces one batch of masked columns of the MSA
 Transformer as chip_smoke.py's phase 10 scores them (random-init msa-1b,
 bf16, 500 rows of the GFP synthetic alignment, 4 columns a forward): the
 device time a column by class of kernel (matrix products, softmax, layer
-norm, GELU, the rest) and by name, and the busy share. Needs a CUDA
-device.
+norm, GELU, the rest) and by name, and the busy share. ``--train`` traces
+steps of ``training.train_esm_mlm`` as chip_smoke.py's phase 11 runs it
+(batch 32 of the GFP synthetic alignment in wild-type context, bf16
+compute): transformer-S, and transformer-L cut to 4 layers with LoRA
+rank 8; after 5 warm-up steps, 10 traced steps: the step time, the
+launches a step, the busy share, the device time by class and by name.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -260,6 +266,90 @@ def phases_of(torch, dev, card, lib, B, dtype) -> None:
     print(json.dumps(out), flush=True)
 
 
+def trace_train(torch, dev, card, warmup=5, steps=10) -> None:
+    """Device time of train_esm_mlm's steps (phase 11's runs)."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                schedule as prof_schedule)
+
+    from chip_smoke import EVAL_MSA, GFP_WT, TRAIN_L_LAYERS, esm_train_flops
+    from ppde_tpu_torch import io as pio, training
+    from ppde_tpu_torch.models import esm2
+    from ppde_tpu_torch.scripts.finetune_esm import family_in_wt_context
+
+    path = os.path.join(ROOT, EVAL_MSA)
+    seqs = family_in_wt_context(pio.load_msa(path), path, GFP_WT)
+    full_l = esm2.CONFIGS["transformer-L"]
+    adam_step = training.Adam.step
+    for name, kw in (("transformer-S", {}),
+                     ("transformer-L", {"lora_rank": 8})):
+        marks = []
+        sched = prof_schedule(wait=warmup - 1, warmup=1, active=steps)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=sched) as prof:
+            def traced_step(self, grads):
+                adam_step(self, grads)
+                if self.count in (warmup, warmup + steps):
+                    torch.cuda.synchronize()
+                    marks.append(time.perf_counter())
+                prof.step()
+
+            training.Adam.step = traced_step
+            if kw:  # transformer-L cut to phase 11's depth
+                esm2.CONFIGS[name] = dict(full_l, layers=TRAIN_L_LAYERS)
+            try:
+                training.train_esm_mlm(seqs, name=name,
+                                       n_iters=warmup + steps, quiet=True,
+                                       device=dev, **kw)
+                layers = esm2.CONFIGS[name]["layers"]
+                flops = esm_train_flops(name, 32, len(GFP_WT))
+            finally:
+                training.Adam.step = adam_step
+                esm2.CONFIGS["transformer-L"] = full_l
+        wall_us = (marks[1] - marks[0]) * 1e6
+        # the schedule's ProfilerStep spans also show on the device lane
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.name.startswith("ProfilerStep")]
+        by_name: dict[str, float] = {}
+        by_class: dict[str, float] = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
+            cls = next((c for c, frags in TRAIN_CLASSES
+                        if any(f in e.name.lower() for f in frags)), "other")
+            by_class[cls] = by_class.get(cls, 0.0) + e.device_time
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+        device_us = sum(by_class.values()) / steps
+        print(json.dumps({
+            "model": name, "layers": layers,
+            "lora_rank": kw.get("lora_rank", 0), "batch": 32,
+            "T": len(GFP_WT), "steps": steps,
+            "step_ms": wall_us / steps / 1e3,
+            "device_ms_per_step": device_us / 1e3,
+            "device_busy_share": busy_share(kernels, wall_us),
+            "launches_per_step": len(kernels) / steps,
+            "model_tflop_per_step": flops / 1e12,
+            "bf16_peak_share_of_device_time": flops / 989e12
+            / max(device_us * 1e-6, 1e-12),
+            "device_ms_per_step_by_class": {
+                k: v / steps / 1e3 for k, v in sorted(
+                    by_class.items(), key=lambda kv: -kv[1])},
+            "device_ms_per_step_by_kernel": {
+                k[:80]: v / steps / 1e3 for k, v in top},
+            "card": card}), flush=True)
+
+
+# kernel-name fragments of a training step's classes of work
+TRAIN_CLASSES = (
+    ("matrix products", ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
+                         "ampere", "splitk")),
+    ("kernels C, C'", ("attn_",)),
+    ("optimizer (foreach)", ("multi_tensor", "foreach")),
+    ("reductions, softmax, layer norm", ("reduce", "softmax", "norm")),
+    ("elementwise, copies, casts", ("elementwise", "copy", "cat")),
+)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--chains", type=int, nargs="+", default=None)
@@ -268,6 +358,7 @@ def main() -> int:
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--msat", action="store_true")
+    ap.add_argument("--train", action="store_true")
     # the types of the Potts model and of the CNN; the CLI's defaults are
     # f32 and f32 (its --compute_dtype bf16 makes the CNN bf16)
     ap.add_argument("--potts_dtype", choices=("bf16", "f32"), default="bf16")
@@ -300,6 +391,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.msat:
         trace_msat(torch, dev, card)
+        return 0
+    if args.train:
+        trace_train(torch, dev, card)
         return 0
     if args.kernels or args.phases:
         if args.kernels:
