@@ -95,6 +95,31 @@ no result line):
      eval_mnist_ebm. Steps/s, tokens/s, the ESM runs' share of the bf16
      peak (model FLOPs over the training time) and peak memory. Output:
      chiprun_out/chip_smoke_training.log.
+ 12. multi-device, at GFP width (the card is one, so the collectives run at
+     world size 1; kernels at the shapes a shard gives them): (a) kernel A
+     on every column block of the couplings at tp = 2 and 4 (P re-padded to
+     a multiple of 128 tp), 128 and 1024 chains, float32 and bf16, each
+     block held against its plain version and the blocks, assembled in
+     rank order (gradients side by side, energy shares summed), against
+     the whole call, with phase 2's tolerances; each block's time beside
+     the whole call's; (b) kernel B on both member blocks of a seeded
+     4-member ensemble at ep = 2, combined (each block's mean weighted by
+     its half) and held against the whole ensemble's call, phase 3's
+     tolerances; (c) kernels C and C' at transformer-S's Megatron shapes at
+     tp = 4 (5 heads a rank: Z = 128 x 5, hd = 24) against their plain
+     versions, phase 5's tolerances; (d) a child started by ``torchrun
+     --nproc_per_node 1`` (world size 1, backend nccl, which it asserts)
+     runs the CLI with --mesh_dp 1 for PPDE f32 at phase 7's settings and
+     ``training.train_esm_mlm(mesh=make_mesh(dp=1))`` at transformer-S, and
+     reports its launch counts: the PPDE run must equal the same run
+     without a mesh (here, in process) bit for bit (best_x, energies,
+     histories) and launch A and B once a step (and once for the initial
+     state); steps/s with and without the mesh; (e) the peak memory
+     (``torch.cuda.max_memory_allocated``) of the one-piece transformer
+     gradient, random-init bf16 at full width and depth: transformer-S, -M
+     and -L at 128 chains, S and M at 1024 (a run that does not fit is
+     recorded so); L at 1024 is predicted from its slope per chain. Output:
+     chiprun_out/chip_smoke_mesh.log.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -208,6 +233,17 @@ POTTS_SEQS, POTTS_SWEEPS = 500, 50
 TRAIN_MSA_STEPS = 200
 MNIST_TRAIN_STEPS = {"regression": 200, "dae": 100, "ebm": 40}
 EBM_EVAL_STEPS = 200
+# phase 12: kernel A's column blocks (tp) and kernel B's member blocks
+# (ep) at these populations; the world-size-1 mesh run of the CLI (phase
+# 7's PPDE f32) and MESH_TRAIN_STEPS steps of train_esm_mlm at
+# transformer-S (batch 32) with and without the mesh; the one-piece
+# transformer gradient's peak memory at (config, chains)
+MESH_TPS, MESH_BATCHES, MESH_EP_MEMBERS = (2, 4), (128, 1024), 4
+MESH_CLI_STEPS, MESH_TRAIN_STEPS, MESH_TRAIN_BATCH = 200, 20, 32
+MEM_RUNS = (("transformer-S", 128), ("transformer-M", 128),
+            ("transformer-L", 128), ("transformer-S", 1024),
+            ("transformer-M", 1024))
+MEM_PREDICTED = (("transformer-L", 1024),)
 UBE4B = "UBE4B_MOUSE_Klevit2013-nscor_log2_ratio"
 CLI_ARTIFACTS = ("config.txt", "population.npy", "pred_fitness_scores.npy",
                  "oracle_fitness_scores.npy", "potts_scores.npy",
@@ -1698,6 +1734,331 @@ def phase_training(torch, counters, dev, card):
     return results, launches
 
 
+def phase_mesh_kernels(torch, potts, potts_fused, cnn, cnn_fused,
+                       attention_fused, pmesh, dev, card):
+    """Phase 12 (a)-(c): kernels A, B, C and C' at the shapes a shard gives
+    them, held against their plain versions and (A, B) the blocks
+    assembled against the whole call."""
+    out = {"kernel_a_blocks": [], "kernel_b_members": []}
+    p32 = potts.synthetic(GFP_WT, seed=0, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    P = p32.padded_dim
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        W, h = p32.W.to(dtype), p32.h.to(dtype)
+        prep = potts_fused.prepare(W, h)
+        for B in MESH_BATCHES:
+            x = random_onehot(torch, gen, B, len(GFP_WT), dev)
+            xf = potts._pad_flat(p32, x, torch.bfloat16)
+            H, g = potts_fused.energy_and_grad(prep, None, xf)
+            whole_ms = time_ms(lambda: potts_fused.energy_and_grad(
+                prep, None, xf))
+            for tp in MESH_TPS:
+                blocks = [pmesh.potts_column_block(W, h, tp, r)
+                          for r in range(tp)]
+                Pp = blocks[0][0].shape[0]
+                xfp = torch.nn.functional.pad(xf, (0, Pp - P))
+                shares, grads, block_ms, errs = [], [], [], []
+                for Wb, hb, c0 in blocks:
+                    pb = potts_fused.prepare(Wb, hb)
+                    Hs, gb = potts_fused.energy_and_grad(pb, None, xfp, c0)
+                    Hs0, gb0 = potts_fused.energy_and_grad_plain(
+                        Wb, hb, xfp.to(dtype), c0)
+                    torch.cuda.synchronize()
+                    errs.append(max((gb - gb0).abs().max().item(),
+                                    (Hs - Hs0).abs().max().item()))
+                    check(torch.allclose(gb, gb0, rtol=1e-5, atol=1e-4)
+                          and torch.allclose(Hs, Hs0, rtol=1e-5, atol=1e-3),
+                          f"kernel A block at column {c0} of {Pp}, tp={tp}, "
+                          f"B={B} {dn}: max abs err {errs[-1]}")
+                    shares.append(Hs)
+                    grads.append(gb)
+                    block_ms.append(time_ms(
+                        lambda: potts_fused.energy_and_grad(pb, None, xfp,
+                                                            c0)))
+                Hsum = shares[0]
+                for s_ in shares[1:]:
+                    Hsum = Hsum + s_
+                gcat = torch.cat(grads, 1)[:, :P]
+                err_g = (gcat - g).abs().max().item()
+                err_H = (Hsum - H).abs().max().item()
+                check(torch.allclose(gcat, g, rtol=1e-5, atol=1e-4)
+                      and torch.allclose(Hsum, H, rtol=1e-5, atol=1e-3),
+                      f"kernel A blocks tp={tp} B={B} {dn}, assembled: max "
+                      f"abs err grad {err_g}, H {err_H}")
+                r = {"tp": tp, "B": B, "dtype": dn, "P_padded": Pp,
+                     "N": Pp // tp, "max_abs_err_blocks_vs_plain": max(errs),
+                     "max_abs_err_assembled_grad": err_g,
+                     "max_abs_err_assembled_H": err_H,
+                     "tol": "rtol 1e-5, atol 1e-4 (grad) / 1e-3 (H)",
+                     "block_ms": block_ms, "whole_ms": whole_ms,
+                     "card": card}
+                out["kernel_a_blocks"].append(r)
+                print("mesh kernel A", json.dumps(r), flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    ens = cnn.init_ensemble(gen, MESH_EP_MEMBERS, input_size=len(GFP_WT))
+    half = MESH_EP_MEMBERS // 2
+    halves = [{k: {kk: v[i:i + half] for kk, v in layer.items()}
+               for k, layer in ens.items()} for i in (0, half)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        prep = cnn_fused.prepare_ensemble(ens, dtype)
+        preps = [cnn_fused.prepare_ensemble(hv, dtype) for hv in halves]
+        for B in MESH_BATCHES:
+            x = random_onehot(torch, gen, B, len(GFP_WT), dev)
+            fit0, dx0 = cnn_fused.ensemble_apply_and_grad(prep, x)
+            parts = [cnn_fused.ensemble_apply_and_grad(pr, x)
+                     for pr in preps]
+            fit = parts[0][0] * 0.5 + parts[1][0] * 0.5
+            dx = parts[0][1] * 0.5 + parts[1][1] * 0.5
+            torch.cuda.synchronize()
+            res = cnn_compare(torch, fit, dx, fit0, dx0, dn)
+            check(res["ok"], f"kernel B member blocks ep=2 B={B} {dn}: "
+                  f"{res}")
+            res.update({
+                "ep": 2, "members": MESH_EP_MEMBERS, "B": B, "dtype": dn,
+                "block_ms": [time_ms(
+                    lambda pr=pr: cnn_fused.ensemble_apply_and_grad(pr, x))
+                    for pr in preps],
+                "whole_ms": time_ms(
+                    lambda: cnn_fused.ensemble_apply_and_grad(prep, x)),
+                "card": card})
+            out["kernel_b_members"].append(res)
+            print("mesh kernel B", json.dumps(res), flush=True)
+    # transformer-S at tp = 4: 20 / 4 heads a rank, 128 chains
+    heads = 20 // 4
+    out["kernels_c_tp4"] = phase_attention(
+        torch, attention_fused, dev, cases=((128 * heads, 237, 24),))
+    return out
+
+
+def mesh_child(protein_root, out_path):
+    """Phase 12 (d), the process torchrun starts: world size 1 over nccl;
+    the CLI's PPDE f32 run with --mesh_dp 1 and train_esm_mlm on a dp = 1
+    mesh (and without it, for the rate beside it); writes its launch
+    counts and numbers to ``out_path``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    from ppde_tpu_torch import training
+    from ppde_tpu_torch.ops import attention_fused, cnn_fused, potts_fused
+    from ppde_tpu_torch.parallel import mesh as pmesh
+    from ppde_tpu_torch.scripts import directed_evolution as de
+
+    dev = pmesh.init_distributed("cuda")
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          f"mesh child: backend {dist.get_backend()}, world size "
+          f"{dist.get_world_size()}; want nccl and 1")
+    counters = {"potts_energy": (potts_fused, "launches"),
+                "potts_energy_f32": (potts_fused, "launches_f32"),
+                "cnn_ensemble": (cnn_fused, "launches"),
+                "cnn_ensemble_f32": (cnn_fused, "launches_f32"),
+                "flash_attention_fwd": (attention_fused, "launches_fwd"),
+                "flash_attention_bwd": (attention_fused, "launches_bwd")}
+    got = {"backend": dist.get_backend(),
+           "world_size": dist.get_world_size()}
+    args = de.build_parser().parse_args(mesh_cli_argv(protein_root,
+                                                      "mesh") +
+                                        ["--mesh_dp", "1"])
+    reset_counters(counters)
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        got["run_dir"] = str(de.main(args))
+    got["cli_main_s"] = time.perf_counter() - t
+    got["cli_launches"] = read_counters(counters)
+
+    rng = np.random.default_rng(0)
+    seqs = [GFP_WT]
+    for _ in range(255):
+        s_ = list(GFP_WT)
+        for i in rng.choice(len(GFP_WT), size=3, replace=False):
+            s_[i] = "ACDEFGHIKLMNPQRSTVWY"[rng.integers(20)]
+        seqs.append("".join(s_))
+    # the same run without the mesh, in this process, for the rate beside
+    # the mesh run's
+    args = de.build_parser().parse_args(mesh_cli_argv(protein_root,
+                                                      "child-single"))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        got["run_dir_single"] = str(de.main(args))
+    mesh = pmesh.make_mesh(dp=1, device=dev)
+    training.train_esm_mlm(seqs, name="transformer-S", n_iters=2,
+                           batch_size=MESH_TRAIN_BATCH, quiet=True,
+                           device=dev)  # first-use costs, not timed
+    for label, m in (("train_no_mesh", None), ("train_mesh_dp1", mesh)):
+        reset_counters(counters)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        training.train_esm_mlm(seqs, name="transformer-S",
+                               n_iters=MESH_TRAIN_STEPS,
+                               batch_size=MESH_TRAIN_BATCH, quiet=True,
+                               device=dev, mesh=m, chunk=MESH_TRAIN_STEPS)
+        torch.cuda.synchronize()
+        got[label] = {"s": time.perf_counter() - t,
+                      "steps_per_sec": MESH_TRAIN_STEPS
+                      / (time.perf_counter() - t),
+                      "launches": read_counters(counters)}
+    with open(out_path, "w") as f:
+        json.dump(got, f)
+    dist.destroy_process_group()
+
+
+def mesh_cli_argv(protein_root, label):
+    """Phase 7's PPDE f32 run (the CLI's defaults but 128 chains, nmut 10,
+    lambda 15, no scoring), MESH_CLI_STEPS steps."""
+    return ["--protein_weights", protein_root, "--protein", CLI_PROTEIN,
+            "--results_path", os.path.join(protein_root, "results", label),
+            "--sampler", "PPDE", "--run_signature", label,
+            "--n_iters", str(MESH_CLI_STEPS), "--n_chains", str(CLI_CHAINS),
+            "--log_every", str(CLI_LOG_EVERY), "--nmut_threshold",
+            str(CLI_NMUT), "--energy_lamda", "15", "--seed", "5",
+            "--disable_MSA_transformer_scoring"]
+
+
+def phase_mesh(torch, counters, dev, card):
+    """Phase 12: the kernels at a shard's shapes, the world-size-1 mesh run
+    through torchrun, and the one-piece transformer gradient's memory."""
+    from ppde_tpu_torch.models import cnn, esm2, potts
+    from ppde_tpu_torch.ops import attention_fused, cnn_fused, potts_fused
+    from ppde_tpu_torch.parallel import mesh as pmesh
+    from ppde_tpu_torch.scripts import directed_evolution as de
+    from ppde_tpu_torch.scripts import seeded_protein
+
+    out = phase_mesh_kernels(torch, potts, potts_fused, cnn, cnn_fused,
+                             attention_fused, pmesh, dev, card)
+    launches = {name: 0 for name in counters}
+    log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_mesh.log")
+    with tempfile.TemporaryDirectory() as tmp, open(log_path, "w") as log:
+        seeded_protein.write_protein_dir(tmp, CLI_PROTEIN, GFP_WT, seed=0)
+        args = de.build_parser().parse_args(mesh_cli_argv(tmp, "single"))
+        buf = io.StringIO()
+        reset_counters(counters)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf), warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            single_dir = de.main(args)
+        single_s = time.perf_counter() - t
+        single_launches = read_counters(counters)
+        log.write(f"==== single device\n{buf.getvalue()}")
+        child_json = os.path.join(tmp, "child.json")
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", os.path.join(ROOT, "chip_smoke.py"),
+             "--mesh-child", tmp, child_json],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        child_s = time.perf_counter() - t
+        log.write(f"==== torchrun child (exit {proc.returncode})\n"
+                  f"{proc.stdout}\n{proc.stderr}")
+        check(proc.returncode == 0, f"mesh child failed (exit "
+              f"{proc.returncode}): {proc.stderr[-2000:]}")
+        with open(child_json) as f:
+            child = json.load(f)
+        mesh_dir = child["run_dir"]
+        for name in ("population", "energy_scores", "energy_history",
+                     "fitness_history", "pred_fitness_scores"):
+            a = np.load(os.path.join(single_dir, name + ".npy"))
+            b = np.load(os.path.join(mesh_dir, name + ".npy"))
+            check(np.array_equal(a, b), f"mesh run (--mesh_dp 1) {name} is "
+                  f"not the single-device run's (max abs diff "
+                  f"{np.abs(a - b).max()})")
+        want = {"potts_energy": MESH_CLI_STEPS + 1,
+                "potts_energy_f32": MESH_CLI_STEPS + 1,
+                "cnn_ensemble": MESH_CLI_STEPS + 1,
+                "cnn_ensemble_f32": MESH_CLI_STEPS + 1}
+        for label, got in (("single", single_launches),
+                           ("mesh", child["cli_launches"])):
+            check(all(got[k] == n for k, n in want.items()),
+                  f"{label} CLI run: kernel launches {got}, not {want}")
+        for label in ("train_no_mesh", "train_mesh_dp1"):
+            n = child[label]["launches"]
+            check(n["flash_attention_fwd"] == 12 * MESH_TRAIN_STEPS
+                  and n["flash_attention_bwd"] == 12 * MESH_TRAIN_STEPS,
+                  f"{label}: kernel C / C' launches {n}")
+        for name, n in child["cli_launches"].items():
+            launches[name] += n
+        for name, n in child["train_mesh_dp1"]["launches"].items():
+            launches[name] += n
+        summaries = {}
+        for label, d in (("single", single_dir), ("mesh", mesh_dir),
+                         ("child_single", child["run_dir_single"])):
+            with open(os.path.join(d, "summary.json")) as f:
+                summaries[label] = json.load(f)
+        out["mesh_run"] = {
+            "backend": child["backend"], "world_size": child["world_size"],
+            "cli_steps_per_sec_single": summaries["single"]["steps_per_sec"],
+            "cli_steps_per_sec_mesh_dp1": summaries["mesh"]["steps_per_sec"],
+            "cli_steps_per_sec_single_in_child":
+                summaries["child_single"]["steps_per_sec"],
+            "cli_main_s_single": single_s,
+            "cli_main_s_mesh_dp1": child["cli_main_s"],
+            "torchrun_child_s": child_s,
+            "train_steps_per_sec_no_mesh":
+                child["train_no_mesh"]["steps_per_sec"],
+            "train_steps_per_sec_mesh_dp1":
+                child["train_mesh_dp1"]["steps_per_sec"],
+            "launches_single": single_launches,
+            "launches_mesh": child["cli_launches"],
+            "launches_train_mesh": child["train_mesh_dp1"]["launches"],
+            "bit_equal": True, "card": card}
+        print("mesh run", json.dumps(out["mesh_run"]), flush=True)
+    out["memory"] = phase_memory(torch, esm2, dev, card)
+    return out, launches
+
+
+def phase_memory(torch, esm2, dev, card):
+    """Phase 12 (e): peak memory of the one-piece transformer gradient."""
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(23)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for name, n in MEM_RUNS:
+        params, apply_fn = esm2.load_expert(
+            name, GFP_WT, allow_random=True, dtype=torch.bfloat16,
+            device=dev)
+        n_params = sum(t.numel() * t.element_size()
+                       for t in esm2._flatten(params))
+        x = random_onehot(torch, gen, n, len(GFP_WT), dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        r = {"config": name, "chains": n, "T": len(GFP_WT),
+             "param_bytes": n_params, "baseline_bytes": base,
+             "card_bytes": total, "card": card}
+        t = time.perf_counter()
+        try:
+            with torch.enable_grad():
+                xg = x.requires_grad_(True)
+                y = apply_fn(params, xg)
+                (g,) = torch.autograd.grad(y.sum(), xg)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(g).all()), f"{name} {n}: non-finite "
+                  "gradient")
+            r.update({"fits": True,
+                      "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                      "s": time.perf_counter() - t})
+            del y, g, xg
+        except torch.cuda.OutOfMemoryError:
+            r.update({"fits": False, "peak_bytes": None,
+                      "s": time.perf_counter() - t})
+        del params, apply_fn, x
+        torch.cuda.empty_cache()
+        rows.append(r)
+        print("mesh memory", json.dumps(r), flush=True)
+    for name, n in MEM_PREDICTED:
+        m = next(r for r in rows if r["config"] == name and r["fits"])
+        per_chain = (m["peak_bytes"] - m["baseline_bytes"]) / m["chains"]
+        rows.append({"config": name, "chains": n, "predicted": True,
+                     "peak_bytes": m["baseline_bytes"] + per_chain * n,
+                     "bytes_per_chain": per_chain, "card_bytes": total,
+                     "card": card})
+        print("mesh memory", json.dumps(rows[-1]), flush=True)
+    return rows
+
+
 def attention_numbers(r, way):
     """One phase-5 record's numbers of kernel C (way "fwd") or C' ("bwd")."""
     return {"shape": [r["Z"], r["T"], r["hd"]],
@@ -1721,6 +2082,9 @@ def attention_row(c, c1, way, launches, line):
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-child":
+        mesh_child(sys.argv[2], sys.argv[3])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1768,7 +2132,8 @@ def main() -> int:
         "checkpoint": lambda: phase_checkpoint(torch, counters, dev, card),
         "mnist": lambda: phase_mnist(torch, counters, dev, card),
         "eval": lambda: phase_eval(torch, counters, dev, card),
-        "training": lambda: phase_training(torch, counters, dev, card)}
+        "training": lambda: phase_training(torch, counters, dev, card),
+        "mesh": lambda: phase_mesh(torch, counters, dev, card)}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     got = {}
     for name, run in phases.items():
@@ -1783,7 +2148,9 @@ def main() -> int:
     cli_runs, cli_launches = got["cli"]
     eval_runs, eval_launches = got["eval"]
     train_runs, train_launches = got["training"]
-    for more in (tr_launches, cli_launches, eval_launches, train_launches):
+    mesh_runs, mesh_launches = got["mesh"]
+    for more in (tr_launches, cli_launches, eval_launches, train_launches,
+                 mesh_launches):
         for name, n in more.items():
             launches[name] += n
 
@@ -1856,6 +2223,21 @@ def main() -> int:
         row["finetune_esm_L"] = attention_numbers(cl, way)
         if name == "flash_attention_fwd":  # the evaluation's chunk of 64
             row["eval_expert_correlation"] = attention_numbers(ce, "fwd")
+    # kernel A's launches in the world-size-1 mesh run of the CLI (phase
+    # 12 (d)); its column blocks (12 (a)) are comparison calls, not counted
+    for row in kernels["kernels"][:2]:
+        key = "potts_energy_f32" if row["name"] == "potts_energy_f32" \
+            else "potts_energy"
+        n = mesh_runs["mesh_run"]["launches_mesh"]
+        row["launches_by_path"] = {
+            "cli_mesh_dp1": n[key] - (0 if key == "potts_energy_f32"
+                                      else n["potts_energy_f32"])}
+        blk = next(r for r in mesh_runs["kernel_a_blocks"]
+                   if r["B"] == row["B"] and r["dtype"] == row["dtype"]
+                   and r["tp"] == 4)
+        row["tp4_block"] = {"ms": blk["block_ms"], "whole_ms":
+                            blk["whole_ms"], "max_abs_err":
+                            blk["max_abs_err_blocks_vs_plain"]}
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel the main path runs was not launched: {kernels}")
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1863,7 +2245,8 @@ def main() -> int:
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,
                    "transformer_sampler": tr_runs, "cli": cli_runs,
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
-                   "eval": eval_runs, "training": train_runs, **kernels},
+                   "eval": eval_runs, "training": train_runs,
+                   "mesh": mesh_runs, **kernels},
                   f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

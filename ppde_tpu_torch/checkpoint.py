@@ -32,8 +32,14 @@ import tempfile
 import numpy as np
 import torch
 
+from ppde_tpu_torch.parallel import mesh as pmesh
+
 
 def _atomic_savez(path: str, **arrays):
+    """np.savez through a temporary file and a rename. On a device mesh
+    only rank 0 writes (every rank holds the same replicated state)."""
+    if not pmesh.is_lead():
+        return
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp.npz")

@@ -7,7 +7,15 @@
 //     grad = xf @ W + h                                   [B, P]  float32
 //     H    = sum_cols xf * (0.5 * (xf @ W) + h)           [B]     float32
 //
-// W reaches the kernel as n bf16 planes [n, P, P] whose sum is W: a bf16 W
+// A call may also take a column block of the couplings, W[:, c0 : c0 + N]
+// with h[c0 : c0 + N] (N and c0 multiples of 128; the tensor-parallel shard
+// of parallel/mesh.shard_potts): it then returns that block's gradient
+// [B, N] and the block's share of H, the sum over its columns j of
+// xf[:, c0 + j] * (0.5 * (xf @ W)[:, c0 + j] + h[c0 + j]); the shares of all
+// blocks add up to H. The whole call is the block (c0, N) = (0, P), and runs
+// the same instructions as before blocks existed.
+//
+// W reaches the kernel as n bf16 planes [n, P, N] whose sum is W: a bf16 W
 // is its own single plane; a float32 W is split once, on the host
 // (ops/potts_fused.prepare), into W_hi = bf16(W), W_mid = bf16(W - W_hi) and
 // W_lo = bf16(W - W_hi - W_mid). Three 8-bit significands hold all 24 bits of
@@ -135,7 +143,8 @@ __device__ __forceinline__ void wgmma_wait() {
 }
 
 // One block: rows row0..row0+127 of xf against columns col0..col0+127 of the
-// planes of W over the depths [64 * d0, 64 * d1) of its split (blockIdx.z);
+// planes of the column block W [P, N] (columns c0 + col0.. of the whole
+// couplings, whose xf entries the epilogue reads) over the depths [64 * d0, 64 * d1) of its split (blockIdx.z);
 // stage kt is depth (kt / PLANES) * 64 of plane kt % PLANES, so the planes
 // of one depth follow one another into the same accumulators, and a split
 // holds whole depths: a row of xf with a single 1 gets hi + mid + lo == W
@@ -152,7 +161,8 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
                         const __nv_bfloat16* __restrict__ W,
                         const float* __restrict__ h,
                         float* __restrict__ grad, float* __restrict__ gpart,
-                        float* __restrict__ partial, int B, int P) {
+                        float* __restrict__ partial, int B, int P, int N,
+                        int c0) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   __shared__ float hs[BN];
   // the swizzle is a function of the address: stages start at 1024 bytes
@@ -172,7 +182,7 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
     const uint32_t sa = sbase + slot * STAGE_BYTES, sw = sa + A_BYTES;
     const int plane = kt % PLANES;
     const int k0 = (kt / PLANES) * TBK;
-    const __nv_bfloat16* Wp = W + (size_t)plane * P * P;
+    const __nv_bfloat16* Wp = W + (size_t)plane * P * N;
 #pragma unroll
     for (int j = 0; j < TBM * 8 / THREADS; ++j) {
       const int i = tid + j * THREADS, r = i >> 3, c = i & 7;
@@ -184,7 +194,7 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
 #pragma unroll
     for (int j = 0; j < TBK * 16 / THREADS; ++j) {  // W: 16 chunks per row
       const int i = tid + j * THREADS, k = i >> 4, c = i & 15;
-      cp_async16(sw + w_off(k, c), Wp + (size_t)(k0 + k) * P + col0 + c * 8);
+      cp_async16(sw + w_off(k, c), Wp + (size_t)(k0 + k) * N + col0 + c * 8);
     }
   };
 
@@ -231,7 +241,7 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
     const int i = tid + j * THREADS, r = i / CPR, c = i % CPR;
     const bool ok = row0 + r < B;
     cp_async16(sbase + x_off(r, c),
-               xf + (size_t)(ok ? row0 + r : 0) * P + col0 + c * 8,
+               xf + (size_t)(ok ? row0 + r : 0) * P + c0 + col0 + c * 8,
                ok ? 16 : 0);
   }
   cp_async_commit();
@@ -241,7 +251,7 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
   __syncthreads();
 
   const bool direct = nsplit == 1;
-  float* out = direct ? grad : gpart + (size_t)z * B * P;
+  float* out = direct ? grad : gpart + (size_t)z * B * N;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int rl = wg * 64 + (warp % 4) * 16 + g + half * 8, r = row0 + rl;
@@ -257,13 +267,13 @@ potts_grad_kernel_wgmma(const __nv_bfloat16* __restrict__ xf,
       const float e0 = z == 0 ? h0 : 0.f, e1 = z == 0 ? h1 : 0.f;
       s += x0 * (0.5f * v0 + e0) + x1 * (0.5f * v1 + e1);
       if (r < B)
-        *reinterpret_cast<float2*>(out + (size_t)r * P + col0 + cl) =
+        *reinterpret_cast<float2*>(out + (size_t)r * N + col0 + cl) =
             direct ? make_float2(v0 + h0, v1 + h1) : make_float2(v0, v1);
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
     s += __shfl_xor_sync(0xffffffffu, s, 2);
     if (tig == 0 && r < B)
-      partial[(size_t)r * (nsplit * (P / BN)) + z * (P / BN) + blockIdx.x] =
+      partial[(size_t)r * (nsplit * (N / BN)) + z * (N / BN) + blockIdx.x] =
           s;
   }
 }
@@ -277,7 +287,7 @@ __global__ void potts_finish(const float* __restrict__ partial,
                              float* __restrict__ H, int B, int n_part,
                              int e_blocks, const float* __restrict__ gpart,
                              const float* __restrict__ h,
-                             float* __restrict__ grad, int P, int nsplit) {
+                             float* __restrict__ grad, int N, int nsplit) {
   if ((int)blockIdx.x < e_blocks) {
     const int b = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
     const int lane = threadIdx.x % 32;
@@ -291,37 +301,37 @@ __global__ void potts_finish(const float* __restrict__ partial,
     if (lane == 0) H[b] = s;
     return;
   }
-  const size_t n4 = (size_t)B * P / 4;
+  const size_t n4 = (size_t)B * N / 4;
   const size_t i =
       (blockIdx.x - e_blocks) * (size_t)blockDim.x + threadIdx.x;
   if (i >= n4) return;
-  const int c = (int)((i * 4) % P);
+  const int c = (int)((i * 4) % N);
   float4 s = *reinterpret_cast<const float4*>(h + c);
   for (int z = 0; z < nsplit; ++z) {
     const float4 v =
-        reinterpret_cast<const float4*>(gpart + (size_t)z * B * P)[i];
+        reinterpret_cast<const float4*>(gpart + (size_t)z * B * N)[i];
     s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
   }
   reinterpret_cast<float4*>(grad)[i] = s;
 }
 
 int finish(const void* partial, void* H, int B, int n_part, const void* gpart,
-           const void* h, void* grad, int P, int nsplit,
+           const void* h, void* grad, int N, int nsplit,
            cudaStream_t stream) {
   const int e_blocks = (B + 7) / 8;
-  const size_t n4 = nsplit > 1 ? (size_t)B * P / 4 : 0;
+  const size_t n4 = nsplit > 1 ? (size_t)B * N / 4 : 0;
   potts_finish<<<e_blocks + (unsigned)((n4 + 255) / 256), 256, 0, stream>>>(
       static_cast<const float*>(partial), static_cast<float*>(H), B, n_part,
       e_blocks, static_cast<const float*>(gpart),
-      static_cast<const float*>(h), static_cast<float*>(grad), P,
+      static_cast<const float*>(h), static_cast<float*>(grad), N,
       nsplit);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int PLANES>
 int launch(const void* xf, const void* W, const void* h, void* grad,
-           void* gpart, void* partial, void* H, int B, int P, int nsplit,
-           cudaStream_t stream) {
+           void* gpart, void* partial, void* H, int B, int P, int N, int c0,
+           int nsplit, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
   // + 1024: the ring starts at a multiple of 1024 bytes
   constexpr int smem_bytes = STAGES * STAGE_BYTES + 1024;
@@ -329,14 +339,14 @@ int launch(const void* xf, const void* W, const void* h, void* grad,
       potts_grad_kernel_wgmma<PLANES>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(P / BN, (B + TBM - 1) / TBM, nsplit);
+  const dim3 grid(N / BN, (B + TBM - 1) / TBM, nsplit);
   potts_grad_kernel_wgmma<PLANES><<<grid, THREADS, smem_bytes, stream>>>(
       static_cast<const bf16*>(xf), static_cast<const bf16*>(W),
       static_cast<const float*>(h), static_cast<float*>(grad),
-      static_cast<float*>(gpart), static_cast<float*>(partial), B, P);
+      static_cast<float*>(gpart), static_cast<float*>(partial), B, P, N, c0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return finish(partial, H, B, nsplit * (P / BN), gpart, h, grad, P,
+  return finish(partial, H, B, nsplit * (N / BN), gpart, h, grad, N,
                 nsplit, stream);
 }
 
@@ -344,12 +354,13 @@ int launch(const void* xf, const void* W, const void* h, void* grad,
 
 extern "C" {
 
-// Splits over K for this shape: as many as give every SM a block (one fits
-// an SM), at most 8 (each split writes and re-reads a float32 [B, P] partial
-// product) and at most one per 64 deep. The caller allocates partial
-// [B, splits * P / 128] and, for splits > 1, gpart [splits, B, P].
-int potts_splits(int B, int P) {
-  const int tiles = (P / BN) * ((B + TBM - 1) / TBM);
+// Splits over K for a block of N columns of a [P, P] W: as many as give every
+// SM a block (one fits an SM), at most 8 (each split writes and re-reads a
+// float32 [B, N] partial product) and at most one per 64 deep. The caller
+// allocates partial [B, splits * N / 128] and, for splits > 1, gpart
+// [splits, B, N].
+int potts_splits(int B, int P, int N) {
+  const int tiles = (N / BN) * ((B + TBM - 1) / TBM);
   int s = 132 / tiles;
   if (s < 1) s = 1;
   if (s > 8) s = 8;
@@ -357,21 +368,24 @@ int potts_splits(int B, int P) {
   return s;
 }
 
-// xf bf16 [B, P]; W: `planes` bf16 planes [planes, P, P] whose sum is the
-// couplings (1: a bf16 W; 3: a float32 W split by ops/potts_fused.prepare;
-// no other count);
-// h float32 [P]. Returns a cudaError_t.
+// xf bf16 [B, P]; W: `planes` bf16 planes [planes, P, N] whose sum is the
+// column block c0 : c0 + N of the couplings (N = P, c0 = 0: all of them; 1
+// plane: a bf16 W; 3: a float32 W split by ops/potts_fused.prepare; no other
+// count); h float32 [N], the block's fields; grad [B, N] and H [B] (the
+// block's share). Returns a cudaError_t.
 int potts_energy_and_grad(const void* xf, const void* W, const void* h,
                           void* grad, void* gpart, void* partial, void* H,
-                          int B, int P, int planes, int splits,
-                          void* stream) {
-  if (P % BN != 0 || B <= 0 || (planes != 1 && planes != 3) || splits < 1 ||
+                          int B, int P, int N, int c0, int planes,
+                          int splits, void* stream) {
+  if (P % BN != 0 || N % BN != 0 || c0 % BN != 0 || N <= 0 || c0 < 0 ||
+      c0 + N > P || B <= 0 || (planes != 1 && planes != 3) || splits < 1 ||
       splits > 8 || splits > P / TBK)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return planes == 1
-             ? launch<1>(xf, W, h, grad, gpart, partial, H, B, P, splits, s)
-             : launch<3>(xf, W, h, grad, gpart, partial, H, B, P, splits, s);
+  return planes == 1 ? launch<1>(xf, W, h, grad, gpart, partial, H, B, P, N,
+                                 c0, splits, s)
+                     : launch<3>(xf, W, h, grad, gpart, partial, H, B, P, N,
+                                 c0, splits, s);
 }
 
 }  // extern "C"

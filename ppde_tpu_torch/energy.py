@@ -19,6 +19,14 @@ pseudo-log-likelihood delta, ``models/esm2.load_expert``) is differentiated
 by autograd, its attention through ``ops/attention_fused`` (kernels C and
 C' on CUDA). ``energy`` and ``fitness`` are plain, differentiable PyTorch
 apart from that attention.
+
+Under a mesh, ``runtime.apply_mesh`` builds the same energy anew on
+sharded parameters (``Energy.with_params``, so that each energy prepares
+its own weights once): a column block of the Potts couplings (tp), a
+``parallel.mesh.Placed`` ensemble (ep: kernel B on the rank's members,
+their mean weighted by the rank's share and summed over ep),
+``shard_esm``'s ESM2 (tp) and the sequence-parallel hook (sp);
+``parallel/mesh.shard_energy`` adds dp.
 """
 from __future__ import annotations
 
@@ -30,6 +38,7 @@ import torch
 from ppde_tpu_torch.models import cnn, mnist_nets
 from ppde_tpu_torch.models import potts as potts_mod
 from ppde_tpu_torch.ops import cnn_fused, potts_fused
+from ppde_tpu_torch.parallel import mesh as pmesh
 
 
 @dataclass(frozen=True)
@@ -42,6 +51,8 @@ class Energy:
     energy_and_grad: Callable
     fitness: Callable
     wt_onehot: Any = None  # [1, L, V] wild-type one-hot (protein domains)
+    # params -> this energy built anew on other (sharded) parameters
+    with_params: Callable | None = None
 
 
 class _PreparedOnce:
@@ -98,6 +109,34 @@ def _fit_and_grad(sup, x, compute_dtype, cnn_chunk, pool_bwd):
     return (torch.cat([f for f, _ in outs]), torch.cat([g for _, g in outs]))
 
 
+def _members(sup):
+    """(stacked members, ep axis or None, their share of the ensemble) of
+    a stacked ensemble or of ``parallel.mesh.shard_ensemble``'s Placed."""
+    if isinstance(sup, pmesh.Placed):
+        return sup.local, sup.axis, sup.share
+    return sup, None, 1.0
+
+
+def _ensemble_fit(sup, x, compute_dtype):
+    """The ensemble's mean fitness, differentiable: each rank's mean over
+    its members, weighted by its share and summed over ep."""
+    local, ax, share = _members(sup)
+    fit = cnn.ensemble_apply(local, pmesh.copy_to(x, ax),
+                             compute_dtype=compute_dtype)
+    return pmesh.reduce_from(fit * share, ax)
+
+
+def _sup_fit_and_grad(sup, prepared, x, compute_dtype, cnn_chunk,
+                      pool_bwd):
+    """``_fit_and_grad`` of the supervised term (``prepared``: kernel B's
+    weights of the energy's own members): each rank's (fitness, dx)
+    weighted by its share and summed over ep."""
+    local, ax, share = _members(sup)
+    fit, g = _fit_and_grad(prepared.get(local, x), x, compute_dtype,
+                           cnn_chunk, pool_bwd)
+    return pmesh.all_sum(fit * share, ax), pmesh.all_sum(g * share, ax)
+
+
 def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
                 lam: float, wt_onehot, transformer=None,
                 chunk_size: int | None = None, compute_dtype=None,
@@ -114,7 +153,7 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
     supervised CNN.
     """
     params = {"sup": sup_ensemble}
-    prepared = _ensemble_once(sup_ensemble, compute_dtype)
+    prepared = _ensemble_once(_members(sup_ensemble)[0], compute_dtype)
     potts_once = _potts_once(potts_params)
     if potts_params is not None:
         params["potts"] = potts_params
@@ -124,7 +163,7 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
         t_apply = transformer[1]
 
     def fit_fn(p, x):
-        return cnn.ensemble_apply(p["sup"], x, compute_dtype=compute_dtype)
+        return _ensemble_fit(p["sup"], x, compute_dtype)
 
     def energy(p, x):
         fit = fit_fn(p, x)
@@ -154,8 +193,8 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
                 torch.cat([g for _, g in outs]))
 
     def energy_and_grad(p, x):
-        fit, fit_grad = _fit_and_grad(prepared.get(p["sup"], x), x,
-                                      compute_dtype, cnn_chunk, pool_bwd)
+        fit, fit_grad = _sup_fit_and_grad(p["sup"], prepared, x,
+                                          compute_dtype, cnn_chunk, pool_bwd)
         e = lam * fit
         grad = lam * fit_grad
         if "potts" in p:
@@ -171,9 +210,14 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
             grad = grad + tg
         return e, fit, grad
 
+    def with_params(q):
+        return protein_poe(q.get("potts"), q["sup"], lam, wt_onehot,
+                           None if t_apply is None else (q["tr"], t_apply),
+                           chunk_size, compute_dtype, cnn_chunk, pool_bwd)
+
     return Energy(params=params, energy=energy,
                   energy_and_grad=energy_and_grad, fitness=fit_fn,
-                  wt_onehot=wt_onehot)
+                  wt_onehot=wt_onehot, with_params=with_params)
 
 
 def protein_supervised(sup_ensemble, wt_onehot, compute_dtype=None,
@@ -181,23 +225,27 @@ def protein_supervised(sup_ensemble, wt_onehot, compute_dtype=None,
                        pool_bwd: str = "split") -> Energy:
     """Supervised-only ablation: E(x) = fitness(x) (energy.py:143-164)."""
     params = {"sup": sup_ensemble}
-    prepared = _ensemble_once(sup_ensemble, compute_dtype)
+    prepared = _ensemble_once(_members(sup_ensemble)[0], compute_dtype)
 
     def fit_fn(p, x):
-        return cnn.ensemble_apply(p["sup"], x, compute_dtype=compute_dtype)
+        return _ensemble_fit(p["sup"], x, compute_dtype)
 
     def energy(p, x):
         fit = fit_fn(p, x)
         return fit, fit
 
     def energy_and_grad(p, x):
-        fit, g = _fit_and_grad(prepared.get(p["sup"], x), x, compute_dtype,
-                               cnn_chunk, pool_bwd)
+        fit, g = _sup_fit_and_grad(p["sup"], prepared, x, compute_dtype,
+                                   cnn_chunk, pool_bwd)
         return fit, fit, g
+
+    def with_params(q):
+        return protein_supervised(q["sup"], wt_onehot, compute_dtype,
+                                  cnn_chunk, pool_bwd)
 
     return Energy(params=params, energy=energy,
                   energy_and_grad=energy_and_grad, fitness=fit_fn,
-                  wt_onehot=wt_onehot)
+                  wt_onehot=wt_onehot, with_params=with_params)
 
 
 # ---------------------------------------------------------------------------

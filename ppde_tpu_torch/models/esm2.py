@@ -23,6 +23,12 @@ The attention core goes through ``ops/attention_fused.flash_attention``:
 kernels C and C' on a CUDA tensor (always: there is no switch and no einsum
 path on the card), their plain version on a CPU tensor. The projections, the
 FFN, the embedding and the LM head are plain matrix products.
+
+Multi-device (``parallel/mesh.py``): parameters from ``shard_esm`` hold the
+rank's heads and hidden units (Megatron tensor parallelism over tp: kernels
+C and C' run on the rank's heads, the partial products of o and fc2 are
+summed over tp), and ``forward_logits(constrain=)`` / ``SP_CONSTRAIN``
+splits the residual stream's sequence axis over sp.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ppde_tpu_torch import codec, utils
 from ppde_tpu_torch.ops import attention_fused
+from ppde_tpu_torch.parallel import mesh as pmesh
 
 # Canonical ESM alphabet (fair-esm proteinseq_toks + specials), index order.
 ESM_TOKS = [
@@ -59,6 +66,13 @@ CONFIGS = {
 }
 # mask_ratio_train for the eval-mode token-dropout rescale (0.15 * 0.8)
 MASK_RATIO_TRAIN = 0.15 * 0.8
+
+# Sequence-parallel hook: when set (parallel/mesh.sp_constraint, by
+# runtime.apply_mesh(sp=...)), every forward_logits call without an explicit
+# ``constrain`` splits the residual stream's T axis over the mesh's sp axis.
+# Module-level, as in the JAX package: experts bake their apply_fn closures
+# into an Energy at build time, so a hook here reaches them unchanged.
+SP_CONSTRAIN = None
 
 
 def potts_to_esm_perm() -> np.ndarray:
@@ -193,9 +207,20 @@ def _linear(p, x):
         *x.shape[:-1], -1)
 
 
-def _attention(p, x, heads):
+def _attention(p, x, heads, tp=None, rows=None):
+    """Rotary self-attention of x [B, T, D]. ``tp``: the rank holds heads /
+    tp of the heads (q, k, v by columns, o by rows) and the partial
+    products of o are summed over tp. ``rows``: keeps the rows of the
+    merged heads' output that this rank goes on with (sequence
+    parallelism) before the o projection."""
     B, T, D = x.shape
     hd = D // heads
+    if tp is not None:
+        if heads % tp.size:
+            raise ValueError(f"tp={tp.size} does not divide the {heads} "
+                             "attention heads")
+        heads //= tp.size
+        x = pmesh.copy_to(x, tp)
 
     def proj(pp, v):
         # contiguous [B, heads, T, hd]: the rotary passes then run on dense
@@ -212,8 +237,20 @@ def _attention(p, x, heads):
     k = k.reshape(B * heads, T, hd)
     v = v.reshape(B * heads, T, hd)
     out = attention_fused.flash_attention(q, k, v)
-    out = out.reshape(B, heads, T, hd).permute(0, 2, 1, 3).reshape(B, T, D)
-    return _linear(p["o"], out)
+    out = out.reshape(B, heads, T, hd).permute(0, 2, 1, 3).reshape(
+        B, T, heads * hd)
+    if rows is not None:
+        out = rows(out)
+    return _row_linear(p["o"], out, tp)
+
+
+def _row_linear(p, x, tp):
+    """x @ w + b where ``tp`` holds w by rows and x by columns: the partial
+    products summed over tp, the bias added once."""
+    if tp is None:
+        return _linear(p, x)
+    y = pmesh.reduce_from(x.reshape(-1, x.shape[-1]) @ p["w"], tp)
+    return (y + p["b"]).reshape(*x.shape[:-1], -1)
 
 
 def embed_tokens(params, x_onehot: torch.Tensor) -> torch.Tensor:
@@ -238,12 +275,22 @@ def _gelu(x, approx_gelu: bool):
     return F.gelu(x, approximate="tanh" if approx_gelu else "none")
 
 
-def transformer_layer(layer, h, heads: int, approx_gelu: bool):
-    """One pre-LN rotary-attention transformer block on [B, T, D]."""
-    h = h + _attention(layer, _layer_norm(layer["attn_ln"], h), heads)
-    y = _layer_norm(layer["ffn_ln"], h)
+def transformer_layer(layer, h, heads: int, approx_gelu: bool, tp=None,
+                      sp=None, T: int | None = None):
+    """One pre-LN rotary-attention transformer block on [B, T, D].
+
+    ``tp``: Megatron tensor parallelism (``shard_esm``'s layer). ``sp``
+    (an ``SPConstraint``): h holds this rank's positions of the padded
+    sequence; the layer-normed stream is gathered to the whole sequence of
+    length ``T`` for attention, and the rank keeps its own rows."""
+    y = _layer_norm(layer["attn_ln"], h)
+    if sp is None:
+        h = h + _attention(layer, y, heads, tp)
+    else:
+        h = h + _attention(layer, sp.gather(y, T), heads, tp, sp.split)
+    y = pmesh.copy_to(_layer_norm(layer["ffn_ln"], h), tp)
     y = _gelu(_linear(layer["fc1"], y), approx_gelu)
-    return h + _linear(layer["fc2"], y)
+    return h + _row_linear(layer["fc2"], y, tp)
 
 
 def lm_head(params, h: torch.Tensor, approx_gelu: bool) -> torch.Tensor:
@@ -263,7 +310,7 @@ def _use_approx_gelu(params) -> bool:
 
 
 def forward_logits(params, x_onehot: torch.Tensor, heads: int = 20,
-                   remat: bool = False) -> torch.Tensor:
+                   remat: bool = False, constrain=None) -> torch.Tensor:
     """One-hot [B, T, 33] -> LM logits [B, T, 33] (float32).
 
     ``heads`` is static: the architecture's config stays out of the
@@ -273,23 +320,42 @@ def forward_logits(params, x_onehot: torch.Tensor, heads: int = 20,
     keeps only the layers' boundary residuals and recomputes one forward;
     off by default, on for transformer-L in ``load_expert`` and the
     trainers (the memory of its whole-batch gradient).
+
+    ``constrain``: a ``parallel.mesh.SPConstraint`` (default
+    ``SP_CONSTRAIN``): sequence parallelism. The embedding (its
+    token-dropout statistics over the whole sequence) runs whole; between
+    layers each rank holds its part of the sequence padded to a multiple of
+    sp; the logits are gathered whole. Parameters from ``shard_esm`` (the
+    ``"_tp"`` entry) run the layers tensor-parallel.
     """
+    if constrain is None:
+        constrain = SP_CONSTRAIN
+    sp = constrain if constrain is not None and constrain.axis.size > 1 \
+        else None
+    tp = params.get("_tp")
+    T = x_onehot.shape[1]
+    if sp is not None:
+        x_onehot = pmesh.copy_to(x_onehot, sp.axis)
     h = embed_tokens(params, x_onehot)
+    if sp is not None:
+        h = sp.split(h)
     approx_gelu = _use_approx_gelu(params)
     remat = remat and torch.is_grad_enabled()
     for layer in params["layers"]:
         if remat:
             h = checkpoint(transformer_layer, layer, h, heads, approx_gelu,
-                           use_reentrant=False)
+                           tp, sp, T, use_reentrant=False)
         else:
-            h = transformer_layer(layer, h, heads, approx_gelu)
-    return lm_head(params, h, approx_gelu)
+            h = transformer_layer(layer, h, heads, approx_gelu, tp, sp, T)
+    logits = lm_head(params, h, approx_gelu)
+    return logits if sp is None else sp.gather_keep(logits, T)
 
 
 def pseudo_log_likelihood(params, x_onehot: torch.Tensor, heads: int = 20,
-                          remat: bool = False) -> torch.Tensor:
+                          remat: bool = False,
+                          constrain=None) -> torch.Tensor:
     """sum_i x_i . log_softmax(logits_i) per sequence."""
-    logits = forward_logits(params, x_onehot, heads, remat)
+    logits = forward_logits(params, x_onehot, heads, remat, constrain)
     lp = torch.log_softmax(logits, -1)
     return (x_onehot.float() * lp).sum((1, 2))
 

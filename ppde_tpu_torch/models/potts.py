@@ -12,7 +12,10 @@ L*V up to P, a multiple of 128), so one evaluation is one matmul:
 kernel A on a CUDA tensor (from couplings prepared once by the caller, or
 on the spot), its plain version on a CPU tensor. ``gibbs_sweep`` /
 ``gibbs_sample`` draw from the model (plain products, as in the JAX
-package).
+package). Both energy functions run on a column block of the couplings
+from ``col0``, sum the blocks' shares of H and gather their gradients over
+the ``tp`` axis (``parallel/mesh.shard_potts``); the whole couplings are the
+block (0, P) with no axis, where the sum and the gather are identities.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 
 from ppde_tpu_torch import codec, io as pio, utils
 from ppde_tpu_torch.ops import potts_fused
+from ppde_tpu_torch.parallel import mesh as pmesh
 
 VOCAB = codec.VOCAB_SIZE
 LANE = 128  # W/h are zero-padded to multiples of LANE
@@ -36,8 +40,11 @@ def _pad_up(n: int, m: int = LANE) -> int:
 
 @dataclasses.dataclass
 class PottsParams:
-    """W [P,P] symmetric, W[(j,l),(i,k)] = J[i,j,k,l]; h [P]; wt_H the
-    wild type's Hamiltonian (0-d); the rest is static metadata."""
+    """W [P', N] with W[(j,l),(i,k)] = J[i,j,k,l], the columns ``col0`` to
+    ``col0 + N`` of the couplings zero-padded to P' (whole: W [P, P]
+    symmetric, col0 0); h [N] the same columns of the fields; wt_H the wild
+    type's Hamiltonian (0-d); ``tp`` the mesh axis the column blocks lie
+    over (None: whole); the rest is static metadata."""
 
     W: torch.Tensor
     h: torch.Tensor
@@ -46,6 +53,8 @@ class PottsParams:
     min_pos: int = 0
     max_pos: int = 0
     reg_coef: float = 1.0
+    col0: int = 0
+    tp: pmesh.Axis | None = None
 
     @property
     def data_dim(self) -> int:
@@ -53,7 +62,7 @@ class PottsParams:
 
     @property
     def padded_dim(self) -> int:
-        return self.W.shape[-1]
+        return self.W.shape[0]
 
 
 def _flatten_couplings(J: np.ndarray) -> np.ndarray:
@@ -86,9 +95,12 @@ def _pad_flat(params: PottsParams, x: torch.Tensor,
 def hamiltonian(params: PottsParams, x: torch.Tensor) -> torch.Tensor:
     """H of one-hot (or relaxed) x [B, L, V] (window coordinates), forward
     only and differentiable; a float32 matmul (reference nets.py:282-290)."""
-    xf = _pad_flat(params, x).float()
+    # the block's share; x's gradient summed over the blocks
+    xf = pmesh.copy_to(_pad_flat(params, x).float(), params.tp)
     Jx = xf @ params.W.float()
-    return 0.5 * (xf * Jx).sum(-1) + xf @ params.h.float()
+    xb = xf[:, params.col0:params.col0 + params.W.shape[1]]
+    share = 0.5 * (xb * Jx).sum(-1) + xb @ params.h.float()
+    return pmesh.reduce_from(share, params.tp)
 
 
 def hamiltonian_and_grad(params: PottsParams, x: torch.Tensor,
@@ -101,7 +113,9 @@ def hamiltonian_and_grad(params: PottsParams, x: torch.Tensor,
     dt = params.W.dtype if x.device.type == "cpu" else torch.bfloat16
     H, grad_flat = potts_fused.energy_and_grad(
         params.W if prepared is None else prepared, params.h,
-        _pad_flat(params, x, dt))
+        _pad_flat(params, x, dt), params.col0)
+    H = pmesh.all_sum(H, params.tp)
+    grad_flat = pmesh.gather_cat(grad_flat, params.tp, 1)
     return H, grad_flat[:, : params.data_dim].reshape(x.shape)
 
 

@@ -27,6 +27,13 @@ atomics; see the .cu source).
 The W tile is read MN-major, as it lies in memory, so W need not be
 symmetric.
 
+A call may take a column block of the couplings instead, W[:, c0 : c0 + N]
+with h[c0 : c0 + N] and ``col0=c0`` (N and c0 multiples of 128: the
+tensor-parallel shard of ``parallel/mesh.shard_potts``): it returns the
+block's share of H, sum_j xf[:, c0 + j] * (0.5 * (xf @ W)[:, c0 + j] +
+h[c0 + j]) over the block's columns, and its gradient [B, N]. The shares of
+all blocks sum to H; the whole call is the block (0, P).
+
 ``prepare(W, h)`` returns a ``Prepared`` that ``energy_and_grad`` takes in
 place of W (``energy.protein_poe`` keeps one per energy); handing in W and h
 prepares on every call. ``energy_and_grad`` runs the plain version for a
@@ -52,7 +59,8 @@ class Prepared:
     """Couplings split once for kernel A.
 
     ``W`` and ``h`` are what it was made from (the CPU path and the plain
-    version use them); ``planes`` [n, P, P] bf16 sum to W (n = 1 for a bf16
+    version use them; W may be a column block [P, N]); ``planes`` [n, P, N]
+    bf16 sum to W (n = 1 for a bf16
     W, which is its own plane; n = 3 for a float32 W); ``h32`` is h in
     float32."""
 
@@ -84,13 +92,14 @@ def prepare(W: torch.Tensor, h: torch.Tensor) -> Prepared:
     if W.dtype not in _DTYPES or h.dtype != W.dtype:
         raise TypeError(f"W and h must share float32 or bfloat16, got "
                         f"{W.dtype} and {h.dtype}")
-    P = W.shape[-1]
-    if W.shape != (P, P) or h.shape != (P,) or P % 128:
-        raise ValueError(f"need W [P,P], h [P] with P % 128 == 0; got "
-                         f"{tuple(W.shape)}, {tuple(h.shape)}")
+    if W.dim() != 2 or h.shape != W.shape[1:] or W.shape[0] % 128 \
+            or W.shape[1] % 128 or W.shape[1] > W.shape[0]:
+        raise ValueError(f"need W [P, N], h [N] with P and N multiples of "
+                         f"128 and N <= P; got {tuple(W.shape)}, "
+                         f"{tuple(h.shape)}")
     if not (W.is_contiguous() and h.is_contiguous()):
         raise ValueError("W and h must be contiguous")
-    planes = (W.reshape(1, P, P) if W.dtype == torch.bfloat16
+    planes = (W.reshape(1, *W.shape) if W.dtype == torch.bfloat16
               else split_planes(W))
     return Prepared(W, h, _aligned(planes), _aligned(h.float().contiguous()))
 
@@ -103,61 +112,67 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def energy_and_grad_plain(W: torch.Tensor, h: torch.Tensor,
-                          xf: torch.Tensor):
-    """Plain PyTorch version: (H [B], grad [B, P]), float32 sums."""
+                          xf: torch.Tensor, col0: int = 0):
+    """Plain PyTorch version: (H [B], grad [B, N]), float32 sums; W [P, N]
+    the column block from ``col0`` (the whole couplings: N = P, col0 = 0)
+    and H its share."""
     x = xf.to(W.dtype).float()
     Jx = x @ W.float()
     hf = h.float()
-    return (x * (0.5 * Jx + hf)).sum(-1), Jx + hf
+    xb = x[:, col0:col0 + W.shape[1]]
+    return (xb * (0.5 * Jx + hf)).sum(-1), Jx + hf
 
 
 def _lib():
     lib = _build.library("potts_energy")
     fn = lib.potts_energy_and_grad
     if fn.argtypes is None:  # declare once: ints would cut the pointers
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.potts_splits.argtypes = [ctypes.c_int] * 2
+        lib.potts_splits.argtypes = [ctypes.c_int] * 3
         lib.potts_splits.restype = ctypes.c_int
     return lib
 
 
-def energy_and_grad(W, h, xf: torch.Tensor):
-    """(H [B], grad [B, P]) for xf [B, P]: kernel A on CUDA, plain on CPU.
+def energy_and_grad(W, h, xf: torch.Tensor, col0: int = 0):
+    """(H [B], grad [B, N]) for xf [B, P]: kernel A on CUDA, plain on CPU.
 
-    W: the couplings [P, P] with h [P], or the ``Prepared`` that ``prepare``
-    made of them (then h is not read and may be None). xf holds one-hots, as
-    the TPU kernel's contract says: the kernel reads it in bf16, which holds
-    0 and 1 exactly (other values would be rounded)."""
+    W: the couplings [P, P] with h [P], or their column block [P, N] from
+    ``col0`` with h's block [N] (then H is the block's share), or the
+    ``Prepared`` that ``prepare`` made of either (then h is not read and may
+    be None). xf holds one-hots, as the TPU kernel's contract says: the
+    kernel reads it in bf16, which holds 0 and 1 exactly (other values would
+    be rounded)."""
     prep = W if isinstance(W, Prepared) else None
     if xf.device.type == "cpu":
-        return (energy_and_grad_plain(prep.W, prep.h, xf) if prep
-                else energy_and_grad_plain(W, h, xf))
+        return (energy_and_grad_plain(prep.W, prep.h, xf, col0) if prep
+                else energy_and_grad_plain(W, h, xf, col0))
     global launches, launches_f32
     if prep is None:
         prep = prepare(W, h)
     B, P = xf.shape
     planes = prep.planes
+    N = planes.shape[-1]
     if planes.device != xf.device:
         raise ValueError("xf, W and h must lie on the same device")
-    if planes.shape[-1] != P:
+    if planes.shape[-2] != P or col0 % 128 or col0 < 0 or col0 + N > P:
         raise ValueError(f"xf [B, {P}] does not fit W "
-                         f"{tuple(prep.W.shape)}")
+                         f"{tuple(prep.W.shape)} at column {col0}")
     lib = _lib()
     x = _aligned(xf.to(torch.bfloat16).contiguous())
-    grad = torch.empty((B, P), dtype=torch.float32, device=xf.device)
-    splits = lib.potts_splits(B, P)
-    partial = torch.empty((B, splits * (P // 128)),
+    grad = torch.empty((B, N), dtype=torch.float32, device=xf.device)
+    splits = lib.potts_splits(B, P, N)
+    partial = torch.empty((B, splits * (N // 128)),
                           dtype=torch.float32, device=xf.device)
-    gpart = (torch.empty((splits, B, P), dtype=torch.float32,
+    gpart = (torch.empty((splits, B, N), dtype=torch.float32,
                          device=xf.device) if splits > 1 else grad)
     H = torch.empty((B,), dtype=torch.float32, device=xf.device)
     with torch.cuda.device(xf.device):
         err = lib.potts_energy_and_grad(
             x.data_ptr(), planes.data_ptr(), prep.h32.data_ptr(),
             grad.data_ptr(), gpart.data_ptr(), partial.data_ptr(),
-            H.data_ptr(), B, P, planes.shape[0], splits,
+            H.data_ptr(), B, P, N, col0, planes.shape[0], splits,
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"kernel A (potts_energy) launch failed: "

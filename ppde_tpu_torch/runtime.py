@@ -4,8 +4,7 @@ Counterpart of ``ppde_tpu/runtime.py`` (the protein parts): the glue the
 reference keeps in its entry script (scripts/directed_evolution.py:21-81),
 factored into a library so the CLI, tests and chip_smoke.py construct
 identical runs. Every function that makes tensors takes a ``device``. The
-JAX package's ``enable_compile_cache`` has no counterpart; ``apply_mesh``
-waits for the multi-device port.
+JAX package's ``enable_compile_cache`` has no counterpart.
 """
 from __future__ import annotations
 
@@ -56,19 +55,52 @@ def load_supervised_ensemble(protein_dir: str, n_members: int = 3,
         torch_convert.onehot_cnn_ensemble(paths), device)
 
 
+# Peak memory (torch.cuda.max_memory_allocated) of the one-piece transformer
+# gradient: (bytes that do not grow with the chains, bytes per chain and
+# sequence position). Measured by chip_smoke.py phase 12 (e) on an NVIDIA
+# H100 80GB HBM3 at 700.00 W, bf16, random init, full width and depth
+# (transformer-L with remat, as load_expert runs it), GFP (T = 237):
+# transformer-S 4.40 GB at 128 chains and 34.01 GB at 1024 (the line
+# through both); -M 13.71 GB at 128 (its 1024 did not fit the card) and -L
+# 5.70 GB at 128, each over the bytes held before the gradient (weights and
+# the rest).
+ESM_GRAD_MEMORY = {
+    "transformer-S": (174159945, 139403.5),
+    "transformer-M": (367181312, 439905.4),
+    "transformer-L": (1422482432, 140919.6),
+}
+ESM_GRAD_MEMORY["transformer"] = ESM_GRAD_MEMORY["transformer-M"]
+ESM_MEMORY_SHARE = 0.8  # of the card's memory, for the one-piece gradient
+
+
 def resolve_esm_chunk(esm_chunk: int, has_transformer: bool,
-                      n_chains: int) -> int | None:
+                      n_chains: int, name: str | None = None,
+                      seq_len: int = 0,
+                      card_bytes: int | None = None) -> int | None:
     """Map the --esm_chunk flag to an energy chunk_size.
 
-    0 -> auto: 16 when a transformer expert is present and the population
-    is big enough to chunk; otherwise one piece. -1 -> one piece. Positive
-    -> used as given.
+    -1 -> one piece. Positive -> used as given. 0 -> auto, from the card's
+    memory (``card_bytes``; None: no device limit, as on the CPU): one
+    piece when the one-piece gradient's predicted peak, ``base + per *
+    n_chains * seq_len`` by ``ESM_GRAD_MEMORY[name]``, fits in
+    ``ESM_MEMORY_SHARE`` of the card; otherwise the largest chunk that
+    fits (the fewest pieces). One piece without a transformer. (The JAX
+    package's auto value is 16, from a TPU measurement; on an NVIDIA H100
+    80GB HBM3 at 700.00 W the one-piece gradient of transformer-S at 128
+    chains ran 4.4x faster than chunks of 16, PERF.md §5.)
     """
     if esm_chunk < 0:
         return None
     if esm_chunk > 0:
         return esm_chunk
-    return 16 if (has_transformer and n_chains > 16) else None
+    if not has_transformer or card_bytes is None:
+        return None
+    base, per = ESM_GRAD_MEMORY[name]
+    budget = ESM_MEMORY_SHARE * card_bytes
+    per_chain = per * seq_len
+    if base + per_chain * n_chains <= budget:
+        return None
+    return max(1, int((budget - base) // per_chain))
 
 
 def build_protein_energy(args, device="cuda"):
@@ -120,8 +152,11 @@ def build_protein_energy(args, device="cuda"):
                                            cnn_chunk=cnn_chunk,
                                            pool_bwd=pool_bwd)
     else:
+        card = (torch.cuda.get_device_properties(device).total_memory
+                if device.type == "cuda" else None)
         chunk = resolve_esm_chunk(getattr(args, "esm_chunk", 0),
-                                  transformer is not None, args.n_chains)
+                                  transformer is not None, args.n_chains,
+                                  esm_name, len(wt_seqs[0]), card)
         en = energy_mod.protein_poe(
             pp if "potts" in experts else None, sup, args.energy_lamda,
             wt_onehot, transformer=transformer, chunk_size=chunk,
@@ -208,3 +243,39 @@ def dump_config(args, path):
         plain = (int, float, str, bool, type(None))
         json.dump({k: (v if isinstance(v, plain) else str(v))
                    for k, v in vars(args).items()}, f, indent=2)
+
+
+def apply_mesh(energy: energy_mod.Energy, pop, dp: int | None, tp: int = 1,
+               ep: int = 1, sp: int = 1):
+    """Shard a built protein energy over a (dp, ep, tp, sp) device mesh;
+    returns (mesh, energy, pop), as the JAX package's ``apply_mesh``.
+
+    One process per device (``torchrun``; ``parallel/mesh.make_mesh``),
+    the group's backend that of ``pop``'s device. The Potts couplings split
+    by columns over tp (kernel A on the rank's block), the supervised
+    ensemble's members over ep when ep divides their count (kernel B on the
+    rank's members; whole otherwise), the ESM2 expert's heads and hidden
+    units over tp, and with ``sp`` > 1 its residual stream's sequence over
+    sp through the module-level ``esm2.SP_CONSTRAIN`` hook, set or cleared
+    on every call (an expert's apply_fn closure picks it up unchanged).
+    Over dp, the returned energy evaluates the rank's slice of the
+    population and gathers its outputs (``mesh.shard_energy``): the
+    sampler runs unchanged and replicated on the whole population, which
+    is returned as it is.
+    """
+    from ppde_tpu_torch.models import esm2
+    from ppde_tpu_torch.parallel import mesh as pmesh
+
+    mesh = pmesh.make_mesh(dp=dp, ep=ep, tp=tp, sp=sp, device=pop.device)
+    # set OR clear: a later apply_mesh (or a single-device energy) in the
+    # same process must not inherit a hook over a stale mesh
+    esm2.SP_CONSTRAIN = pmesh.sp_constraint(mesh) if sp > 1 else None
+    params = dict(energy.params)
+    if "potts" in params:
+        params["potts"] = pmesh.shard_potts(params["potts"], mesh)
+    if "tr" in params:
+        params["tr"] = pmesh.shard_esm(params["tr"], mesh)
+    if "sup" in params:
+        params["sup"] = pmesh.shard_ensemble(params["sup"], mesh)
+    # built anew, so that the energy prepares the rank's shards once
+    return mesh, pmesh.shard_energy(energy.with_params(params), mesh), pop

@@ -12,8 +12,14 @@ defaults, the same run-directory naming ({sampler}[_{signature}]_{seed}_
     run raises unless ``--device cpu`` is given (no silent CPU run);
   * ``--fused_cnn`` is accepted and does nothing: on CUDA the kernels
     always run;
-  * the ``--mesh_*`` flags raise NotImplementedError until the
-    multi-device port exists;
+  * the ``--mesh_*`` flags run one process per device, started by a
+    launcher (``torchrun --nproc_per_node N -m
+    ppde_tpu_torch.scripts.directed_evolution ... --mesh_dp N``; without
+    one they raise), the backend following ``--device`` (nccl on CUDA,
+    gloo on the CPU). The energy is sharded (``runtime.apply_mesh``) and
+    the sampler runs replicated on every rank; rank 0 alone prints, writes
+    the checkpoints and runs the rest of ``main`` (oracle, scores,
+    artifacts, MSA-Transformer scoring) on the gathered population;
   * a ``--checkpoint_dir`` written by the JAX CLI is refused (a PRNG key
     where the port keeps a ``torch.Generator`` state); the port resumes
     from its own.
@@ -34,6 +40,7 @@ import torch
 
 from ppde_tpu_torch import metrics, runtime, utils
 from ppde_tpu_torch.models import potts as potts_mod
+from ppde_tpu_torch.parallel import mesh as pmesh
 from ppde_tpu_torch.samplers.protein import (cmaes, mala_approx, ppde, pt,
                                              random_search, sa)
 
@@ -41,15 +48,15 @@ SAMPLERS = ("PPDE", "PPDE-PT", "simulated_annealing", "Random",
             "MALA-approx", "CMAES")
 
 
-def refuse_unported(args) -> None:
-    """The flags whose capability the port does not have yet raise."""
-    if args.mesh_dp or args.mesh_tp > 1 or args.mesh_ep > 1 \
-            or args.mesh_sp > 1:
-        raise NotImplementedError(
-            "--mesh_dp/--mesh_tp/--mesh_ep/--mesh_sp: the multi-device port "
-            "is not done yet (ROADMAP.md Queue 1 item 15)")
+def check_sampler(args) -> None:
     if args.sampler not in SAMPLERS:
         raise ValueError(f"unknown sampler {args.sampler}")
+
+
+def uses_mesh(args) -> bool:
+    """Whether the run asks for a device mesh (the JAX CLI's test)."""
+    return bool(args.mesh_dp or args.mesh_tp > 1 or args.mesh_ep > 1
+                or args.mesh_sp > 1)
 
 
 def get_sampler_runner(args, device):
@@ -95,8 +102,12 @@ def get_sampler_runner(args, device):
 
 
 def main(args):
-    refuse_unported(args)
-    device = utils.resolve_device(args.device)
+    check_sampler(args)
+    device = args.device
+    if uses_mesh(args):
+        device = pmesh.init_distributed(device)
+    device = utils.resolve_device(device)
+    lead = pmesh.is_lead()
     np.random.seed(args.seed)
 
     unique = (f"{args.sampler}_{args.seed}"
@@ -104,7 +115,8 @@ def main(args):
               f"{args.sampler}_{args.run_signature}_{args.seed}")
     unique += "_" + datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
     results_path = Path(args.results_path, args.protein, unique)
-    results_path.mkdir(parents=True, exist_ok=True)
+    if lead:
+        results_path.mkdir(parents=True, exist_ok=True)
 
     energy, oracle, pp, _ = runtime.build_protein_energy(args, device)
     protein_dir = os.path.join(args.protein_weights, args.protein)
@@ -113,12 +125,21 @@ def main(args):
 
     with torch.no_grad():
         e0, _ = energy.energy(energy.params, pop)
-    print(f"WT protein energy: {float(e0.mean()):.3f}", flush=True)
+    if lead:
+        print(f"WT protein energy: {float(e0.mean()):.3f}", flush=True)
 
+    if uses_mesh(args):
+        mesh, energy, pop = runtime.apply_mesh(
+            energy, pop, dp=args.mesh_dp or None, tp=args.mesh_tp,
+            ep=args.mesh_ep, sp=args.mesh_sp)
+        if lead:
+            print(f"mesh: {pmesh.mesh_shape(mesh)}", flush=True)
     res = get_sampler_runner(args, device)(
         energy=energy, initial_population=pop, num_steps=args.n_iters,
         min_pos=pp.min_pos, max_pos=pp.max_pos, oracle=oracle,
-        log_every=args.log_every)
+        log_every=args.log_every, quiet=not lead)
+    if not lead:
+        return None
 
     with torch.no_grad():
         best = torch.from_numpy(res.best_x).to(device)
@@ -244,17 +265,24 @@ def build_parser():
                         "gradient parity)")
     g.add_argument("--esm_chunk", type=int, default=0,
                    help="chunk the transformer energy over this many chains "
-                        "(0 = auto: 16 with a transformer and more than 16 "
-                        "chains; -1 = one piece)")
+                        "(0 = auto: one piece where the one-piece gradient's "
+                        "measured peak memory fits in 80%% of the card, else "
+                        "the largest chunk that fits, runtime."
+                        "resolve_esm_chunk; -1 = one piece)")
     g.add_argument("--mesh_dp", type=int, default=0,
-                   help="not ported yet: a value other than 0 raises "
-                        "(ROADMAP.md Queue 1 item 15)")
+                   help="shard chains over a dp-axis device mesh of this "
+                        "size (0 = single device); chains must divide it")
     g.add_argument("--mesh_tp", type=int, default=1,
-                   help="not ported yet: a value above 1 raises")
+                   help="shard the Potts coupling matmul over a tp axis")
     g.add_argument("--mesh_ep", type=int, default=1,
-                   help="not ported yet: a value above 1 raises")
+                   help="shard stacked supervised-ensemble members over an "
+                        "ep axis (member count must divide it; the default "
+                        "3-member ensembles replicate unless ep is 3)")
     g.add_argument("--mesh_sp", type=int, default=1,
-                   help="not ported yet: a value above 1 raises")
+                   help="sequence parallelism for transformer experts: "
+                        "shard the ESM2 residual stream's T axis over an "
+                        "sp axis (activation memory / LN+FFN compute per "
+                        "device drop by sp)")
     g.add_argument("--compute_dtype", choices=["f32", "bf16"], default="f32",
                    help="supervised-CNN compute precision")
 

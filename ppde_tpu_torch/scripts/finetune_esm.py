@@ -12,8 +12,14 @@ the .a2m alignment the Potts expert is fit from, writing
 ``--esm_weights`` (``esm2.load_npz_checkpoint`` of either package). With
 ``--lora_rank`` the cadence checkpoints hold the adapters
 (``<out>_lora_<step>.npz``) and the merged model is written as
-``<out>_ckpt_<n_iters>.npz``. ``--mesh_dp`` > 1 raises until the
-multi-device port exists.
+``<out>_ckpt_<n_iters>.npz``. ``--mesh_dp N`` > 1 trains data-parallel
+over N processes, one per device, started by a launcher:
+
+    torchrun --nproc_per_node N -m ppde_tpu_torch.scripts.finetune_esm \
+        ... --mesh_dp N
+
+(the backend follows ``--device``: nccl on CUDA, gloo on the CPU); rank 0
+prints and writes the checkpoints.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import torch
 
 from ppde_tpu_torch import io, training, utils
 from ppde_tpu_torch.models import esm2, potts_fit
+from ppde_tpu_torch.parallel import mesh as pmesh
 
 
 def build_parser():
@@ -77,8 +84,9 @@ def build_parser():
                         "masked-LM cross-entropy on it before and after "
                         "training (training.esm_mlm_heldout_ce)")
     p.add_argument("--mesh_dp", type=int, default=0,
-                   help="data-parallel training over this many devices "
-                        "(not ported: ROADMAP.md Queue 1 item 15)")
+                   help="data-parallel training over a dp mesh of this "
+                        "size (0 = single device; one process a device, "
+                        "started by torchrun --nproc_per_node N)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (default; raises without a GPU) or cpu")
     return p
@@ -160,15 +168,19 @@ def split_val(seqs, weights, val_frac: float, seed: int):
 
 
 def main(args):
+    mesh = None
+    device = args.device
     if args.mesh_dp > 1:
-        raise NotImplementedError(
-            "--mesh_dp: the multi-device port is not done yet (ROADMAP.md "
-            "Queue 1 item 15)")
-    device = utils.resolve_device(args.device)
+        device = pmesh.init_distributed(device)
+        mesh = pmesh.make_mesh(dp=args.mesh_dp, device=device)
+    device = utils.resolve_device(device)
+    lead = pmesh.is_lead()
     seqs, weights = load_family(args, device)
     seqs, weights, val = split_val(seqs, weights, args.val_frac, args.seed)
-    print(f"[finetune_esm] {len(seqs)} sequences of length {len(seqs[0])}"
-          + (f" (+{len(val)} held out)" if val else ""), flush=True)
+    if lead:
+        print(f"[finetune_esm] {len(seqs)} sequences of length "
+              f"{len(seqs[0])}" + (f" (+{len(val)} held out)" if val else ""),
+              flush=True)
 
     params = None
     if args.esm_weights:
@@ -178,7 +190,7 @@ def main(args):
                       device)
 
     def report_val(p, tag):
-        if val is None:
+        if val is None or not lead:
             return
         ce = training.esm_mlm_heldout_ce(p, val, name=args.esm_model,
                                          seed=args.seed)
@@ -198,8 +210,11 @@ def main(args):
         seed=args.seed, log_every=args.log_every, ckpt_path=args.out,
         ckpt_every=args.ckpt_every, resume=args.resume,
         seq_weights=weights, lora_rank=args.lora_rank,
-        lora_alpha=args.lora_alpha, device=device)
+        lora_alpha=args.lora_alpha, device=device, mesh=mesh,
+        quiet=not lead)
     final = f"{args.out}_ckpt_{args.n_iters}.npz"
+    if not lead:
+        return params
     if args.lora_rank:
         # cadence checkpoints hold adapters (_lora_<step>.npz, for
         # --resume); the merged full model goes under the usual name

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 
 from ppde_tpu_torch import convert, utils
 from ppde_tpu_torch.models import esm2, mnist_nets
+from ppde_tpu_torch.parallel import mesh as pmesh
 from ppde_tpu_torch.samplers.base import Draws
 
 
@@ -434,16 +435,23 @@ def esm_mlm_heldout_ce(params, seqs, name: str = "transformer-S",
     return float(num / den.clamp_min(1.0))
 
 
+def _mlm_sums(params, tok, corrupt, is_sel, heads, compute_dtype, remat):
+    """``_masked_ce_sums`` of the logits of the corrupted batch under
+    ``params`` cast to ``compute_dtype``."""
+    x = F.one_hot(corrupt, esm2.ESM_VOCAB).float()
+    logits = esm2.forward_logits(esm2.cast_params(params, compute_dtype), x,
+                                 heads, remat)
+    return _masked_ce_sums(logits, tok, is_sel)
+
+
 def esm_mlm_loss(params, tok: torch.Tensor, corrupt: torch.Tensor,
                  is_sel: torch.Tensor, heads: int,
                  compute_dtype=torch.bfloat16, remat: bool = False):
     """The masked-LM loss of one batch: mean cross-entropy of the original
     tokens ``tok`` at the selected positions, from the logits of the
     corrupted batch under ``params`` cast to ``compute_dtype``."""
-    x = F.one_hot(corrupt, esm2.ESM_VOCAB).float()
-    logits = esm2.forward_logits(esm2.cast_params(params, compute_dtype), x,
-                                 heads, remat)
-    num, den = _masked_ce_sums(logits, tok, is_sel)
+    num, den = _mlm_sums(params, tok, corrupt, is_sel, heads, compute_dtype,
+                         remat)
     return num / den.clamp_min(1.0)
 
 
@@ -468,10 +476,10 @@ def train_esm_mlm(seqs, name: str = "transformer-S", params=None,
                   chunk: int = 25, compute_dtype=torch.bfloat16,
                   remat: bool | None = None, seq_weights=None,
                   lora_rank: int = 0, lora_alpha: float = 16.0,
-                  device="cuda", draws=None):
+                  device="cuda", draws=None, mesh=None):
     """Fine-tune (or pretrain) an ESM2 expert on a sequence family with the
     BERT/ESM masked-LM objective (``ppde_tpu/training.py``'s
-    ``train_esm_mlm``; the JAX ``mesh`` argument is item 15 of the port).
+    ``train_esm_mlm``).
 
     * ``seqs``: equal-length AA strings in the expert's format (no
       cls/eos) or an int token array [M, T]; the tokens stay on the device.
@@ -492,6 +500,15 @@ def train_esm_mlm(seqs, name: str = "transformer-S", params=None,
       the merged model is returned.
     * ``resume``: restores the trainable tree and the step; the optimizer
       state starts afresh (schedule at count 0), as in the JAX package.
+    * ``mesh``: a ``parallel.mesh.make_mesh`` mesh whose dp axis splits the
+      batch (data parallelism, one process per device). Every rank draws
+      the whole batch from the same ``draws`` and keeps its rows; the loss
+      keeps the whole batch's normalisation (its sum of weighted
+      cross-entropies over the whole batch's count of selected positions,
+      the count summed over dp without a gradient), and the gradients are
+      summed over dp before the optimizer's clip. Not DDP, which averages
+      over ranks. batch_size must be a multiple of dp; rank 0 writes the
+      checkpoints.
 
     Returns float32 master parameters (detached).
     """
@@ -521,16 +538,27 @@ def train_esm_mlm(seqs, name: str = "transformer-S", params=None,
     data = torch.from_numpy(toks).to(device, torch.long)
     weights = _row_weights(seq_weights, toks.shape[0], device, "sequences")
     draws = _draws(draws, device, seed + 3)
+    dp = pmesh.axis(mesh, "dp") if mesh is not None else None
+    n_dp, r_dp = (dp.size, dp.rank) if dp is not None else (1, 0)
+    if batch_size % n_dp:
+        raise ValueError(f"batch_size {batch_size} is not a multiple of "
+                         f"dp={n_dp}")
+    rows = slice(r_dp * (batch_size // n_dp),
+                 (r_dp + 1) * (batch_size // n_dp))
 
     def one_step():
         tok = data[draws.rows(weights, batch_size)]               # [B, T]
         corrupt, is_sel = _esm_corrupt(draws, tok, mask_prob)
         full = esm2.lora_merge(params, train, lora_alpha) if lora_rank \
             else train
-        loss = esm_mlm_loss(full, tok, corrupt, is_sel, heads, compute_dtype,
-                            remat)
-        opt.step(torch.autograd.grad(loss, leaves))
-        return loss.detach()
+        # the rank's rows over the whole batch's count (sums over dp are
+        # identities without a mesh)
+        num, den = _mlm_sums(full, tok[rows], corrupt[rows], is_sel[rows],
+                             heads, compute_dtype, remat)
+        den = pmesh.all_sum(den.detach(), dp).clamp_min(1.0)
+        opt.step(pmesh.all_sum_list(torch.autograd.grad(num / den, leaves),
+                                    dp))
+        return pmesh.all_sum(num.detach(), dp) / den
 
     ck_tag = "_lora_" if lora_rank else "_ckpt_"
     for done, size in _chunked(n_iters - start, chunk, log_every,
@@ -541,7 +569,8 @@ def train_esm_mlm(seqs, name: str = "transformer-S", params=None,
             loss = float(losses.mean())
             print(f"[esm_mlm] iter {step} ce {loss:.4f} "
                   f"ppl {math.exp(loss):.2f}", flush=True)
-        if ckpt_path and _log_due(step, ckpt_every, n_iters):
+        if ckpt_path and _log_due(step, ckpt_every, n_iters) \
+                and pmesh.is_lead():
             save_ckpt(f"{ckpt_path}{ck_tag}{step}.npz", train, step)
     train = _detached(train)
     if lora_rank:

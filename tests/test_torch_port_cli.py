@@ -196,15 +196,84 @@ def test_msa_scoring_writes_transformer_scores(root, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (("--mesh_dp", "2"), "item 15"),
-    (("--mesh_tp", "2"), "item 15"),
-    (("--mesh_ep", "3"), "item 15"),
-    (("--mesh_sp", "2"), "item 15"),
+    (("--mesh_dp", "2"), "torchrun"),
+    (("--mesh_tp", "2"), "torchrun"),
+    (("--mesh_ep", "3"), "torchrun"),
+    (("--mesh_sp", "2"), "torchrun"),
 ])
-def test_unported_flags_are_refused(root, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_flags_are_refused(root, tmp_path, monkeypatch, extra,
+                                    match):
+    """A mesh run started without a launcher raises, naming torchrun,
+    before it writes anything."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match=match):
         _main(_argv(root, tmp_path, "--device", "cpu", *extra))
     assert not (tmp_path / PROTEIN).exists()
+
+
+def _torchrun(nproc, module, argv, timeout=300):
+    """``torchrun --standalone --nproc-per-node nproc -m module argv``
+    (a free port on localhost), one thread a rank."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+    return subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), "-m", module, *argv],
+        capture_output=True, text=True, env=env, cwd=REPO, timeout=timeout)
+
+
+def _run_dir(results):
+    (d,) = (results / PROTEIN).iterdir()
+    return d
+
+
+@pytest.mark.parametrize("sampler,extra,mesh", [
+    ("PPDE", (), ("--mesh_dp", "2")),
+    ("PPDE-PT", ("--pt_levels", "4"), ("--mesh_dp", "1", "--mesh_tp", "2")),
+    ("MALA-approx", (), ("--mesh_dp", "2")),
+])
+def test_two_gloo_ranks_give_the_single_device_run(root, tmp_path, sampler,
+                                                   extra, mesh):
+    """The CLI launched on 2 CPU ranks (gloo) over dp or tp writes the
+    single-device run's population (equal), energies (2e-5) and summary;
+    rank 0 alone prints and writes."""
+    _main(_argv(root, tmp_path / "one", "--device", "cpu", "--sampler",
+                sampler, *extra))
+    one = _run_dir(tmp_path / "one")
+    out = _torchrun(2, "ppde_tpu_torch.scripts.directed_evolution",
+                    _argv(root, tmp_path / "two", "--device", "cpu",
+                          "--sampler", sampler, *extra, *mesh))
+    assert out.returncode == 0, out.stderr[-3000:]
+    two = _run_dir(tmp_path / "two")
+    shape = {"dp": 2, "ep": 1, "tp": 1, "sp": 1, "pp": 1}
+    if "--mesh_tp" in mesh:
+        shape.update(dp=1, tp=2)
+    assert out.stdout.count(f"mesh: {shape}") == 1
+    assert out.stdout.count("WT protein energy") == 1
+    assert out.stdout.count("done") == 1
+    assert sorted(os.listdir(two)) == sorted(os.listdir(one))
+    np.testing.assert_array_equal(np.load(two / "population.npy"),
+                                  np.load(one / "population.npy"))
+    for name in ("energy_scores.npy", "energy_history.npy",
+                 "oracle_fitness_scores.npy"):
+        np.testing.assert_allclose(np.load(two / name), np.load(one / name),
+                                   rtol=2e-5, atol=2e-5)
+    s1, s2 = (json.loads((d / "summary.json").read_text())
+              for d in (one, two))
+    for s in (s1, s2):
+        for k in ("run_dir", "steps_per_sec", "wall_steps_per_sec"):
+            s.pop(k)
+    assert s1 == s2
+
+
+def test_mesh_size_other_than_the_world_raises(root, tmp_path):
+    """--mesh_dp 3 on 2 ranks raises, naming both sizes."""
+    out = _torchrun(2, "ppde_tpu_torch.scripts.directed_evolution",
+                    _argv(root, tmp_path, "--device", "cpu", "--mesh_dp",
+                          "3"))
+    assert out.returncode != 0
+    assert "mesh size 3 (dp=3, ep=1, tp=1, sp=1, pp=1) differs from the " \
+        "world size 2" in out.stderr
 
 
 @pytest.mark.parametrize("sampler,extra", [

@@ -764,3 +764,64 @@ def test_ppde_resume_is_bit_exact_on_card(dev, protein_root, tmp_path, cdt):
               "fitness_history.npy"):
         np.testing.assert_array_equal(np.load(got / f), np.load(ref / f),
                                       err_msg=f)
+
+
+@pytest.mark.parametrize("B", [37, 128, 1024])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_potts_column_blocks_match_plain(dev, dtype, tp, B):
+    """Kernel A on every column block of the couplings (GFP's P = 4864,
+    re-padded to a multiple of 128 tp: 4864 for tp = 2, 5120 for tp = 4),
+    each against the plain block function; the blocks assembled (gradients
+    side by side, energy shares summed in order) against the whole call;
+    rows with a single 1 give the block's W[k] + h bit for bit; the block
+    (0, P) through ``col0`` is the whole call, bit for bit."""
+    from ppde_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(tp * 1000 + B)
+    L = 243  # 243 * 20 = 4860 -> P = 4864
+    W, h, P = _potts(rng, L, dtype, dev)
+    xf = torch.nn.functional.pad(_onehot(rng, B, L, dev).reshape(B, -1),
+                                 (0, P - L * 20)).to(BF16)
+    H, g = potts_fused.energy_and_grad(W, h, xf)
+    H1, g1 = potts_fused.energy_and_grad(W, h, xf, col0=0)
+    assert torch.equal(H, H1) and torch.equal(g, g1)
+    shares, grads = [], []
+    for r in range(tp):
+        Wb, hb, c0 = pmesh.potts_column_block(W, h, tp, r)
+        Pp, N = Wb.shape
+        assert Pp % (128 * tp) == 0 and N * tp == Pp and c0 == r * N
+        xfp = torch.nn.functional.pad(xf, (0, Pp - P))
+        n0 = potts_fused.launches
+        Hs, gb = potts_fused.energy_and_grad(Wb, hb, xfp, c0)
+        assert potts_fused.launches == n0 + 1 and gb.shape == (B, N)
+        Hs0, gb0 = potts_fused.energy_and_grad_plain(Wb, hb, xfp.to(dtype),
+                                                     c0)
+        torch.testing.assert_close(gb, gb0, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(Hs, Hs0, rtol=1e-5, atol=1e-3)
+        shares.append(Hs)
+        grads.append(gb)
+        if dtype == F32 and B == 128:
+            k = torch.from_numpy(rng.choice(Pp, 128, replace=False)).to(dev)
+            rows = torch.nn.functional.one_hot(k, Pp).to(BF16)
+            _, ge = potts_fused.energy_and_grad(Wb, hb, rows, c0)
+            assert torch.equal(ge, Wb[k] + hb)
+    Hsum = shares[0]
+    for s in shares[1:]:
+        Hsum = Hsum + s
+    torch.testing.assert_close(torch.cat(grads, 1)[:, :P], g, rtol=1e-5,
+                               atol=1e-4)
+    torch.testing.assert_close(Hsum, H, rtol=1e-5, atol=1e-3)
+
+
+def test_potts_block_rejects_what_it_does_not_take(dev):
+    W = torch.zeros((256, 256), device=dev)
+    prep = potts_fused.prepare(W[:, :128].contiguous(),
+                               torch.zeros(128, device=dev))
+    xf = torch.zeros((4, 256), device=dev, dtype=BF16)
+    for col0 in (64, 256, -128):  # not a tile's start, or past the end
+        with pytest.raises(ValueError):
+            potts_fused.energy_and_grad(prep, None, xf, col0)
+    with pytest.raises(ValueError):  # more columns than rows
+        potts_fused.prepare(torch.zeros((128, 256), device=dev),
+                            torch.zeros(256, device=dev))

@@ -317,8 +317,39 @@ def test_initial_population_matches_jax(protein_root):
 @pytest.mark.parametrize("has_tr", [False, True])
 @pytest.mark.parametrize("n", [8, 128])
 def test_resolve_esm_chunk_matches_jax(esm_chunk, has_tr, n):
-    assert (runtime.resolve_esm_chunk(esm_chunk, has_tr, n)
-            == jruntime.resolve_esm_chunk(esm_chunk, has_tr, n))
+    """-1 and explicit chunks as in the JAX package; auto (0) from the
+    card's memory (the port's rule, ROADMAP Queue 3): one piece where the
+    one-piece gradient's predicted peak fits, on an 80 GB card, at GFP's
+    length, for transformer-S; one piece with no card (the CPU) and
+    without a transformer."""
+    if esm_chunk:
+        assert (runtime.resolve_esm_chunk(esm_chunk, has_tr, n)
+                == jruntime.resolve_esm_chunk(esm_chunk, has_tr, n))
+        return
+    h100 = 80 * 2**30
+    assert runtime.resolve_esm_chunk(0, has_tr, n, "transformer-S", 237,
+                                     h100) is None
+    assert runtime.resolve_esm_chunk(0, has_tr, n, "transformer-S", 237,
+                                     None) is None
+
+
+@pytest.mark.parametrize("name", ["transformer-S", "transformer-M",
+                                  "transformer-L", "transformer"])
+def test_auto_esm_chunk_is_the_largest_that_fits(name):
+    """Auto (0) chunks only past the card's memory, and then takes the
+    largest chunk whose predicted peak fits in ESM_MEMORY_SHARE of it."""
+    base, per = runtime.ESM_GRAD_MEMORY[name]
+    assert base > 0 and per > 0
+    T, card = 237, 80 * 2**30
+    budget = runtime.ESM_MEMORY_SHARE * card
+    fits = int((budget - base) // (per * T))
+    assert runtime.resolve_esm_chunk(0, True, fits, name, T, card) is None
+    c = runtime.resolve_esm_chunk(0, True, fits + 1, name, T, card)
+    assert c == fits
+    assert base + per * T * c <= budget < base + per * T * (c + 1)
+    small = base + per * T * 24 + 1     # a card that holds 24 chains
+    assert runtime.resolve_esm_chunk(0, True, 128, name, T,
+                                     small / runtime.ESM_MEMORY_SHARE) == 24
 
 
 def test_metrics_and_cell_summary_match_jax(tmp_path):

@@ -156,12 +156,43 @@ def test_default_device_needs_a_gpu(name, inputs, tmp_path):
         MODULES[name].main(MODULES[name].build_parser().parse_args(argv))
 
 
-def test_mesh_dp_is_refused(inputs, tmp_path):
+def test_mesh_dp_is_refused(inputs, tmp_path, monkeypatch):
+    """--mesh_dp started without a launcher raises, naming torchrun, before
+    it writes anything."""
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
     argv = _argv("finetune_esm", inputs, tmp_path) + ["--mesh_dp", "2",
                                                       "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         finetune_esm.main(finetune_esm.build_parser().parse_args(argv))
     assert not os.listdir(tmp_path)
+
+
+def test_mesh_dp_2_trains_as_one_device(inputs, tmp_path):
+    """finetune_esm --mesh_dp 2 on 2 gloo ranks trains: rank 0 writes the
+    single-device run's files, and every rank returns its weights (rtol
+    2e-4, atol 1e-5)."""
+    from test_torch_port_parallel import ranks_finetune, spawn
+
+    one, two = tmp_path / "one", tmp_path / "two"
+    one.mkdir(), two.mkdir()
+    single, _ = _run_port("finetune_esm", _argv("finetune_esm", inputs, one))
+    got = spawn(ranks_finetune, 2, tmp_path,
+                _argv("finetune_esm", inputs, two) + [
+                    "--device", "cpu", "--mesh_dp", "2"])
+    assert sorted(os.listdir(two)) == sorted(os.listdir(one))
+    final = "esm_ckpt_2.npz"
+    a, b = np.load(one / final), np.load(two / final)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        if a[k].dtype.kind == "f":
+            np.testing.assert_allclose(b[k], a[k], rtol=2e-4, atol=1e-5)
+        else:
+            np.testing.assert_array_equal(b[k], a[k])
+    for leaves in got:
+        for x, y in zip(leaves, pesm._flatten(single)):
+            np.testing.assert_allclose(x, y.detach().numpy(), rtol=2e-4,
+                                       atol=1e-5)
 
 
 @pytest.mark.parametrize("name", ["finetune_esm", "finetune_msa",
