@@ -120,6 +120,19 @@ no result line):
      and -L at 128 chains, S and M at 1024 (a run that does not fit is
      recorded so); L at 1024 is predicted from its slope per chain. Output:
      chiprun_out/chip_smoke_mesh.log.
+ 13. the port's benchmark, ``python -m ppde_tpu_torch.scripts.bench`` at
+     its defaults, in a subprocess (GFP potts PoE at 128 and 1024 chains,
+     potts + transformer-S at 128, MNIST PPDE-PAS-10 on the EBM at 128;
+     bf16): exit code 0, its one JSON line with every key, the four
+     configurations with finite positive rates and three execution times,
+     the run checks passed, the headline rule, and each kernel's launches
+     exactly as the configuration makes them: A and B once for the initial
+     state and once a step over the untimed and the timed executions, C
+     and C' 12 times as often on the transformer configuration (one piece
+     at 128 chains), none on MNIST. The bench's launches join the kernels
+     line; its line goes to chiprun_out/chip_smoke.json (its stderr to
+     chiprun_out/chip_smoke_bench.log), beside phases 4 and 6's ppde.run
+     rates of the same configurations.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -146,6 +159,10 @@ import warnings
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+# the run checks, shared with the port's benchmark (one copy)
+from ppde_tpu_torch.scripts.bench import (  # noqa: E402
+    COUNTERS, check, check_run)
 
 # GFP wild type (L = 237), the sequence the JAX package's bench.py uses
 GFP_WT = (
@@ -157,7 +174,9 @@ GFP_WT = (
 BATCHES = (128, 1024, 1000)  # the sampler's two populations and a ragged B
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM data sheet
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # no-TC f32, dense bf16 TC
-SAMPLER_RUNS = ((128, 300, 100), (1024, 40, 20))   # chains, steps, log_every
+# phase 4: (chains, steps, log_every); two warm segments each, beside the
+# bench's rates of the same configurations (phase 13)
+SAMPLER_RUNS = ((128, 300, 100), (1024, 300, 100))
 # (Z, T, hd) of kernels C and C': the transformer path's calls at chunk 16
 # and in one piece (ESM2-S: 20 heads, hd 24), the M and L head widths, the
 # longest T, a small ragged case, eval_expert_correlation's calls (a chunk
@@ -250,14 +269,19 @@ CLI_ARTIFACTS = ("config.txt", "population.npy", "pred_fitness_scores.npy",
                  "energy_scores.npy", "energy_history.npy",
                  "fitness_history.npy", "summary.json")
 
-
-class CheckFailed(AssertionError):
-    pass
-
-
-def check(cond, msg):
-    if not cond:
-        raise CheckFailed(msg)
+# phase 13: the port's benchmark at its defaults, in a subprocess; its four
+# configurations (domain, chains, expert) and its time limit in seconds
+BENCH_CONFIGS = (("gfp", 128, "potts"), ("gfp", 1024, "potts"),
+                 ("gfp", 128, "potts+transformer-S"),
+                 ("mnist", 128, "ebm_poe_pas10"))
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "detail")
+BENCH_DETAIL_KEYS = ("configs", "headline_n_chains",
+                     "torch_cpu_reference_steps_per_sec",
+                     "torch_cpu_reference_chain_steps_per_sec", "dtype",
+                     "card")
+BENCH_ROW_KEYS = ("domain", "n_chains", "expert", "sampler_steps_per_sec",
+                  "chain_steps_per_sec", "execution_s", "launches", "checks")
+BENCH_TIMEOUT = 700
 
 
 def reps_for(ms):
@@ -491,42 +515,16 @@ def phase_cnn(torch, cnn, cnn_fused, dev):
     return out
 
 
-def check_run(torch, en, res, cfg, wt_oh, steps, n_chains, chunk, dev):
-    """The checks every sampler run must pass; returns its numbers. The
-    fresh evaluation of the best states goes through ``en.energy`` in chain
-    chunks of ``chunk`` (None: one piece), the shapes the run itself used."""
-    check(np.isfinite(res.energy_history).all(), "non-finite energies")
-    check(np.isfinite(res.best_energy).all(), "non-finite best energy")
-    wt = wt_oh[0].cpu().numpy()
-    d_final = (res.final_x != wt[None]).any(-1).sum(-1)
-    d_best = (res.best_x != wt[None]).any(-1).sum(-1)
-    check(d_final.max() < cfg.nmut_threshold,
-          f"final distance {d_final.max()} >= nmut threshold")
-    check(d_best.max() <= cfg.nmut_threshold,
-          f"best distance {d_best.max()} > nmut threshold")
-    rate = float(res.n_accepted.sum()) / (steps * n_chains)
-    check(0.0 < rate < 1.0, f"acceptance rate {rate}")
-    check((res.best_energy >= res.energy_history[0]).all(),
-          "best energy below the initial energy")
-    # the carried best energies agree with a fresh evaluation of the best
-    # states by the forward path (plain apart from the attention core)
-    with torch.no_grad():
-        bx = torch.from_numpy(res.best_x).to(dev)
-        e_plain = torch.cat([en.energy(en.params, c)[0]
-                             for c in bx.split(chunk or n_chains)])
-    e_plain = e_plain.cpu().numpy()
-    err = np.abs(e_plain - res.best_energy)
-    check(np.allclose(e_plain, res.best_energy, rtol=1e-3, atol=2e-2),
-          f"best energies disagree with a fresh evaluation: {err.max()}")
+def checked(en, res, cfg, wt_oh, steps, n_chains, chunk, dev):
+    """``check_run`` on a ``SamplerResult``: the checks' numbers beside the
+    run's rates."""
     return {"n_chains": n_chains, "steps": steps,
             "steps_per_sec": res.steps_per_sec,
             "chain_steps_per_sec": res.steps_per_sec * n_chains,
             "wall_steps_per_sec": res.wall_steps_per_sec,
-            "acceptance_rate": rate,
-            "best_energy_median": float(np.median(res.best_energy)),
-            "initial_energy": float(res.energy_history[0, 0]),
-            "max_distance_final": int(d_final.max()),
-            "best_energy_max_abs_err_vs_plain": float(err.max())}
+            **check_run(en, res.energy_history, res.best_energy, res.best_x,
+                        res.final_x, res.n_accepted.sum(), cfg, wt_oh, steps,
+                        n_chains, chunk, dev)}
 
 
 def reset_counters(counters):
@@ -564,7 +562,7 @@ def phase_sampler(torch, codec, utils, energy_mod, potts, cnn, ppde,
         check(a_n >= steps and b_n >= steps,
               f"{n_chains} chains: kernel launches A={a_n} B={b_n} < "
               f"{steps} steps")
-        r = check_run(torch, en, res, cfg, wt_oh, steps, n_chains, None, dev)
+        r = checked(en, res, cfg, wt_oh, steps, n_chains, None, dev)
         r.update({"log_every": log_every, "launches_potts_energy": a_n,
                   "launches_cnn_ensemble": b_n, "card": card})
         runs.append(r)
@@ -720,7 +718,7 @@ def phase_transformer(torch, codec, energy_mod, potts, cnn, esm2, ppde,
               f"chunk {chunk}: attention launches {got} < {need}")
         check(got["potts_energy"] >= steps and got["cnn_ensemble"] >= steps,
               f"chunk {chunk}: kernel launches {got} < {steps} steps")
-        r = check_run(torch, en, res, cfg, wt_oh, steps, n_chains, chunk, dev)
+        r = checked(en, res, cfg, wt_oh, steps, n_chains, chunk, dev)
         r.update({"chunk_size": chunk, "log_every": log_every,
                   "transformer_term_of_wild_type": wt_term,
                   "launches": got, "card": card})
@@ -2059,6 +2057,91 @@ def phase_memory(torch, esm2, dev, card):
     return rows
 
 
+def bench_expected(row, args, dev):
+    """The launches ``python -m ppde_tpu_torch.scripts.bench`` must make
+    in one configuration at its defaults (``args``): one energy_and_grad
+    for the initial state and one a step, over the untimed and the 3 timed
+    executions; kernels A and B once a call (bf16) on the GFP configs, C
+    and C' once a layer a piece on the transformer config, none on MNIST."""
+    from ppde_tpu_torch.models import esm2
+    from ppde_tpu_torch.scripts import bench
+
+    if row["domain"] == "mnist":
+        return dict.fromkeys(COUNTERS, 0)
+    steps = row["steps"]
+    n_calls = 1 + (max(1, args.warmup // steps) + bench.REPS) * steps
+    attention = 0
+    if row["expert"] != "potts":
+        chunk = bench.transformer_chunk(row["n_chains"], dev)
+        check(row["chunk_size"] == chunk, f"the bench's transformer chunk "
+              f"{row['chunk_size']}, expected {chunk}")
+        attention = (esm2.CONFIGS["transformer-S"]["layers"]
+                     * (-(-row["n_chains"] // chunk) if chunk else 1))
+    return bench.expected_launches(dev, n_calls, args.dtype, 1, attention)
+
+
+def phase_bench(torch, dev, card, ppde_runs):
+    """Phase 13: ``python -m ppde_tpu_torch.scripts.bench`` at its
+    defaults, in a subprocess (it sets its own counters, which start at 0,
+    and reads them around each configuration): exit code 0, one JSON line
+    with every key, the four configurations with finite positive rates and
+    their checks' numbers, the headline rule, and each kernel's launches
+    exactly as ``bench_expected`` says. ``ppde_runs``: ppde.run's steps/s
+    of the same configurations in phases 4 and 6, set beside the bench's.
+    Returns (the bench's line with the phase's numbers, its launches)."""
+    from ppde_tpu_torch.scripts import bench
+
+    args = bench.build_parser().parse_args([])
+    t = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "ppde_tpu_torch.scripts.bench"],
+                       cwd=ROOT, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT)
+    wall_s = time.perf_counter() - t
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_bench.log"),
+              "w") as f:
+        f.write(p.stderr + p.stdout)
+    check(p.returncode == 0,
+          f"the bench exited {p.returncode}: {p.stderr[-3000:]}")
+    out = p.stdout.strip().splitlines()
+    check(len(out) == 1, f"the bench printed {len(out)} lines, not one")
+    line = json.loads(out[0])
+    detail = line.get("detail", {})
+    check(all(k in line for k in BENCH_KEYS)
+          and all(k in detail for k in BENCH_DETAIL_KEYS),
+          f"the bench's line lacks keys: {sorted(line)} {sorted(detail)}")
+    check(line["metric"] == bench.METRIC and detail["card"] == card,
+          f"the bench's metric {line['metric']} or card {detail['card']}")
+    rows = detail["configs"]
+    check(sorted((r["domain"], r["n_chains"], r["expert"]) for r in rows)
+          == sorted(BENCH_CONFIGS), f"the bench's configs: {rows}")
+    launches = dict.fromkeys(COUNTERS, 0)
+    for r in rows:
+        check(all(k in r for k in BENCH_ROW_KEYS), f"bench row keys {r}")
+        rates = (r["sampler_steps_per_sec"], r["chain_steps_per_sec"],
+                 *r["execution_s"])
+        check(len(r["execution_s"]) == bench.REPS
+              and all(np.isfinite(v) and v > 0 for v in rates),
+              f"bench {r['expert']} x {r['n_chains']}: rates {rates}")
+        acc = r["checks"]["acceptance_rate"]
+        check(0.0 < acc < 1.0,
+              f"bench {r['expert']} x {r['n_chains']}: checks {r['checks']}")
+        want = bench_expected(r, args, dev)
+        check(r["launches"] == want,
+              f"bench {r['expert']} x {r['n_chains']}: launches "
+              f"{r['launches']}, expected {want}")
+        for name, n in r["launches"].items():
+            launches[name] += n
+        r["ppde_run_steps_per_sec"] = ppde_runs.get(
+            (r["domain"], r["n_chains"], r["expert"]))
+    peak = max((r for r in rows if r["expert"] == "potts"),
+               key=lambda r: r["chain_steps_per_sec"])
+    check(line["value"] == peak["chain_steps_per_sec"]
+          and line["vs_baseline"] > 0, f"the bench's headline {line}")
+    line["phase_wall_s"] = wall_s
+    print("bench", json.dumps(line), flush=True)
+    return line, launches
+
+
 def attention_numbers(r, way):
     """One phase-5 record's numbers of kernel C (way "fwd") or C' ("bwd")."""
     return {"shape": [r["Z"], r["T"], r["hd"]],
@@ -2089,7 +2172,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this check "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     from ppde_tpu_torch import codec, energy as energy_mod, utils
     from ppde_tpu_torch.models import cnn, esm2, potts
     from ppde_tpu_torch.ops import (_build, attention_fused, cnn_fused,
@@ -2111,13 +2193,7 @@ def main() -> int:
         for line in _build.ptxas_report(log):
             print(f"ptxas {name}: {line}", flush=True)
 
-    # every kernel's launch counter: (wrapper module, attribute)
-    counters = {"potts_energy": (potts_fused, "launches"),
-                "potts_energy_f32": (potts_fused, "launches_f32"),
-                "cnn_ensemble": (cnn_fused, "launches"),
-                "cnn_ensemble_f32": (cnn_fused, "launches_f32"),
-                "flash_attention_fwd": (attention_fused, "launches_fwd"),
-                "flash_attention_bwd": (attention_fused, "launches_bwd")}
+    counters = COUNTERS  # every kernel's (wrapper module, attribute)
     phases = {
         "potts": lambda: phase_potts(torch, potts, potts_fused, dev),
         "cnn": lambda: phase_cnn(torch, cnn, cnn_fused, dev),
@@ -2133,7 +2209,13 @@ def main() -> int:
         "mnist": lambda: phase_mnist(torch, counters, dev, card),
         "eval": lambda: phase_eval(torch, counters, dev, card),
         "training": lambda: phase_training(torch, counters, dev, card),
-        "mesh": lambda: phase_mesh(torch, counters, dev, card)}
+        "mesh": lambda: phase_mesh(torch, counters, dev, card),
+        "bench": lambda: phase_bench(torch, dev, card, {
+            **{("gfp", r["n_chains"], "potts"): r["steps_per_sec"]
+               for r in got["sampler"][0]},
+            **{("gfp", r["n_chains"], "potts+transformer-S"):
+               r["steps_per_sec"] for r in got["transformer"][0]
+               if r["chunk_size"] is None}})}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     got = {}
     for name, run in phases.items():
@@ -2149,8 +2231,9 @@ def main() -> int:
     eval_runs, eval_launches = got["eval"]
     train_runs, train_launches = got["training"]
     mesh_runs, mesh_launches = got["mesh"]
+    bench_line, bench_launches = got["bench"]
     for more in (tr_launches, cli_launches, eval_launches, train_launches,
-                 mesh_launches):
+                 mesh_launches, bench_launches):
         for name, n in more.items():
             launches[name] += n
 
@@ -2238,6 +2321,13 @@ def main() -> int:
         row["tp4_block"] = {"ms": blk["block_ms"], "whole_ms":
                             blk["whole_ms"], "max_abs_err":
                             blk["max_abs_err_blocks_vs_plain"]}
+    # every kernel's launches in phase 13's bench run, by type
+    for row in kernels["kernels"]:
+        name = row["name"]
+        n = bench_launches[name]
+        if name in ("potts_energy", "cnn_ensemble"):
+            n -= bench_launches[name + "_f32"]
+        row.setdefault("launches_by_path", {})["bench"] = n
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel the main path runs was not launched: {kernels}")
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2246,7 +2336,7 @@ def main() -> int:
                    "transformer_sampler": tr_runs, "cli": cli_runs,
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
                    "eval": eval_runs, "training": train_runs,
-                   "mesh": mesh_runs, **kernels},
+                   "mesh": mesh_runs, "bench": bench_line, **kernels},
                   f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)
