@@ -132,7 +132,31 @@ no result line):
      at 128 chains), none on MNIST. The bench's launches join the kernels
      line; its line goes to chiprun_out/chip_smoke.json (its stderr to
      chiprun_out/chip_smoke_bench.log), beside phases 4 and 6's ppde.run
-     rates of the same configurations.
+     rates of the same configurations;
+ 14. the large ESM2 experts at full width and depth (transformer-M: 30
+     layers, hd 32; transformer-L: 33 layers, hd 64, remat) through the
+     calls the port's experiment drivers make (``driver_calls``: each
+     driver run with a stub python that records its arguments; paths,
+     step counts and log cadences substituted), each entry point's main
+     in process on the seeded GFP directory and the tracked GFP synthetic
+     alignment: (a) run_protein_samplers.sh's transformer cell for GFP
+     (transformer-M alone from a seeded random-init file, lambda 1, 128
+     chains, the CLI's float32 CNN, one piece, 60 steps); (b)
+     run_r5_150m.sh: finetune_esm transformer-M, LoRA 8, batch 16 (60 of
+     1,200 steps), then the potts+transformer-M PPDE cell on the merged
+     file it wrote (bf16 CNN, chunks of 64, msa-S scoring, 40 of 1,000
+     steps); (c) run_r4_650m.sh: the same at transformer-L, batch 8 (40
+     and 30 steps). Exact launches of A, B, C and C' in every run
+     (``cell_launches``; a fine-tune step: C (1 + remat) and C' once a
+     layer, plus 4 forwards a layer for each held-out CE); the cells'
+     artifacts by phase 7's checks; the fine-tunes' logged losses and
+     held-out CEs finite, their files, and the merged file equal to the
+     LoRA file merged anew (every weight, and the PLL of 8 sequences);
+     steps/s, wall steps/s, peak memory and the share of the bf16 peak
+     (model FLOPs: 2 forwards a step, ``esm_forward_flops``; the
+     fine-tunes': ``esm_train_flops``). Phase 5 holds kernels C and C' at
+     these runs' shapes (``LARGE_ATTN_CASES``). Output:
+     chiprun_out/chip_smoke_large.log.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -145,6 +169,7 @@ kernels build at first use):
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import itertools
 import json
@@ -177,6 +202,16 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}  # no-TC f32, dense bf16 TC
 # phase 4: (chains, steps, log_every); two warm segments each, beside the
 # bench's rates of the same configurations (phase 13)
 SAMPLER_RUNS = ((128, 300, 100), (1024, 300, 100))
+# phase 14's calls of kernels C and C' (GFP, T = 237: the experts take no
+# BOS / EOS), 20 heads a sequence: transformer-M (hd 32) and -L (hd 64) in
+# one piece of 128 chains and in chunks of 64, the fine-tunes' batches (16
+# at M, 8 at L), their held-out CE (100 sequences) and the wild type alone
+LARGE_ATTN_CASES = (
+    ("M_one_piece", (2560, 237, 32)), ("M_chunk_64", (1280, 237, 32)),
+    ("L_chunk_64", (1280, 237, 64)), ("L_one_piece", (2560, 237, 64)),
+    ("finetune_M", (320, 237, 32)), ("finetune_L", (160, 237, 64)),
+    ("heldout_ce_M", (2000, 237, 32)), ("heldout_ce_L", (2000, 237, 64)),
+    ("wild_type_M", (20, 237, 32)), ("wild_type_L", (20, 237, 64)))
 # (Z, T, hd) of kernels C and C': the transformer path's calls at chunk 16
 # and in one piece (ESM2-S: 20 heads, hd 24), the M and L head widths, the
 # longest T, a small ragged case, eval_expert_correlation's calls (a chunk
@@ -186,6 +221,8 @@ ATTN_CASES = ((320, 237, 24), (2560, 237, 24), (320, 237, 32),
               (320, 237, 64), (20, 512, 64), (7, 33, 16),
               (1280, 237, 24), (20, 237, 24), (640, 237, 24),
               (640, 237, 64), (4000, 237, 24))
+ATTN_CASES += tuple(case for _, case in LARGE_ATTN_CASES
+                    if case not in ATTN_CASES)
 TRANSFORMER_RUN = (128, 40, 20)                    # chains, steps, log_every
 TRANSFORMER_CHUNKS = (16, None)
 # phase 7: (label, sampler, steps, extra CLI flags) at CLI_CHAINS chains
@@ -282,6 +319,22 @@ BENCH_DETAIL_KEYS = ("configs", "headline_n_chains",
 BENCH_ROW_KEYS = ("domain", "n_chains", "expert", "sampler_steps_per_sec",
                   "chain_steps_per_sec", "execution_s", "launches", "checks")
 BENCH_TIMEOUT = 700
+# phase 14: the large ESM2 experts at full width and depth, through the
+# calls the port's experiment drivers make (recorded with a stub python,
+# ``driver_calls``; paths, step counts and log cadences substituted): the
+# paper's transformer cell of run_protein_samplers.sh for GFP
+# (transformer-M alone, one piece of 128 chains: LARGE_SWEEP_STEPS of
+# 10,000), and run_r5_150m.sh / run_r4_650m.sh: (driver, expert,
+# fine-tune steps of 1,200 / 800, cell steps of 1,000); their cells'
+# --esm_chunk
+LARGE_SWEEP_STEPS, LARGE_LOG_EVERY = 60, 10
+LARGE_ROWS = (("run_r5_150m.sh", "transformer-M", 60, 40),
+              ("run_r4_650m.sh", "transformer-L", 40, 30))
+LARGE_CHUNK = 64
+DRIVER_STUB = """#!/bin/bash
+{ printf '%s\\037' "$@"; printf '\\036'; } >> "$STUB_LOG"
+exit "${STUB_RC:-0}"
+"""
 
 
 def reps_for(ms):
@@ -730,7 +783,10 @@ def phase_transformer(torch, codec, energy_mod, potts, cnn, esm2, ppde,
 def check_cli_run(torch, runtime, args, run_dir, steps, dev):
     """The checks of one CLI run's artifacts; returns its numbers."""
     files = sorted(os.listdir(run_dir))
-    check(files == sorted(CLI_ARTIFACTS), f"{args.sampler}: artifacts {files}")
+    scored = ("transformer_scores.npy",) * (
+        not args.disable_MSA_transformer_scoring)
+    check(files == sorted(CLI_ARTIFACTS + scored),
+          f"{args.sampler}: artifacts {files}")
     arr = {f[:-4]: np.load(os.path.join(run_dir, f)) for f in files
            if f.endswith(".npy")}
     n, L = CLI_CHAINS, len(GFP_WT)
@@ -1387,6 +1443,99 @@ def logged(pattern, out):
     return [float(v) for v in re.findall(pattern, out)]
 
 
+def run_main(torch, counters, log, launches, by_run, label, module, argv,
+             trainer=None, log_every=None):
+    """module.main on argv (parsed by its build_parser) under the launch
+    counters, set to 0 just before and read just after, added into
+    ``launches`` and kept in ``by_run[label]``; its printed output goes to
+    ``log``. With ``trainer`` (a name in ``training`` or
+    ``potts_fit``) that call is timed alone, with its peak memory, and its
+    steps after the first (each ends in an optimizer step) apart. Returns
+    (main's result, its output, launches, seconds, the trainer's times and
+    ``main_peak_memory_gb``)."""
+    from ppde_tpu_torch import training
+    from ppde_tpu_torch.models import potts_fit
+
+    a = module.build_parser().parse_args(argv)
+    check(a.device == "cuda", f"{label}: --device is {a.device}")
+    tm, marks = {}, []
+
+    def wrap(fn):
+        def timed(*args, **kw):
+            if log_every:
+                kw["log_every"] = log_every
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            end = time.perf_counter()
+            n = marks[-1][0]
+            tm.update(seconds=end - t, steps=n,
+                      first_step_s=marks[0][1] - t,
+                      later_steps_per_sec=(n - 1) / (
+                          marks[-1][1] - marks[0][1]),
+                      peak_memory_gb=torch.cuda.max_memory_allocated()
+                      / 1e9)
+            return res
+        return timed
+
+    def mark(step):
+        # the first step ends in a sync; the later ones are timed when the
+        # host has queued them (the steps are host-paced)
+        def marked(self, grads):
+            step(self, grads)
+            if self.count == 1:
+                torch.cuda.synchronize()
+            marks.append((self.count, time.perf_counter()))
+        return marked
+
+    host = potts_fit if trainer == "fit" else training
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(counters)
+    t = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if trainer:
+            stack.enter_context(patched(host, trainer, wrap))
+            stack.enter_context(patched(training.Adam, "step", mark))
+        stack.enter_context(contextlib.redirect_stdout(out))
+        stack.enter_context(warnings.catch_warnings())
+        warnings.simplefilter("ignore", UserWarning)
+        res = module.main(a)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    got = read_counters(counters)
+    for name, n in got.items():
+        launches[name] += n
+    by_run[label] = got
+    tm["main_peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log.write(f"==== {label}\n{out.getvalue()}")
+    return res, out.getvalue(), got, secs, tm
+
+
+def esm_record(label, name, tm, out, steps, batch, card):
+    """A finetune_esm run's numbers from ``run_main``'s times and output:
+    every logged loss finite, steps/s after the first step, tokens/s, the
+    share of the bf16 peak by ``esm_train_flops``, peak memory."""
+    T = len(GFP_WT)
+    ce = logged(r"\[esm_mlm\] iter \d+ ce (\S+)", out)
+    check(ce and all(np.isfinite(ce)), f"{label}: logged losses {ce}")
+    flops = esm_train_flops(name, batch, T)
+    sps = tm["later_steps_per_sec"]
+    check(tm["steps"] == steps, f"{label}: {tm['steps']} steps")
+    return {"model": name, "steps": steps, "batch": batch, "T": T,
+            "train_s": tm["seconds"], "first_step_s": tm["first_step_s"],
+            "steps_per_sec_whole_call": steps / tm["seconds"],
+            "steps_per_sec": sps, "tokens_per_sec": sps * batch * T,
+            "tflop_per_step": flops / 1e12,
+            "bf16_peak_share": flops * sps / PEAK_OPS["bfloat16"],
+            "peak_memory_gb": tm["peak_memory_gb"],
+            "loss_first_logged": ce[0], "loss_last_logged": ce[-1],
+            "card": card}
+
+
 def phase_training(torch, counters, dev, card):
     """Training and fitting through their entry points at full width on
     the tracked GFP alignment: finetune_esm at transformer-S (kernels C
@@ -1396,8 +1545,7 @@ def phase_training(torch, counters, dev, card):
     sample_potts_msa, finetune_msa at msa-S, the three MNIST trainers on
     the synthetic source, eval_mnist_ebm and mnist_sum on what they
     wrote."""
-    from ppde_tpu_torch import training
-    from ppde_tpu_torch.models import esm2, mnist_nets, potts_fit
+    from ppde_tpu_torch.models import esm2, mnist_nets
     from ppde_tpu_torch.models import msa_transformer as msat
     from ppde_tpu_torch import convert
     from ppde_tpu_torch.scripts import directed_evolution as de
@@ -1414,89 +1562,13 @@ def phase_training(torch, counters, dev, card):
     msa_path = os.path.join(ROOT, EVAL_MSA)
     log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_training.log")
     with tempfile.TemporaryDirectory() as tmp, open(log_path, "w") as log:
-        def run(label, module, argv, trainer=None, log_every=None):
-            """module.main on argv under the launch counters; with
-            ``trainer`` (a name in ``training`` or ``potts_fit``) that
-            call is timed alone, with its peak memory, and its steps
-            after the first (each ends in an optimizer step) apart."""
-            a = module.build_parser().parse_args(argv)
-            check(a.device == "cuda", f"{label}: --device is {a.device}")
-            tm, marks = {}, []
-
-            def wrap(fn):
-                def timed(*args, **kw):
-                    if log_every:
-                        kw["log_every"] = log_every
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    t = time.perf_counter()
-                    res = fn(*args, **kw)
-                    torch.cuda.synchronize()
-                    end = time.perf_counter()
-                    n = marks[-1][0]
-                    tm.update(seconds=end - t, steps=n,
-                              first_step_s=marks[0][1] - t,
-                              later_steps_per_sec=(n - 1) / (
-                                  marks[-1][1] - marks[0][1]),
-                              peak_memory_gb=torch.cuda.max_memory_allocated()
-                              / 1e9)
-                    return res
-                return timed
-
-            def mark(step):
-                # the first step ends in a sync; the later ones are timed
-                # when the host has queued them (the steps are host-paced)
-                def marked(self, grads):
-                    step(self, grads)
-                    if self.count == 1:
-                        torch.cuda.synchronize()
-                    marks.append((self.count, time.perf_counter()))
-                return marked
-
-            host = potts_fit if trainer == "fit" else training
-            out = io.StringIO()
-            reset_counters(counters)
-            t = time.perf_counter()
-            with contextlib.ExitStack() as stack:
-                if trainer:
-                    stack.enter_context(patched(host, trainer, wrap))
-                    stack.enter_context(patched(training.Adam, "step", mark))
-                stack.enter_context(contextlib.redirect_stdout(out))
-                stack.enter_context(warnings.catch_warnings())
-                warnings.simplefilter("ignore", UserWarning)
-                res = module.main(a)
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t
-            got = read_counters(counters)
-            for name, n in got.items():
-                launches[name] += n
-            by_run[label] = got
-            log.write(f"==== {label}\n{out.getvalue()}")
-            return res, out.getvalue(), got, secs, tm
-
+        run = functools.partial(run_main, torch, counters, log, launches,
+                                by_run)
         seeded_protein.write_protein_dir(tmp, CLI_PROTEIN, GFP_WT, seed=0)
         wt_fasta = os.path.join(tmp, CLI_PROTEIN, "wt.fasta")
         n_rows = len(open(msa_path).read().split(">")) - 1
         n_val = max(1, int(round(TRAIN_VAL_FRAC * n_rows)))
         T = len(GFP_WT)
-
-        def esm_record(label, name, tm, out, steps, batch):
-            ce = logged(r"\[esm_mlm\] iter \d+ ce (\S+)", out)
-            check(ce and all(np.isfinite(ce)),
-                  f"{label}: logged losses {ce}")
-            flops = esm_train_flops(name, batch, T)
-            sps = tm["later_steps_per_sec"]
-            check(tm["steps"] == steps, f"{label}: {tm['steps']} steps")
-            return {"model": name, "steps": steps, "batch": batch, "T": T,
-                    "train_s": tm["seconds"],
-                    "first_step_s": tm["first_step_s"],
-                    "steps_per_sec_whole_call": steps / tm["seconds"],
-                    "steps_per_sec": sps, "tokens_per_sec": sps * batch * T,
-                    "tflop_per_step": flops / 1e12,
-                    "bf16_peak_share": flops * sps / PEAK_OPS["bfloat16"],
-                    "peak_memory_gb": tm["peak_memory_gb"],
-                    "loss_first_logged": ce[0], "loss_last_logged": ce[-1],
-                    "card": card}
 
         # 1. finetune_esm at transformer-S, full width and depth
         out_s = os.path.join(tmp, "esm_S")
@@ -1518,7 +1590,7 @@ def phase_training(torch, counters, dev, card):
         check(np.isfinite([before, after]).all() and after < before,
               f"finetune_esm S: held-out CE {before} -> {after}")
         r = esm_record("finetune_esm S", "transformer-S", tm, out,
-                       TRAIN_S_STEPS, 32)
+                       TRAIN_S_STEPS, 32, card)
         final_s = f"{out_s}_ckpt_{TRAIN_S_STEPS}.npz"
         loaded = esm2.load_npz_checkpoint(final_s, "transformer-S",
                                           torch.bfloat16, dev)
@@ -1580,7 +1652,7 @@ def phase_training(torch, counters, dev, card):
                   "transformer-L merged reload")
             del merged
             r = esm_record("finetune_esm L", "transformer-L", tm, out,
-                           TRAIN_L_STEPS, 32)
+                           TRAIN_L_STEPS, 32, card)
         finally:
             esm2.CONFIGS["transformer-L"] = full_l
         r.update({"layers": TRAIN_L_LAYERS, "lora_rank": TRAIN_LORA_RANK,
@@ -2142,6 +2214,247 @@ def phase_bench(torch, dev, card, ppde_runs):
     return line, launches
 
 
+def esm_forward_flops(name, T):
+    """FLOPs of one ESM2 forward over a sequence of T tokens (the count of
+    the JAX package's tools/esm_roofline.py): a layer's q, k, v, o
+    projections 8 T D^2, its FFN 4 T D F, its scores and values 4 T^2 D,
+    and the embedding and LM head 4 T D V."""
+    from ppde_tpu_torch.models import esm2
+
+    cfg = esm2.CONFIGS[name]
+    D, Fd, V = cfg["dim"], cfg["ffn"], esm2.ESM_VOCAB
+    return (cfg["layers"] * (8 * T * D * D + 4 * T * D * Fd + 4 * T * T * D)
+            + 4 * T * D * V)
+
+
+def driver_calls(script, args=(), env=None):
+    """The calls one of the port's experiment drivers
+    (``ppde_tpu_torch/scripts/<script>``) makes, as argument lists after
+    ``python``: the driver run with a stub ``python`` first on PATH that
+    records its arguments and runs nothing."""
+    with tempfile.TemporaryDirectory() as tmp:
+        stub, log = os.path.join(tmp, "python"), os.path.join(tmp, "calls")
+        with open(stub, "w") as f:
+            f.write(DRIVER_STUB)
+        os.chmod(stub, 0o755)
+        p = subprocess.run(
+            ["bash", os.path.join(ROOT, "ppde_tpu_torch", "scripts", script),
+             *args], env=dict(os.environ, PATH=f"{tmp}:{os.environ['PATH']}",
+                              STUB_LOG=log, **(env or {})),
+            capture_output=True, text=True, timeout=60)
+        check(p.returncode == 0, f"{script} exited {p.returncode}: "
+              f"{p.stderr[-2000:]}")
+        with open(log) as f:
+            return recorded_calls(f.read())
+
+
+def recorded_calls(text):
+    """The argument lists ``DRIVER_STUB`` recorded (unit separators between
+    arguments, record separators after calls)."""
+    return [c.split("\x1f")[:-1] for c in text.split("\x1e")[:-1]]
+
+
+def with_flags(argv, flags):
+    """``argv`` with each flag's value replaced (or the flag appended)."""
+    out = list(argv)
+    for flag, value in flags.items():
+        if flag in out:
+            out[out.index(flag) + 1] = value
+        else:
+            out += [flag, value]
+    return out
+
+
+def cell_launches(args, name, steps, pieces):
+    """The launches of one protein CLI PPDE run with a transformer expert
+    in ``pieces`` pieces: A (potts, float32) and B once for the initial
+    state and once a step; C' once a layer a piece each time; C as often
+    (twice under remat: transformer-L), plus one forward a layer for the
+    expert's wild-type score at load and one for the CLI's wild-type
+    energy (one piece each)."""
+    from ppde_tpu_torch.models import esm2
+
+    layers = esm2.CONFIGS[name]["layers"]
+    calls = steps + 1
+    potts = "potts" in args.unsupervised_expert.split("+")
+    f32 = args.compute_dtype == "f32"
+    remat = name == "transformer-L"
+    return {"potts_energy": calls * potts, "potts_energy_f32": calls * potts,
+            "cnn_ensemble": calls, "cnn_ensemble_f32": calls * f32,
+            "flash_attention_fwd": layers * (2 + (1 + remat) * pieces * calls),
+            "flash_attention_bwd": layers * pieces * calls}
+
+
+def phase_large(torch, counters, dev, card):
+    """Phase 14: the large ESM2 experts at full width and depth through
+    the port's experiment drivers' calls, in process: (a) the paper's
+    transformer cell of run_protein_samplers.sh (GFP, transformer-M alone,
+    lambda 1, the CLI's float32 CNN, one piece); (b) run_r5_150m.sh and
+    (c) run_r4_650m.sh: finetune_esm with LoRA 8 (remat at transformer-L),
+    then the potts+transformer PPDE cell (bf16 CNN, chunks of 64, msa-S
+    scoring) on the merged checkpoint it wrote. Every run's launches are
+    held exactly to ``cell_launches`` / the fine-tune's formula; the
+    cells' artifacts to phase 7's checks; the fine-tunes' logged losses,
+    their files, and the merged file against the LoRA file merged anew
+    (same weights, same PLL). No fallback: a run that does not fit or a
+    chunk other than the one asked for fails the phase."""
+    from ppde_tpu_torch import runtime, training
+    from ppde_tpu_torch.models import esm2
+    from ppde_tpu_torch.scripts import directed_evolution as de
+    from ppde_tpu_torch.scripts import finetune_esm, seeded_protein
+
+    results, launches = {}, {name: 0 for name in counters}
+    by_run = {}
+    T, n_chains = len(GFP_WT), CLI_CHAINS
+    msa_path = os.path.join(ROOT, EVAL_MSA)
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_large.log")
+    with tempfile.TemporaryDirectory() as tmp, open(log_path, "w") as log:
+        seeded_protein.write_protein_dir(tmp, CLI_PROTEIN, GFP_WT, seed=0)
+        paths = {"--protein_weights": tmp, "--protein": CLI_PROTEIN,
+                 "--results_path": os.path.join(tmp, "results"),
+                 "--log_every": str(LARGE_LOG_EVERY)}
+
+        run = functools.partial(run_main, torch, counters, log, launches,
+                                by_run)
+
+        def cell(label, argv, name, steps, pieces):
+            """One PPDE cell through the CLI: launches exact, phase 7's
+            artifact checks, steps/s, peak memory, the bf16-peak share."""
+            args = de.build_parser().parse_args(argv)
+            chunk = runtime.resolve_esm_chunk(args.esm_chunk, True, n_chains,
+                                              name, T, card_bytes)
+            check((-(-n_chains // chunk) if chunk else 1) == pieces,
+                  f"{label}: --esm_chunk {args.esm_chunk} gives chunk "
+                  f"{chunk}, not {pieces} piece(s)")
+            check(args.n_iters == steps and args.n_chains == n_chains,
+                  f"{label}: {args.n_iters} steps of {args.n_chains}")
+            run_dir, out, got, secs, tm = run(label, de, argv)
+            want = cell_launches(args, name, steps, pieces)
+            check(got == want, f"{label}: kernel launches {got}, not {want}")
+            r = check_cli_run(torch, runtime, args, run_dir, steps, dev)
+            flops = 2 * esm_forward_flops(name, T) * n_chains
+            r.update({"run": label, "expert": args.unsupervised_expert,
+                      "layers": esm2.CONFIGS[name]["layers"],
+                      "steps": steps, "n_chains": n_chains,
+                      "pieces": pieces, "compute_dtype": args.compute_dtype,
+                      "model_tflop_per_step": flops / 1e12,
+                      "bf16_peak_share": flops * r["steps_per_sec"]
+                      / PEAK_OPS["bfloat16"],
+                      "peak_memory_gb": tm["main_peak_memory_gb"],
+                      "main_s": secs, "launches": got, "launches_want": want,
+                      "argv": argv, "card": card})
+            print("large", json.dumps(r), flush=True)
+            return r
+
+        # (a) the paper's transformer cell: the sweep's GFP call with
+        # --esm_weights, on a seeded random-init transformer-M file
+        name = "transformer-M"
+        weights = os.path.join(tmp, "transformer-M.npz")
+        esm2.save_npz_checkpoint(weights, esm2.init(
+            torch.Generator(device=dev).manual_seed(0), name, torch.float32))
+        calls = driver_calls("run_protein_samplers.sh", env={
+            "N_ITERS": str(LARGE_SWEEP_STEPS), "N_CHAINS": str(n_chains),
+            "ESM_WEIGHTS": weights})
+        argv = next(c for c in calls if name in c
+                    and c[c.index("--protein") + 1] == CLI_PROTEIN)[2:]
+        results["sweep_transformer_M"] = cell(
+            "run_protein_samplers transformer-M", with_flags(argv, paths),
+            name, LARGE_SWEEP_STEPS, 1)
+        os.remove(weights)
+
+        # (b), (c): the LoRA fine-tune, then the cell on its merged file
+        for script, name, ft_steps, cell_steps in LARGE_ROWS:
+            calls = driver_calls(script, (str(ft_steps), str(cell_steps)))
+            check([c[1] for c in calls] == [
+                "ppde_tpu_torch.scripts.finetune_esm",
+                "ppde_tpu_torch.scripts.directed_evolution"],
+                f"{script}: calls {calls}")
+            ft_argv, cell_argv = calls[0][2:], calls[1][2:]
+            out_prefix = os.path.join(tmp, name)
+            ft = finetune_esm.build_parser().parse_args(with_flags(ft_argv, {
+                "--msa": msa_path, "--out": out_prefix, "--wt_fasta":
+                os.path.join(tmp, CLI_PROTEIN, "wt.fasta")}))
+            check(ft.esm_model == name and ft.n_iters == ft_steps
+                  and ft.lora_rank == 8 and ft.val_frac > 0,
+                  f"{script}: fine-tune {ft}")
+            label = f"{script[:-3]} finetune_esm {name}"
+            merged, out, got, secs, tm = run(
+                label, finetune_esm, with_flags(ft_argv, {
+                    "--msa": msa_path, "--out": out_prefix, "--wt_fasta":
+                    ft.wt_fasta}), "train_esm_mlm")
+            layers = esm2.CONFIGS[name]["layers"]
+            remat = name == "transformer-L"
+            # a step: one forward a layer (and its recompute under remat)
+            # and one backward; the held-out CE before and after: 4
+            # forwards a layer each
+            want = dict.fromkeys(COUNTERS, 0)
+            want.update(flash_attention_fwd=layers * ((1 + remat) * ft_steps
+                                                      + 2 * 4),
+                        flash_attention_bwd=layers * ft_steps)
+            check(got == want, f"{label}: kernel launches {got}, not {want}")
+            files = sorted(f for f in os.listdir(tmp) if f.startswith(name))
+            ckpt = f"{out_prefix}_ckpt_{ft_steps}.npz"
+            lora_file = f"{out_prefix}_lora_{ft_steps}.npz"
+            check(files == sorted(os.path.basename(f)
+                                  for f in (ckpt, lora_file)),
+                  f"{label}: wrote {files}")
+            ce = logged(r"held-out masked CE \w+: (\S+)", out)
+            check(len(ce) == 2 and np.isfinite(ce).all(),
+                  f"{label}: held-out CE {ce}")
+            r = esm_record(label, name, tm, out, ft_steps, ft.batch_size,
+                           card)
+            # the merged file against the base merged anew with the
+            # adapters of the LoRA file: the same weights, the same PLL
+            gen = torch.Generator(device=dev).manual_seed(ft.seed)
+            base = esm2.init(gen, name, torch.float32)
+            lora, step = training.load_ckpt(lora_file, esm2.lora_init(
+                gen, name, ft.lora_rank))
+            again = esm2.lora_merge(base, lora, ft.lora_alpha)
+            reloaded = esm2.load_npz_checkpoint(ckpt, name, torch.float32,
+                                                dev)
+            check(step == ft_steps and all(
+                torch.equal(a, b) for a, b in zip(esm2._flatten(again),
+                                                  esm2._flatten(reloaded))),
+                f"{label}: the merged file is not the LoRA file merged")
+            x = random_onehot(torch, torch.Generator(device=dev).manual_seed(
+                29), 8, T, dev).to(torch.bfloat16) @ torch.from_numpy(
+                esm2.potts_to_esm_perm()).to(dev, torch.bfloat16)
+            heads = esm2.CONFIGS[name]["heads"]
+            with torch.no_grad():
+                pll = [esm2.pseudo_log_likelihood(
+                    esm2.cast_params(p, torch.bfloat16), x, heads)
+                    for p in (again, reloaded)]
+            check(torch.equal(*pll) and bool(torch.isfinite(pll[0]).all()),
+                  f"{label}: PLL of the merged file {pll[1]} vs {pll[0]}")
+            del base, lora, again, reloaded, merged
+            r.update({"layers": layers, "remat": remat,
+                      "lora_rank": ft.lora_rank, "main_s": secs,
+                      "heldout_ce_before": ce[0], "heldout_ce_after": ce[1],
+                      "files": files, "merged_file_gb":
+                      os.path.getsize(ckpt) / 1e9,
+                      "launches": got, "launches_want": want,
+                      "argv": ft_argv})
+            print("large", json.dumps(r), flush=True)
+            row = {"finetune": r}
+            subs = {**paths, "--esm_weights": ckpt,
+                    "--summary_json": os.path.join(tmp, "summary.json")}
+            if "--msa_transformer_weights" in cell_argv:  # the msa-S scorer
+                scorer = cell_argv[cell_argv.index(
+                    "--msa_transformer_weights") + 1]
+                subs.update({"--msa_path": msa_path,
+                             "--msa_transformer_weights":
+                             os.path.join(ROOT, scorer)})
+            row["cell"] = cell(f"{script[:-3]} cell potts+{name}",
+                               with_flags(cell_argv, subs), name, cell_steps,
+                               -(-n_chains // LARGE_CHUNK))
+            for f in (ckpt, lora_file):
+                os.remove(f)
+            results[script[:-3]] = row
+    results["launches_by_run"] = by_run
+    return results, launches
+
+
 def attention_numbers(r, way):
     """One phase-5 record's numbers of kernel C (way "fwd") or C' ("bwd")."""
     return {"shape": [r["Z"], r["T"], r["hd"]],
@@ -2215,7 +2528,8 @@ def main() -> int:
                for r in got["sampler"][0]},
             **{("gfp", r["n_chains"], "potts+transformer-S"):
                r["steps_per_sec"] for r in got["transformer"][0]
-               if r["chunk_size"] is None}})}
+               if r["chunk_size"] is None}}),
+        "large": lambda: phase_large(torch, counters, dev, card)}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     got = {}
     for name, run in phases.items():
@@ -2232,8 +2546,9 @@ def main() -> int:
     train_runs, train_launches = got["training"]
     mesh_runs, mesh_launches = got["mesh"]
     bench_line, bench_launches = got["bench"]
+    large_runs, large_launches = got["large"]
     for more in (tr_launches, cli_launches, eval_launches, train_launches,
-                 mesh_launches, bench_launches):
+                 mesh_launches, bench_launches, large_launches):
         for name, n in more.items():
             launches[name] += n
 
@@ -2287,7 +2602,8 @@ def main() -> int:
     ]}
     # kernels C and C' by path: the transformer sampler (phase 6), the
     # evaluation's transformer column (phase 10), finetune_esm and the CLI
-    # run on its checkpoint (phase 11); finetune_esm's shapes' numbers
+    # run on its checkpoint (phase 11); finetune_esm's shapes' numbers and
+    # phase 14's (bf16)
     for row in kernels["kernels"]:
         name = row["name"]
         if name not in ("flash_attention_fwd", "flash_attention_bwd"):
@@ -2304,6 +2620,11 @@ def main() -> int:
         way = name.rsplit("_", 1)[1]
         row["finetune_esm"] = attention_numbers(cs, way)
         row["finetune_esm_L"] = attention_numbers(cl, way)
+        row["large_experts"] = {
+            label: attention_numbers(next(
+                r for r in pc if (r["Z"], r["T"], r["hd"]) == case
+                and r["dtype"] == "bfloat16"), way)
+            for label, case in LARGE_ATTN_CASES}
         if name == "flash_attention_fwd":  # the evaluation's chunk of 64
             row["eval_expert_correlation"] = attention_numbers(ce, "fwd")
     # kernel A's launches in the world-size-1 mesh run of the CLI (phase
@@ -2321,13 +2642,16 @@ def main() -> int:
         row["tp4_block"] = {"ms": blk["block_ms"], "whole_ms":
                             blk["whole_ms"], "max_abs_err":
                             blk["max_abs_err_blocks_vs_plain"]}
-    # every kernel's launches in phase 13's bench run, by type
+    # every kernel's launches in phase 13's bench run and in phase 14's
+    # large-expert runs, by type
     for row in kernels["kernels"]:
         name = row["name"]
-        n = bench_launches[name]
-        if name in ("potts_energy", "cnn_ensemble"):
-            n -= bench_launches[name + "_f32"]
-        row.setdefault("launches_by_path", {})["bench"] = n
+        for path, got_n in (("bench", bench_launches),
+                            ("large_experts", large_launches)):
+            n = got_n[name]
+            if name in ("potts_energy", "cnn_ensemble"):
+                n -= got_n[name + "_f32"]
+            row.setdefault("launches_by_path", {})[path] = n
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel the main path runs was not launched: {kernels}")
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2336,7 +2660,8 @@ def main() -> int:
                    "transformer_sampler": tr_runs, "cli": cli_runs,
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
                    "eval": eval_runs, "training": train_runs,
-                   "mesh": mesh_runs, "bench": bench_line, **kernels},
+                   "mesh": mesh_runs, "bench": bench_line,
+                   "large": large_runs, **kernels},
                   f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -422,9 +422,12 @@ def cast_params(params: dict, dtype=torch.bfloat16) -> dict:
 
 def save_npz_checkpoint(path: str, params: dict, step: int = 0):
     """Save params as a flattened-tree npz: leaves p0..pN in the JAX
-    package's tree order plus ``step``, weights upcast to float32."""
+    package's tree order plus ``step``, weights upcast to float32. Stored
+    without compression (the JAX package deflates; ``np.load`` reads
+    both): float32 weights barely deflate, and deflating transformer-L's
+    2.6 GB takes minutes."""
     flat = _flatten(params)
-    np.savez_compressed(
+    np.savez(
         path, step=step, treedef="ppde_tpu_torch esm2 tree, sorted keys",
         **{f"p{i}": a.detach().float().cpu().numpy()
            for i, a in enumerate(flat)})

@@ -1,7 +1,7 @@
 """Where a PPDE step of ppde_tpu_torch spends its time on the GPU.
 
     python tools/profile_port_step.py [--chains 128 1024] [--steps 40]
-    python tools/profile_port_step.py --transformer
+    python tools/profile_port_step.py --transformer [transformer-M]
     python tools/profile_port_step.py --kernels
     python tools/profile_port_step.py --phases
     python tools/profile_port_step.py --potts_dtype f32 --cnn_dtype f32
@@ -15,10 +15,13 @@ default types), runs a warm-up, then traces ``--steps`` sampler steps
 with torch.profiler and prints one JSON line per population: the step time,
 the device time by kernel name (top 12), the device time of the port's own
 kernels, the device busy share (the union of kernel intervals over the
-traced window) and the card's name and power limit. ``--transformer`` adds
-the random-init transformer-S expert (lambda=1, chip_smoke.py's phase 6) and
-traces one line per chunking of its gradient (chunks of 16 chains, and one
-piece; default 128 chains, 5 steps). ``--kernels`` traces kernels A and B
+traced window) and the card's name and power limit. ``--transformer
+[NAME]`` adds the random-init ESM2 expert NAME at full width and depth
+(default transformer-S; lambda=1, chip_smoke.py's phases 6 and 14) and
+traces one line per chunking of its gradient (transformer-S: chunks of 16
+chains, as phase 6; the larger experts: chunks of 64, as their drivers
+give them; and one piece; default 128 chains, 5 steps), with the model's
+share of the bf16 peak (2 forwards a step). ``--kernels`` traces kernels A and B
 alone at GFP width (bf16 and float32, B = 128 and 1024) beside
 ``torch.addmm``, and
 kernels C and C' at the transformer path's calls (bf16, (Z, T, hd) =
@@ -354,7 +357,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--chains", type=int, nargs="+", default=None)
     ap.add_argument("--steps", type=int, default=None)
-    ap.add_argument("--transformer", action="store_true")
+    ap.add_argument("--transformer", nargs="?", const="transformer-S",
+                    default=None, metavar="NAME",
+                    help="an ESM2 expert (esm2.CONFIGS key)")
     ap.add_argument("--kernels", action="store_true")
     ap.add_argument("--phases", action="store_true")
     ap.add_argument("--msat", action="store_true")
@@ -375,7 +380,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from chip_smoke import GFP_WT, TRANSFORMER_CHUNKS
+    from chip_smoke import (GFP_WT, LARGE_CHUNK, PEAK_OPS, TRANSFORMER_CHUNKS,
+                            esm_forward_flops)
     from ppde_tpu_torch import codec, energy as energy_mod
     from ppde_tpu_torch.models import cnn, esm2, potts
     from ppde_tpu_torch.ops import _build
@@ -412,11 +418,13 @@ def main() -> int:
     L, V = wt.shape[1], wt.shape[2]
     window = torch.ones((L, V), dtype=torch.bool, device=dev)
     if args.transformer:
-        tr = esm2.load_expert("transformer-S", GFP_WT, allow_random=True,
+        tr = esm2.load_expert(args.transformer, GFP_WT, allow_random=True,
                               dtype=torch.bfloat16, device=dev)
+        chunks = (TRANSFORMER_CHUNKS if args.transformer == "transformer-S"
+                  else (LARGE_CHUNK, None))
         energies = [(c, energy_mod.protein_poe(
             pp, ens, lam=1.0, wt_onehot=wt, transformer=tr, chunk_size=c,
-            compute_dtype=cdt)) for c in TRANSFORMER_CHUNKS]
+            compute_dtype=cdt)) for c in chunks]
     else:
         energies = [(None, energy_mod.protein_poe(
             pp, ens, lam=15.0, wt_onehot=wt, compute_dtype=cdt))]
@@ -447,8 +455,13 @@ def main() -> int:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
         own = {tag: sum(v for k, v in by_name.items() if tag in k)
                / steps / 1e3 for tag in PORT_KERNELS}
+        share = None
+        if args.transformer:
+            flops = 2 * esm_forward_flops(args.transformer, L) * n
+            share = flops * steps / (wall_us / 1e6) / PEAK_OPS["bfloat16"]
         print(json.dumps({
             "n_chains": n, "steps": steps, "transformer": args.transformer,
+            "model_bf16_peak_share": share,
             "potts_dtype": args.potts_dtype, "cnn_dtype": args.cnn_dtype,
             "chunk_size": chunk,
             "step_ms": wall_us / steps / 1e3,
