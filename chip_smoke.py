@@ -156,7 +156,38 @@ no result line):
      (model FLOPs: 2 forwards a step, ``esm_forward_flops``; the
      fine-tunes': ``esm_train_flops``). Phase 5 holds kernels C and C' at
      these runs' shapes (``LARGE_ATTN_CASES``). Output:
-     chiprun_out/chip_smoke_large.log.
+     chiprun_out/chip_smoke_large.log;
+ 15. the evidence drivers (``ppde_tpu_torch/scripts/run_r4_*.sh``,
+     ``run_r5_{family10k,ljdecision}.sh``): their calls recorded with the
+     stub python in a temporary tree laid out as the repository (the
+     tracked GFP alignment and msa-S scorer copied in, seeded GFP and
+     MNIST stand-ins at the drivers' paths; UBE4B's calls on the GFP
+     stand-in), each entry point's main run in process from that tree:
+     (a) run_r5_family10k.sh: finetune_esm transformer-S, batch 64, lr
+     3e-4, val_frac 0.05 (EVID_FT_STEPS of 4,000), then ``run_cells
+     --r5_family --only GFP`` on its file: 8 cells (potts+transformer-S
+     and transformer-S x 4 seeds, msa-S scoring over 500 rows,
+     EVID_CELL_STEPS of 10,000) in one process; each cell's launches exact
+     (``cell_launches``), phase 7's artifact checks, its summary at the
+     cut n_iters, its peak memory flat over its expert's cells within
+     EVID_MEM_MARGIN; one cell run again alone equal to its grid run bit
+     for bit; the grid run again skipping every cell (no launch, no file
+     rewritten); (b) ``eval_esm_heldout_ce`` on random init and the
+     fine-tune's checkpoint: the fine-tune's held-out count and its
+     before / after CEs to the printed 4 decimals, C 12 x 4 a CE; (c)
+     run_r4_evidence.sh's GFP ref-rev, lambda-0, supervised-only and
+     CMA-ES cells and run_r4_qc_pt.sh's supervised PPDE and PPDE-PT
+     (EVID_STEPS, EVID_CMAES_GENS): launches exact (A 0 without a Potts
+     term, none for CMA-ES), phase 7's checks, the summaries; (d)
+     fit_potts --lambda_J 0.001, select_lambda, both calibrate_oracle_
+     scale records of run_r5_ljdecision.sh, sample_potts_msa at 8192
+     sequences (EVID_QC_SWEEPS of 1,200 sweeps) with a finite QC r; (e)
+     run_r4_scorer_eval.sh's msa-S correlations (random and the tracked
+     scorer), two r4full mnist_sum runs and the EBM-scored summary of
+     them: finite values, no port kernel launched in (d) or (e). The
+     repository's results/ must be unchanged. From this run's rates, the
+     drivers' predicted wall times at their real settings. Output:
+     chiprun_out/chip_smoke_evidence.log.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -175,6 +206,7 @@ import itertools
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -331,6 +363,34 @@ LARGE_SWEEP_STEPS, LARGE_LOG_EVERY = 60, 10
 LARGE_ROWS = (("run_r5_150m.sh", "transformer-M", 60, 40),
               ("run_r4_650m.sh", "transformer-L", 40, 30))
 LARGE_CHUNK = 64
+# phase 15: the evidence drivers' calls, recorded in a temporary tree laid
+# out as the repository (``driver_calls(root=)``) and run in process from
+# it, cut: the fine-tune of run_r5_family10k.sh (EVID_FT_STEPS of 4,000);
+# GFP's 8 family cells of run_cells --r5_family (EVID_CELL_STEPS of
+# 10,000); run_r4_evidence.sh's and run_r4_qc_pt.sh's flags (EVID_STEPS of
+# 10,000; CMA-ES EVID_CMAES_GENS of 1,000); sample_potts_msa at the QC
+# ladder's largest rung (EVID_QC_SWEEPS of 1,200 sweeps); two mnist_sum
+# r4full runs (EVID_MNIST_STEPS of 20,000). EVID_MEM_MARGIN: the bytes by
+# which a family cell's peak memory may exceed the first cell of its
+# expert (a leaked bf16 copy of transformer-S's weights is 70 MB)
+EVID_FT_STEPS, EVID_CELL_STEPS, EVID_STEPS, EVID_CMAES_GENS = 200, 60, 200, 100
+EVID_QC_SWEEPS, EVID_MNIST_STEPS, EVID_MNIST_LOG_EVERY = 60, 200, 50
+EVID_MEM_MARGIN = 64 << 20
+EVID_RERUN = 0  # the grid's cell run again alone, after the grid
+EVID_CELLS = 8  # GFP's cells of r5_family_spec
+# (c): the cells of run_r4_evidence.sh proteins taken (their summaries'
+# names), and all of run_r4_qc_pt.sh pt
+EVID_FLAG_CELLS = ("GFP_PPDE-refrev_s1234567", "GFP_PPDE-pottsonly_s1234567",
+                   "GFP_PPDE-suponly_s1234567", "GFP_CMAES_s1234567")
+# phase 15's calls of kernels C and C' (transformer-S, hd 24): a family
+# cell's one piece of 128 chains, the fine-tune's batch of 64, the held-out
+# CE's 100 sequences and the wild type alone
+EVID_ATTN_CASES = (
+    ("family_cell_one_piece", (2560, 237, 24)),
+    ("finetune_batch_64", (1280, 237, 24)),
+    ("heldout_ce_S", (2000, 237, 24)), ("wild_type_S", (20, 237, 24)))
+ATTN_CASES += tuple(case for _, case in EVID_ATTN_CASES
+                    if case not in ATTN_CASES)
 DRIVER_STUB = """#!/bin/bash
 { printf '%s\\037' "$@"; printf '\\036'; } >> "$STUB_LOG"
 exit "${STUB_RC:-0}"
@@ -2227,20 +2287,30 @@ def esm_forward_flops(name, T):
             + 4 * T * D * V)
 
 
-def driver_calls(script, args=(), env=None):
+def driver_calls(script, args=(), env=None, root=None):
     """The calls one of the port's experiment drivers
     (``ppde_tpu_torch/scripts/<script>``) makes, as argument lists after
     ``python``: the driver run with a stub ``python`` first on PATH that
-    records its arguments and runs nothing."""
+    records its arguments and runs nothing. With ``root``, from a copy of
+    the port's drivers under ``root`` (a tree laid out as the repository),
+    so that their skip checks see that tree, not the checkout."""
     with tempfile.TemporaryDirectory() as tmp:
         stub, log = os.path.join(tmp, "python"), os.path.join(tmp, "calls")
         with open(stub, "w") as f:
             f.write(DRIVER_STUB)
         os.chmod(stub, 0o755)
+        scripts = os.path.join(ROOT, "ppde_tpu_torch", "scripts")
+        if root is not None:
+            dst = os.path.join(root, "ppde_tpu_torch", "scripts")
+            os.makedirs(dst, exist_ok=True)
+            for f in os.listdir(scripts):
+                if f.endswith(".sh"):
+                    shutil.copy(os.path.join(scripts, f), dst)
+            scripts = dst
         p = subprocess.run(
-            ["bash", os.path.join(ROOT, "ppde_tpu_torch", "scripts", script),
-             *args], env=dict(os.environ, PATH=f"{tmp}:{os.environ['PATH']}",
-                              STUB_LOG=log, **(env or {})),
+            ["bash", os.path.join(scripts, script), *args],
+            env=dict(os.environ, PATH=f"{tmp}:{os.environ['PATH']}",
+                     STUB_LOG=log, **(env or {})),
             capture_output=True, text=True, timeout=60)
         check(p.returncode == 0, f"{script} exited {p.returncode}: "
               f"{p.stderr[-2000:]}")
@@ -2265,24 +2335,37 @@ def with_flags(argv, flags):
     return out
 
 
-def cell_launches(args, name, steps, pieces):
-    """The launches of one protein CLI PPDE run with a transformer expert
-    in ``pieces`` pieces: A (potts, float32) and B once for the initial
-    state and once a step; C' once a layer a piece each time; C as often
+def cell_launches(args, steps, pieces=1):
+    """The launches of one protein CLI run of PPDE or PPDE-PT (or of a
+    sampler that takes no gradient, on an energy without a transformer:
+    none), its transformer expert's gradient in ``pieces`` pieces. A
+    (potts, float32: the CLI's Potts model) when the energy has a Potts
+    term, and B, once for the initial state and once a step; with a
+    transformer expert, C' once a layer a piece each time and C as often
     (twice under remat: transformer-L), plus one forward a layer for the
     expert's wild-type score at load and one for the CLI's wild-type
-    energy (one piece each)."""
+    energy (one piece each). ``--energy_function supervised`` has neither
+    Potts nor transformer term."""
     from ppde_tpu_torch.models import esm2
 
-    layers = esm2.CONFIGS[name]["layers"]
-    calls = steps + 1
-    potts = "potts" in args.unsupervised_expert.split("+")
+    poe = args.energy_function == "product_of_experts"
+    experts = args.unsupervised_expert.split("+") if poe else []
+    name = next((e for e in experts if e.startswith("transformer")), None)
+    grad = args.sampler in ("PPDE", "PPDE-PT")
+    check(grad or name is None, f"no formula for {args.sampler} with {name}")
+    calls = (steps + 1) * grad
+    potts = "potts" in experts
     f32 = args.compute_dtype == "f32"
-    remat = name == "transformer-L"
-    return {"potts_energy": calls * potts, "potts_energy_f32": calls * potts,
+    want = {"potts_energy": calls * potts, "potts_energy_f32": calls * potts,
             "cnn_ensemble": calls, "cnn_ensemble_f32": calls * f32,
-            "flash_attention_fwd": layers * (2 + (1 + remat) * pieces * calls),
-            "flash_attention_bwd": layers * pieces * calls}
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+    if name:
+        layers = esm2.CONFIGS[name]["layers"]
+        remat = name == "transformer-L"
+        want.update(flash_attention_fwd=layers * (
+            2 + (1 + remat) * pieces * calls),
+            flash_attention_bwd=layers * pieces * calls)
+    return want
 
 
 def phase_large(torch, counters, dev, card):
@@ -2330,7 +2413,7 @@ def phase_large(torch, counters, dev, card):
             check(args.n_iters == steps and args.n_chains == n_chains,
                   f"{label}: {args.n_iters} steps of {args.n_chains}")
             run_dir, out, got, secs, tm = run(label, de, argv)
-            want = cell_launches(args, name, steps, pieces)
+            want = cell_launches(args, steps, pieces)
             check(got == want, f"{label}: kernel launches {got}, not {want}")
             r = check_cli_run(torch, runtime, args, run_dir, steps, dev)
             flops = 2 * esm_forward_flops(name, T) * n_chains
@@ -2455,6 +2538,562 @@ def phase_large(torch, counters, dev, card):
     return results, launches
 
 
+def file_states(top):
+    """{path under ``top``: (size, mtime in ns, sha1)} of every file below
+    ``top``."""
+    import hashlib
+
+    out = {}
+    for d, _, files in os.walk(top):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                digest = hashlib.sha1(fh.read()).hexdigest()
+            st = os.stat(path)
+            out[os.path.relpath(path, top)] = (st.st_size, st.st_mtime_ns,
+                                               digest)
+    return out
+
+
+def process_start_s(torch):
+    """Seconds a fresh interpreter takes to import the protein CLI, load
+    the built kernels and reach the card: what each call of a driver pays
+    before its entry point's work, and run_cells pays once a grid."""
+    t = time.perf_counter()
+    subprocess.run([sys.executable, "-c", (
+        "import torch\n"
+        "from ppde_tpu_torch.scripts import directed_evolution\n"
+        "from ppde_tpu_torch.ops import _build\n"
+        "_build.build_all()\n"
+        "torch.zeros(1, device='cuda')\n"
+        "torch.cuda.synchronize()")], cwd=ROOT, check=True, timeout=300)
+    return time.perf_counter() - t
+
+
+def timing(torch, times):
+    """A wrap for ``patched``: each call's seconds, the device synchronised
+    before and after, appended to ``times``."""
+    def wrap(fn):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            return res
+        return timed
+    return wrap
+
+
+def phase_evidence(torch, counters, dev, card):
+    """Phase 15: the evidence drivers' calls at full width, in process,
+    from a temporary tree laid out as the repository (the tracked alignment
+    and scorer copied in, seeded GFP and MNIST stand-ins at the paths the
+    drivers name; the drivers' stub calls recorded there, so their skip
+    checks see the tree): (a) run_r5_family10k.sh: the batch-64 fine-tune
+    of transformer-S, then run_cells --r5_family on GFP's 8 cells in one
+    process (one of them again alone, bit for bit; the grid again, every
+    cell skipped; peak memory flat over each expert's cells); (b) the
+    held-out CE tool on random init and the fine-tune's checkpoint (equal
+    to the fine-tune's before / after lines); (c) run_r4_evidence.sh's and
+    run_r4_qc_pt.sh's sampler flags; (d) the Potts QC and the lambda_J
+    decision; (e) the scorer evaluation and the EBM-scored MNIST summary.
+    Launches exact in every run (none in (d), (e)); the repository's
+    results/ unchanged. No fallback: a failed cell fails the phase.
+    ``python -m ppde_tpu_torch.scripts.predict_driver_wall`` predicts the
+    drivers' wall times at their real settings from the saved results."""
+    from ppde_tpu_torch.scripts import seeded_mnist, seeded_protein
+
+    results, launches, by_run = {}, {name: 0 for name in counters}, {}
+    repo_results = file_states(os.path.join(ROOT, "results"))
+    log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_evidence.log")
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tree, open(log_path, "w") as log:
+        run = functools.partial(run_main, torch, counters, log, launches,
+                                by_run)
+        # the tree: the tracked inputs copied (a run that wrote one would
+        # change the copy), seeded stand-ins where the drivers look
+        wdir = os.path.join(tree, "weights")
+        seeded_protein.write_protein_dir(wdir, CLI_PROTEIN, GFP_WT, seed=0)
+        seeded_mnist.write_weights_dir(os.path.join(wdir, "mnist_models"))
+        seeded_mnist.write_data_dir(os.path.join(tree, "data", "mnist"))
+        scorer = os.path.join("results", "esm_family",
+                              "GFP_msat_S_ckpt_2000.npz")
+        for rel in (EVAL_MSA, scorer):
+            os.makedirs(os.path.dirname(os.path.join(tree, rel)),
+                        exist_ok=True)
+            shutil.copy(os.path.join(ROOT, rel), os.path.join(tree, rel))
+        os.chdir(tree)
+        try:
+            results["process_start_s"] = process_start_s(torch)
+            fam, ft, tool_r = evidence_family(torch, counters, dev, card,
+                                              run, log, launches, by_run,
+                                              tree)
+            results.update(family_cells=fam, finetune=ft, heldout_ce=tool_r)
+            results["evidence_flags"] = evidence_flags(torch, run, tree, dev,
+                                                       card)
+            results["qc"] = evidence_qc(torch, run, tree, card)
+            results["scorer_mnist"] = evidence_scorer_mnist(run, tree, card)
+        finally:
+            os.chdir(cwd)
+    after = file_states(os.path.join(ROOT, "results"))
+    changed = sorted(k for k in set(repo_results) | set(after)
+                     if repo_results.get(k) != after.get(k))
+    check(not changed, f"phase 15 changed the repository's results/: "
+          f"{changed[:20]}")
+    results["results_unchanged"] = {"files": len(after)}
+    results["launches_by_run"] = by_run
+    return results, launches
+
+
+def evidence_flags(torch, run, tree, dev, card):
+    """Phase 15 (c): run_r4_evidence.sh's GFP ref-rev, lambda-0,
+    supervised-only and CMA-ES cells and run_r4_qc_pt.sh pt's supervised
+    PPDE and PPDE-PT (UBE4B's, on the GFP stand-in), cut."""
+    from ppde_tpu_torch import runtime
+    from ppde_tpu_torch.scripts import directed_evolution as de
+
+    ev = driver_calls("run_r4_evidence.sh", ("proteins",), root=tree)
+    check(len(ev) == 45, f"run_r4_evidence.sh proteins: {len(ev)} calls")
+    named = {os.path.basename(c[c.index("--summary_json") + 1])[:-5]: c[2:]
+             for c in ev}
+    pt = driver_calls("run_r4_qc_pt.sh", ("pt",), root=tree)
+    check([c[1] for c in pt] == [
+        "ppde_tpu_torch.scripts.directed_evolution"] * 2,
+        f"run_r4_qc_pt.sh pt: {pt}")
+    flags = []
+    for label, argv in ([(n, named[n]) for n in EVID_FLAG_CELLS] + [
+            (os.path.basename(c[c.index("--summary_json") + 1])[:-5],
+             c[2:]) for c in pt]):
+        a = de.build_parser().parse_args(argv)
+        steps = EVID_CMAES_GENS if a.sampler == "CMAES" else EVID_STEPS
+        argv = with_flags(argv, {"--protein": CLI_PROTEIN,
+                                 "--n_iters": str(steps)})
+        a = de.build_parser().parse_args(argv)
+        run_dir, out, got, secs, tm = run(label, de, argv)
+        want = cell_launches(a, steps)
+        # cell_launches: A (f32) and B once for the initial state and once
+        # a step; A 0 without a Potts term (supervised); none for CMA-ES
+        check(got == want, f"{label}: kernel launches {got}, not {want}")
+        r = check_cli_run(torch, runtime, a, run_dir, steps, dev)
+        with open(a.summary_json) as f:
+            summary = json.load(f)
+        check(summary["n_iters"] == steps,
+              f"{label}: --summary_json says {summary['n_iters']}")
+        r.update({"run": label, "sampler": a.sampler, "steps": steps,
+                  "energy_function": a.energy_function,
+                  "energy_lamda": a.energy_lamda,
+                  "reference_reverse": a.ppde_reference_reverse,
+                  "main_s": secs, "peak_memory_gb": tm["main_peak_memory_gb"],
+                  "launches": got, "launches_want": want, "argv": argv,
+                  "card": card})
+        flags.append(r)
+        print("evidence flags", json.dumps(r), flush=True)
+    return flags
+
+
+def evidence_family(torch, counters, dev, card, run, log, launches, by_run,
+                    tree):
+    """Phase 15 (a) and (b): run_r5_family10k.sh's GFP fine-tune, the
+    family grid through run_cells, and the held-out CE tool."""
+    from ppde_tpu_torch import metrics, runtime, training
+    from ppde_tpu_torch.models import esm2
+    from ppde_tpu_torch.scripts import directed_evolution as de
+    from ppde_tpu_torch.scripts import eval_esm_heldout_ce as tool
+    from ppde_tpu_torch.scripts import finetune_esm, run_cells
+
+    T, layers = len(GFP_WT), esm2.CONFIGS["transformer-S"]["layers"]
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    calls = driver_calls("run_r5_family10k.sh", root=tree)
+    check([c[1].rsplit(".", 1)[1] for c in calls] == [
+        "finetune_esm"] * 3 + ["run_cells"] and calls[-1][2:] == [
+        "--r5_family"], f"run_r5_family10k.sh: calls {calls}")
+    ft_argv = with_flags(
+        next(c for c in calls if CLI_PROTEIN in c[c.index("--out") + 1])[2:],
+        {"--n_iters": str(EVID_FT_STEPS),
+         "--ckpt_every": str(EVID_FT_STEPS),
+         "--log_every": str(EVID_FT_STEPS // 4)})
+    ft = finetune_esm.build_parser().parse_args(ft_argv)
+    check(ft.esm_model == "transformer-S" and ft.batch_size == 64
+          and ft.lr == 3e-4 and ft.val_frac == 0.05 and ft.msa == EVAL_MSA
+          and ft.lora_rank == 0, f"run_r5_family10k.sh: fine-tune {ft}")
+    label = "finetune_esm transformer-S batch 64"
+    _, out, got, secs, tm = run(label, finetune_esm, ft_argv,
+                                "train_esm_mlm")
+    # a step: one forward and one backward a layer; the held-out CE
+    # before and after: 4 forwards a layer each
+    want = dict(dict.fromkeys(COUNTERS, 0),
+                flash_attention_fwd=layers * (EVID_FT_STEPS + 2 * 4),
+                flash_attention_bwd=layers * EVID_FT_STEPS)
+    check(got == want, f"{label}: kernel launches {got}, not {want}")
+    n_held = int(re.search(r"\(\+(\d+) held out\)", out).group(1))
+    ce = dict(re.findall(r"held-out masked CE (\w+): (\S+)", out))
+    check(set(ce) == {"before", "after"} and np.isfinite(
+        [float(v) for v in ce.values()]).all(), f"{label}: held-out {ce}")
+    ckpt = f"{ft.out}_ckpt_{EVID_FT_STEPS}.npz"
+    check(os.path.exists(ckpt), f"{label}: no {ckpt}")
+    ft_r = esm_record(label, "transformer-S", tm, out, EVID_FT_STEPS,
+                      ft.batch_size, card)
+    ft_r.update({"main_s": secs, "n_heldout": n_held,
+                 "heldout_ce_before": float(ce["before"]),
+                 "heldout_ce_after": float(ce["after"]), "launches": got,
+                 "launches_want": want, "argv": ft_argv})
+    print("evidence finetune", json.dumps(ft_r), flush=True)
+    # the cut fine-tune's file at the path r5_family_spec names
+    expert = f"{ft.out}_ckpt_4000.npz"
+    os.symlink(os.path.basename(ckpt), expert)
+
+    # (a) the grid in one process: each cell's launches, peak memory
+    # (reset before it), sampling and scoring time and result captured
+    spec = [c for c in run_cells.r5_family_spec(EVID_CELL_STEPS)
+            if "GFP" in c["name"]]
+    check(len(spec) == EVID_CELLS, f"r5_family_spec: {len(spec)} GFP cells")
+    rc_argv = calls[-1][2:] + ["--only", "GFP", "--family_iters",
+                               str(EVID_CELL_STEPS)]
+    cells, cur, score_s = [], {}, []
+
+    def per_cell(orig):
+        def main(a):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters(counters)
+            cur.clear()
+            n_scored = len(score_s)
+            t = time.perf_counter()
+            run_dir = orig(a)
+            torch.cuda.synchronize()
+            cells.append({"args": a, "run_dir": run_dir,
+                          "main_s": time.perf_counter() - t,
+                          "launches": read_counters(counters),
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "score_s": sum(score_s[n_scored:]), **cur})
+            return run_dir
+        return main
+
+    def timed_runner(orig):
+        def get(args, device):
+            runner = orig(args, device)
+
+            def run_(**kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = runner(**kw)
+                torch.cuda.synchronize()
+                cur.update(runner_s=time.perf_counter() - t, result=res)
+                return res
+            return run_
+        return get
+
+    def grid(label):
+        """run_cells.main on rc_argv: (its output, seconds)."""
+        out = io.StringIO()
+        t = time.perf_counter()
+        with patched(de, "main", per_cell), \
+                patched(de, "get_sampler_runner", timed_runner), \
+                patched(metrics, "proteins_transformer_score",
+                        timing(torch, score_s)), \
+                patched(run_cells, "STOP_FILE",
+                        lambda _: os.path.join(tree, "r5_stop")), \
+                contextlib.redirect_stdout(out), warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            try:
+                run_cells.main(rc_argv)
+            except SystemExit as e:
+                check(False, f"{label}: run_cells exited {e.code}: "
+                      f"{out.getvalue()[-2000:]}")
+        secs = time.perf_counter() - t
+        log.write(f"==== {label}\n{out.getvalue()}")
+        return out.getvalue(), secs
+
+    reset_counters(counters)
+    out, grid_s = grid("run_cells --r5_family --only GFP")
+    check(f"done={EVID_CELLS} skipped=0 failed=0" in out and len(cells)
+          == EVID_CELLS, f"run_cells: {out[-500:]}")
+    check(read_counters(counters) == cells[-1]["launches"],
+          "run_cells launched a kernel outside its cells")
+    rows = []
+    for c, sp in zip(cells, spec):
+        a = c["args"]
+        check(a.summary_json == sp["argv"][sp["argv"].index(
+            "--summary_json") + 1], f"cell order: {a.summary_json}")
+        chunk = runtime.resolve_esm_chunk(a.esm_chunk, True, CLI_CHAINS,
+                                          "transformer-S", T, card_bytes)
+        check(not chunk or chunk >= CLI_CHAINS,
+              f"{sp['name']}: chunk {chunk}, not one piece")
+        want = cell_launches(a, EVID_CELL_STEPS, 1)
+        # cell_launches: A (potts+S only) and B once for the initial
+        # state and once a step; C' 12 a step (and initial state); C as
+        # C' plus 12 for the expert's wild-type score and 12 for the
+        # CLI's wild-type energy
+        check(c["launches"] == want, f"{sp['name']}: kernel launches "
+              f"{c['launches']}, not {want}")
+        r = check_cli_run(torch, runtime, a, c["run_dir"], EVID_CELL_STEPS,
+                          dev)
+        with open(a.summary_json) as f:
+            summary = json.load(f)
+        check(summary["n_iters"] == EVID_CELL_STEPS
+              and "evolutionary_density" in summary,
+              f"{sp['name']}: summary {sorted(summary)}")
+        for name, n in c["launches"].items():
+            launches[name] += n
+        by_run["run_cells " + sp["name"]] = c["launches"]
+        flops = 2 * esm_forward_flops("transformer-S", T) * CLI_CHAINS
+        r.update({"cell": sp["name"], "expert": a.unsupervised_expert,
+                  "seed": a.seed, "steps": EVID_CELL_STEPS,
+                  "n_chains": CLI_CHAINS, "main_s": c["main_s"],
+                  "sampling_s": c["runner_s"], "msa_s_scoring_s":
+                  c["score_s"], "outside_s": c["main_s"] - c["runner_s"]
+                  - c["score_s"], "peak_memory_gb": c["peak_bytes"] / 1e9,
+                  "bf16_peak_share": flops * r["steps_per_sec"]
+                  / PEAK_OPS["bfloat16"], "launches": c["launches"],
+                  "card": card})
+        rows.append(r)
+        print("evidence cell", json.dumps(r), flush=True)
+    # peak memory flat from each expert's first cell to its last
+    mem = {}
+    for c, r in zip(cells, rows):
+        mem.setdefault(r["expert"], []).append(c["peak_bytes"])
+    for expert, peaks in mem.items():
+        check(peaks[-1] <= peaks[0] + EVID_MEM_MARGIN,
+              f"{expert}: peak memory {peaks[0]} -> {peaks[-1]} bytes over "
+              f"its cells (margin {EVID_MEM_MARGIN})")
+
+    # one cell again alone, in this process: bit for bit its grid run
+    sp = spec[EVID_RERUN]
+    a = de.build_parser().parse_args(sp["argv"])
+    with patched(de, "get_sampler_runner", timed_runner), \
+            patched(metrics, "proteins_transformer_score",
+                        timing(torch, score_s)), \
+            contextlib.redirect_stdout(io.StringIO()), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        per_cell(de.main)(a)
+    again, first = cells[-1], cells[EVID_RERUN]
+    for key in CKPT_COMPARED:
+        x, y = getattr(again["result"], key), getattr(first["result"], key)
+        check(x.shape == y.shape and np.array_equal(x, y),
+              f"{sp['name']} alone: {key} differs from its grid run")
+    check(again["launches"] == first["launches"],
+          f"{sp['name']} alone: launches {again['launches']}")
+
+    # the grid again: every cell skipped, nothing launched or rewritten
+    states = file_states(os.path.join(tree, "results"))
+    n_cells = len(cells)
+    reset_counters(counters)
+    out, again_s = grid("run_cells --r5_family --only GFP (again)")
+    check(f"done=0 skipped={EVID_CELLS} failed=0" in out
+          and len(cells) == n_cells and not any(
+              read_counters(counters).values())
+          and file_states(os.path.join(tree, "results")) == states,
+          f"run_cells again: {out[-500:]}")
+    outside = [r["outside_s"] for r in rows]
+    fam = {"cells": rows, "grid_s": grid_s,
+           "run_cells_own_s": grid_s - sum(c["main_s"] for c in
+                                           cells[:EVID_CELLS]),
+           "outside_first_cell_s": outside[0],
+           "outside_later_cells_mean_s": float(np.mean(outside[1:])),
+           "peak_memory_gb_by_expert": {k: [v / 1e9 for v in p]
+                                        for k, p in mem.items()},
+           "memory_margin_bytes": EVID_MEM_MARGIN,
+           "rerun_alone": {"cell": sp["name"], "bit_exact": list(
+               CKPT_COMPARED), "main_s": again["main_s"]},
+           "second_pass_s": again_s, "second_pass_skipped": EVID_CELLS}
+    print("evidence grid", json.dumps({k: v for k, v in fam.items()
+                                       if k != "cells"}), flush=True)
+
+    # (b) the held-out CE tool on random init and the fine-tune's file,
+    # the fine-tune's flags: its before and after lines again
+    ce_s = []
+    tool_argv = ["--msa", ft.msa, "--wt_fasta", ft.wt_fasta, "--esm_model",
+                 ft.esm_model, "--val_frac", str(ft.val_frac), "--seed",
+                 str(ft.seed), "--ckpt", ckpt]
+    with patched(training, "esm_mlm_heldout_ce", timing(torch, ce_s)):
+        res, out, got, secs, _ = run("eval_esm_heldout_ce", tool, tool_argv)
+    name = os.path.basename(ckpt)
+    want = dict(dict.fromkeys(COUNTERS, 0),
+                flash_attention_fwd=2 * layers * 4)  # 4 forwards a CE
+    check(got == want, f"eval_esm_heldout_ce: launches {got}, not {want}")
+    check(res["n_heldout"] == n_held and res["length"] == T,
+          f"eval_esm_heldout_ce: {res['n_heldout']} held out of length "
+          f"{res['length']}, the fine-tune {n_held}")
+    check(f"{res['random_init']:.4f}" == ce["before"]
+          and f"{res[name]:.4f}" == ce["after"],
+          f"eval_esm_heldout_ce: {res} against the fine-tune's {ce}")
+    tool_r = {"n_heldout": n_held, "random_init": res["random_init"],
+              "checkpoint": res[name], "finetune_before": ce["before"],
+              "finetune_after": ce["after"], "ce_s": ce_s, "main_s": secs,
+              "launches": got, "argv": tool_argv, "card": card}
+    print("evidence heldout_ce", json.dumps(tool_r), flush=True)
+    return fam, ft_r, tool_r
+
+
+def evidence_qc(torch, run, tree, card):
+    """Phase 15 (d): fit_potts --lambda_J 0.001 on the GFP alignment,
+    select_lambda and calibrate_oracle_scale (both of
+    run_r5_ljdecision.sh's calls, on that fit) against the seeded GFP
+    directory, sample_potts_msa at the QC ladder's largest rung from the
+    fit. No port kernel runs."""
+    from ppde_tpu_torch.models import potts
+    from ppde_tpu_torch.scripts import (calibrate_oracle_scale, fit_potts,
+                                        sample_potts_msa, select_lambda)
+
+    zero = dict.fromkeys(COUNTERS, 0)
+    qc = driver_calls("run_r4_qc_pt.sh", ("qc",), root=tree)
+    lj = driver_calls("run_r5_ljdecision.sh", root=tree)
+    fit_npz = os.path.join(tree, "potts_lj0.001.npz")  # not /tmp's
+    subs = {"--protein": CLI_PROTEIN, "--potts_npz": fit_npz}
+
+    def first(calls, entry, **kv):
+        return next(c[2:] for c in calls if c[1].endswith(entry) and all(
+            c[c.index(k) + 1] == v for k, v in kv.items()))
+
+    out_r = {}
+    fit_argv = with_flags(first(qc, "fit_potts", **{"--lambda_J": "0.001"}),
+                          {"--msa": EVAL_MSA, "--out": fit_npz})
+    save_s = []
+    with patched(potts, "save_npz", timing(torch, save_s)):
+        hist, out, got, secs, tm = run("fit_potts lambda_J 0.001",
+                                       fit_potts, fit_argv, "fit")
+    check(got == zero, f"fit_potts: kernel launches {got}")
+    check(np.isfinite(hist).all() and hist[-1] < hist[0],
+          f"fit_potts: loss {hist[0]} -> {hist[-1]}")
+    out_r["fit_potts"] = {"steps": len(hist), "fit_s": tm["seconds"],
+                          "steps_per_sec": tm["later_steps_per_sec"],
+                          "save_npz_s": save_s[0], "main_s": secs,
+                          "loss_first": hist[0], "loss_last": hist[-1],
+                          "launches": got}
+    sel_argv = with_flags(first(qc, "select_lambda", **{
+        "--potts_npz": "/tmp/potts_lj0.001.npz"}), subs)
+    lam, out, got, secs, _ = run("select_lambda", select_lambda, sel_argv)
+    check(got == zero, f"select_lambda: kernel launches {got}")
+    check(np.isfinite(lam) and lam > 0, f"select_lambda: {lam}")
+    out_r["select_lambda"] = {"lambda": lam, "main_s": secs}
+    cal = [c[2:] for c in lj if c[1].endswith("calibrate_oracle_scale")]
+    check(len(cal) == 2, f"run_r5_ljdecision.sh: {lj}")
+    recs = []
+    for argv in cal:
+        rec, out, got, secs, _ = run("calibrate_oracle_scale",
+                                     calibrate_oracle_scale,
+                                     with_flags(argv, subs))
+        check(got == zero, f"calibrate_oracle_scale: launches {got}")
+        recs.append({"alpha": rec["alpha"], "scale_s": rec["scale_s"],
+                     "spearman_dH_vs_fitness_by_k":
+                     rec["spearman_dH_vs_fitness_by_k"], "main_s": secs})
+    jsonl = cal[0][cal[0].index("--out_json") + 1]
+    with open(jsonl) as f:
+        lines = [json.loads(line) for line in f]
+    check(len(lines) == 2 and all(
+        np.isfinite([r["alpha"], r["scale_s"],
+                     *r["spearman_dH_vs_fitness_by_k"].values()]).all()
+        and r["spearman_dH_vs_fitness_by_k"] for r in lines),
+        f"{jsonl}: {lines}")
+    out_r["calibrate_oracle_scale"] = recs
+    # the ladder's largest rung on a directory whose Potts file is the fit
+    ladder = [c[2:] for c in qc if c[1].endswith("sample_potts_msa")
+              and "--potts_npz" not in c]
+    argv = ladder[-1]
+    check(argv[argv.index("--n_seqs") + 1] == "8192"
+          and argv[argv.index("--n_sweeps") + 1] == "1200",
+          f"the QC ladder's last rung: {argv}")
+    qdir = os.path.join(tree, "qc_weights", CLI_PROTEIN)
+    os.makedirs(qdir)
+    src = os.path.join(tree, "weights", CLI_PROTEIN)
+    for f in os.listdir(src):
+        os.symlink(os.path.join(src, f), os.path.join(qdir, f))
+    shutil.copy(fit_npz, os.path.join(qdir, "potts.npz"))
+    argv = with_flags(argv, {
+        "--protein": CLI_PROTEIN, "--protein_weights": "qc_weights",
+        "--qc_msa": EVAL_MSA, "--n_sweeps": str(EVID_QC_SWEEPS)})
+    gibbs_s = []
+    with patched(potts, "gibbs_sample", timing(torch, gibbs_s)):
+        (seqs, rec), out, got, secs, _ = run("sample_potts_msa 8192",
+                                             sample_potts_msa, argv)
+    r1, r2 = rec["single_site_freq_r"], rec["pair_covariance_r"]
+    check(got == zero, f"sample_potts_msa: kernel launches {got}")
+    check(len(seqs) == 8192 and r1 is not None and r2 is not None
+          and np.isfinite([r1, r2]).all(),
+          f"sample_potts_msa: {len(seqs)} sequences, QC r {r1}, {r2}")
+    out_r["sample_potts_msa"] = {
+        "n_seqs": 8192, "n_sweeps": EVID_QC_SWEEPS, "gibbs_s": gibbs_s[0],
+        "sweeps_per_sec": EVID_QC_SWEEPS / gibbs_s[0], "main_s": secs,
+        "qc": rec, "launches": got, "card": card}
+    print("evidence qc", json.dumps(out_r), flush=True)
+    return out_r
+
+
+def evidence_scorer_mnist(run, tree, card):
+    """Phase 15 (e): run_r4_scorer_eval.sh's GFP calls (msa-S at 256 rows
+    and 256 mutants, random and the tracked scorer), two of
+    run_r4_evidence.sh's r4full mnist_sum calls and the EBM-scored summary
+    of the r4full runs. No port kernel runs."""
+    from ppde_tpu_torch.scripts import (eval_expert_correlation, mnist_sum,
+                                        summarize_mnist_runs)
+
+    zero = dict.fromkeys(COUNTERS, 0)
+    out_r = {"scorer_eval": {}}
+    se = driver_calls("run_r4_scorer_eval.sh", root=tree)
+    check(len(se) == 2 and all(c[c.index("--protein") + 1] == CLI_PROTEIN
+                               for c in se), f"run_r4_scorer_eval.sh: {se}")
+    for c in se:
+        mode = "trained" if "--msat_weights" in c else "random"
+        argv = c[2:]
+        res, out, got, secs, _ = run(f"eval_expert_correlation msa-S {mode}",
+                                     eval_expert_correlation, argv)
+        rho = res["spearman_vs_oracle"]
+        with open(argv[argv.index("--out_json") + 1]) as f:
+            saved = json.load(f)["spearman_vs_oracle"]
+        check(got == zero,
+              f"eval_expert_correlation {mode}: kernel launches {got}")
+        check(saved == rho and "msat_" in " ".join(rho)
+              and all(np.isfinite(v) for v in rho.values()),
+              f"eval_expert_correlation {mode}: rho {rho}")
+        out_r["scorer_eval"][mode] = {"spearman_vs_oracle": rho,
+                                      "main_s": secs}
+    mn = driver_calls("run_r4_evidence.sh", ("mnist",), root=tree)
+    mruns = [c[2:] for c in mn if c[1].endswith("mnist_sum")
+             and c[c.index("--suffix") + 1] == "r4full"][:2]
+    out_r["mnist"] = []
+    for argv in mruns:
+        # the card's machine has no matplotlib: csv only, and the viz
+        # writer's .npy (what the summariser reads) written here as it
+        # writes it
+        argv = with_flags(argv, {"--n_iters": str(EVID_MNIST_STEPS),
+                                 "--log_every": str(EVID_MNIST_LOG_EVERY),
+                                 "--metrics": "csv"})
+        a = mnist_sum.build_parser().parse_args(argv)
+        label = f"mnist_sum {a.sampler} r4full"
+        seen = set(os.listdir(a.results_path)) if os.path.isdir(
+            a.results_path) else set()
+        res, out, got, secs, _ = run(label, mnist_sum, argv)
+        check(got == zero, f"{label}: kernel launches {got}")
+        check(np.isfinite(res.energy_history).all(),
+              f"{label}: non-finite energies")
+        csv = [f for f in set(os.listdir(a.results_path)) - seen
+               if f.endswith("_r4full_oracle_sums.csv")]
+        check(len(csv) == 1, f"{label}: wrote {csv}")
+        prefix = os.path.join(a.results_path,
+                              csv[0][:-len("_oracle_sums.csv")])
+        np.save(prefix + "_final_population.npy",
+                res.final_x.reshape(-1, 28, 28))
+        out_r["mnist"].append({"run": os.path.basename(prefix),
+                               "steps": EVID_MNIST_STEPS,
+                               "steps_per_sec": res.steps_per_sec,
+                               "main_s": secs})
+    sm = next(c[2:] for c in mn if c[1].endswith("summarize_mnist_runs")
+              and c[c.index("--runs_glob") + 1].endswith("_r4full"))
+    rows, out, got, secs, _ = run("summarize_mnist_runs r4full",
+                                  summarize_mnist_runs, sm)
+    with open(sm[sm.index("--out_json") + 1]) as f:
+        saved = json.load(f)
+    check(got == zero, f"summarize_mnist_runs: kernel launches {got}")
+    check(len(rows) == 2 and saved == rows and all(
+        np.isfinite([r["ebm_logp_mean"], r["ebm_logp_std"]]).all()
+        for r in rows), f"summarize_mnist_runs: {rows}")
+    out_r["mnist_summary"] = {"rows": rows, "main_s": secs, "card": card}
+    print("evidence scorer_mnist", json.dumps(out_r), flush=True)
+    return out_r
+
+
 def attention_numbers(r, way):
     """One phase-5 record's numbers of kernel C (way "fwd") or C' ("bwd")."""
     return {"shape": [r["Z"], r["T"], r["hd"]],
@@ -2529,7 +3168,8 @@ def main() -> int:
             **{("gfp", r["n_chains"], "potts+transformer-S"):
                r["steps_per_sec"] for r in got["transformer"][0]
                if r["chunk_size"] is None}}),
-        "large": lambda: phase_large(torch, counters, dev, card)}
+        "large": lambda: phase_large(torch, counters, dev, card),
+        "evidence": lambda: phase_evidence(torch, counters, dev, card)}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     got = {}
     for name, run in phases.items():
@@ -2547,8 +3187,10 @@ def main() -> int:
     mesh_runs, mesh_launches = got["mesh"]
     bench_line, bench_launches = got["bench"]
     large_runs, large_launches = got["large"]
+    evid_runs, evid_launches = got["evidence"]
     for more in (tr_launches, cli_launches, eval_launches, train_launches,
-                 mesh_launches, bench_launches, large_launches):
+                 mesh_launches, bench_launches, large_launches,
+                 evid_launches):
         for name, n in more.items():
             launches[name] += n
 
@@ -2620,11 +3262,13 @@ def main() -> int:
         way = name.rsplit("_", 1)[1]
         row["finetune_esm"] = attention_numbers(cs, way)
         row["finetune_esm_L"] = attention_numbers(cl, way)
-        row["large_experts"] = {
-            label: attention_numbers(next(
-                r for r in pc if (r["Z"], r["T"], r["hd"]) == case
-                and r["dtype"] == "bfloat16"), way)
-            for label, case in LARGE_ATTN_CASES}
+        for key, cases in (("large_experts", LARGE_ATTN_CASES),
+                           ("evidence_drivers", EVID_ATTN_CASES)):
+            row[key] = {
+                label: attention_numbers(next(
+                    r for r in pc if (r["Z"], r["T"], r["hd"]) == case
+                    and r["dtype"] == "bfloat16"), way)
+                for label, case in cases}
         if name == "flash_attention_fwd":  # the evaluation's chunk of 64
             row["eval_expert_correlation"] = attention_numbers(ce, "fwd")
     # kernel A's launches in the world-size-1 mesh run of the CLI (phase
@@ -2642,12 +3286,13 @@ def main() -> int:
         row["tp4_block"] = {"ms": blk["block_ms"], "whole_ms":
                             blk["whole_ms"], "max_abs_err":
                             blk["max_abs_err_blocks_vs_plain"]}
-    # every kernel's launches in phase 13's bench run and in phase 14's
-    # large-expert runs, by type
+    # every kernel's launches in phase 13's bench run, phase 14's
+    # large-expert runs and phase 15's evidence drivers, by type
     for row in kernels["kernels"]:
         name = row["name"]
         for path, got_n in (("bench", bench_launches),
-                            ("large_experts", large_launches)):
+                            ("large_experts", large_launches),
+                            ("evidence_drivers", evid_launches)):
             n = got_n[name]
             if name in ("potts_energy", "cnn_ensemble"):
                 n -= got_n[name + "_f32"]
@@ -2661,7 +3306,7 @@ def main() -> int:
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
                    "eval": eval_runs, "training": train_runs,
                    "mesh": mesh_runs, "bench": bench_line,
-                   "large": large_runs, **kernels},
+                   "large": large_runs, "evidence": evid_runs, **kernels},
                   f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -336,7 +336,7 @@ def summary_state(cell) -> str:
     return "done"
 
 
-def main(argv=None):
+def build_parser():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--spec", type=str, default=None,
                     help="JSON list of {name, argv} cells")
@@ -367,7 +367,11 @@ def main(argv=None):
                     help="re-run cells whose summary is already real")
     ap.add_argument("--only", type=str, default=None,
                     help="substring filter on cell names")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     if args.r4_evidence:
         cells = r4_evidence_spec()
