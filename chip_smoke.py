@@ -16,13 +16,16 @@ no result line):
      plain version at GFP width (M=3, C=237, L=237), same batches and types,
      both max-pool backward modes, plus an input with exact ties and, in
      float32, one that is not one-hot; weights prepared once, as the
-     sampler has them, and in the stacked layout;
+     sampler has them, and in the stacked layout; then B's wide kernel at
+     the reference width of longer wild types (C = L = 400 and 1022), 128
+     random and 128 tied sequences, both types and modes;
   4. the PPDE-PAS sampler on GFP with the Potts + CNN-ensemble energy
      (synthetic seeded Potts, seeded 3-member ensemble, bf16, lambda=15,
      pas_length=2, nmut_threshold=10): 128 chains and 1024 chains. The
      kernels' launch counters are set to 0 just before and read just after;
   5. kernels C and C' (attention forward and backward) against their plain
-     versions at ESM2's head shapes, float32 and bfloat16, each run twice
+     versions at ESM2's head shapes and past T = 512 (T = 1024 at hd 24
+     and 64, T = 513), float32 and bfloat16, each run twice
      (bit-for-bit repeatable), held elementwise and by the relative norm
      of the difference, timed beside the plain version and
      scaled_dot_product_attention, with the floor the special function
@@ -121,7 +124,9 @@ no result line):
      recorded so); L at 1024 is predicted from its slope per chain. Output:
      chiprun_out/chip_smoke_mesh.log.
  13. the port's benchmark, ``python -m ppde_tpu_torch.scripts.bench`` at
-     its defaults, in a subprocess (GFP potts PoE at 128 and 1024 chains,
+     its defaults but for the steps of BENCH_ARGV (potts at 128 chains
+     600 of 2,000, MNIST 300 of 2,000), in a subprocess (GFP potts PoE
+     at 128 and 1024 chains,
      potts + transformer-S at 128, MNIST PPDE-PAS-10 on the EBM at 128;
      bf16): exit code 0, its one JSON line with every key, the four
      configurations with finite positive rates and three execution times,
@@ -188,6 +193,18 @@ no result line):
      repository's results/ must be unchanged. From this run's rates, the
      drivers' predicted wall times at their real settings. Output:
      chiprun_out/chip_smoke_evidence.log.
+ 16. long proteins: the protein CLI (PPDE, 128 chains, phase 7's flags) on
+     seeded wild types drawn from a numpy seed with the reference-width
+     CNN (C = L): 400 residues with the potts expert, the CNN in float32
+     and in bf16 (kernel A and B's wide kernel), and 1022 residues with
+     potts+transformer-S (random init, one piece) and the float32 CNN (A,
+     B's wide kernel, and the key-tiled C and C' at T = 1022). Launches
+     exact (``cell_launches``), phase 7's checks, an acceptance rate
+     inside (0, 1); steps/s (the CLI's, over segments of LONG_LOG_EVERY
+     steps, the first left out), peak memory, the device time of A, B, C
+     and C' in one traced energy_and_grad, and at 1022 the one-piece
+     transformer gradient's peak memory against runtime.ESM_GRAD_MEMORY.
+     Output: chiprun_out/chip_smoke_long.log.
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -255,6 +272,17 @@ ATTN_CASES = ((320, 237, 24), (2560, 237, 24), (320, 237, 32),
               (640, 237, 64), (4000, 237, 24))
 ATTN_CASES += tuple(case for _, case in LARGE_ATTN_CASES
                     if case not in ATTN_CASES)
+# proteins past the register kernels' T = 256 (the key-tiled kernels):
+# ESM2's trained context at transformer-S's and -L's head widths, one
+# piece of 128 chains, the shape phase 16's wild type of 1022 residues
+# gives them (the expert adds no BOS / EOS: T = L, a partial last 64-row
+# tile), and a wild type of 513 residues alone
+LONG_ATTN_CASES = ((2560, 1024, 24), (2560, 1024, 64), (2560, 1022, 24),
+                   (20, 513, 24))
+ATTN_CASES += LONG_ATTN_CASES
+# phase 3: kernel B's wide kernel at the reference width (C = L) of
+# wild types of these lengths
+LONG_CNN_LENGTHS = (400, 1022)
 TRANSFORMER_RUN = (128, 40, 20)                    # chains, steps, log_every
 TRANSFORMER_CHUNKS = (16, None)
 # phase 7: (label, sampler, steps, extra CLI flags) at CLI_CHAINS chains
@@ -351,6 +379,10 @@ BENCH_DETAIL_KEYS = ("configs", "headline_n_chains",
 BENCH_ROW_KEYS = ("domain", "n_chains", "expert", "sampler_steps_per_sec",
                   "chain_steps_per_sec", "execution_s", "launches", "checks")
 BENCH_TIMEOUT = 700
+# the bench's flags in phase 13: its defaults but for the steps of the
+# potts 128-chain and the MNIST configurations (2,000 each), cut to keep
+# the whole script under 1,000 s with phase 16
+BENCH_ARGV = ("--steps", "600", "--steps-mnist", "300")
 # phase 14: the large ESM2 experts at full width and depth, through the
 # calls the port's experiment drivers make (recorded with a stub python,
 # ``driver_calls``; paths, step counts and log cadences substituted): the
@@ -391,6 +423,18 @@ EVID_ATTN_CASES = (
     ("heldout_ce_S", (2000, 237, 24)), ("wild_type_S", (20, 237, 24)))
 ATTN_CASES += tuple(case for _, case in EVID_ATTN_CASES
                     if case not in ATTN_CASES)
+# phase 16: proteins of more than 256 residues through the protein CLI
+# (PPDE at CLI_CHAINS chains, phase 7's flags), wild types of these lengths
+# drawn from a numpy seed (LONG_SEED + L), seeded stand-ins with the
+# reference-width CNN (C = L): (label, L, expert, --compute_dtype, steps)
+LONG_RUNS = (("L400 potts f32", 400, "potts", "f32", 40),
+             ("L400 potts bf16", 400, "potts", "bf16", 40),
+             ("L1022 potts+transformer-S f32", 1022, "potts+transformer-S",
+              "f32", 30))
+LONG_SEED = 14
+# segments of this many steps: the CLI's steps/s leaves out the first
+# (its first launches), so the first run in a process reads as the others
+LONG_LOG_EVERY = 10
 DRIVER_STUB = """#!/bin/bash
 { printf '%s\\037' "$@"; printf '\\036'; } >> "$STUB_LOG"
 exit "${STUB_RC:-0}"
@@ -625,6 +669,78 @@ def phase_cnn(torch, cnn, cnn_fused, dev):
                             "bound_by": by})
                 out.append(res)
                 print("kernel B", json.dumps(res), flush=True)
+    out += phase_cnn_long(torch, cnn, cnn_fused, dev)
+    return out
+
+
+def phase_cnn_long(torch, cnn, cnn_fused, dev):
+    """Kernel B's wide kernel: wild types of LONG_CNN_LENGTHS residues at the
+    reference width (C = L), 128 random sequences and 128 of period 5 (exact
+    ties in every channel), both types and pool modes, against the plain
+    version at phase 3's tolerances; repeatable, launched once a call (on
+    the wide kernel), split and first apart on the ties; the random
+    inputs timed beside the plain version, with their bound."""
+    out = []
+    for L in LONG_CNN_LENGTHS:
+        ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(L), 3,
+                                input_size=L)
+        M, K, V, C = ens["encoder"]["w"].shape
+        C2 = ens["embed"]["w"].shape[-1]
+        xgen = torch.Generator(device=dev).manual_seed(L + 1)
+        base = torch.randint(0, 20, (128, 5), generator=xgen, device=dev)
+        ties = torch.nn.functional.one_hot(
+            base.repeat(1, -(-L // 5))[:, :L], 20).float()
+        inputs = (("128", random_onehot(torch, xgen, 128, L, dev)),
+                  ("128-ties", ties))
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            s = 2 if dtype == torch.bfloat16 else 4
+            w_bytes = M * (K * V * C + C * C2 + C2) * s + M * (C + C2 + 1) * 4
+            prep = cnn_fused.prepare_ensemble(ens, dtype)
+            for pool in ("split", "first"):
+                for name, x in inputs:
+                    n0 = cnn_fused.launches_wide
+                    fit, dx = cnn_fused.ensemble_apply_and_grad(prep, x, None,
+                                                                pool)
+                    check(cnn_fused.launches_wide == n0 + 1,
+                          f"kernel B L={L}: not the wide kernel")
+                    fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(
+                        ens, x, dtype, pool)
+                    torch.cuda.synchronize()
+                    res = cnn_compare(torch, fit, dx, fit0, dx0, dn)
+                    check(res["ok"], f"kernel B L={L} B={name} {dn} {pool}: "
+                          f"{res}")
+                    del fit0, dx0
+                    fit2, dx2 = cnn_fused.ensemble_apply_and_grad(prep, x,
+                                                                  None, pool)
+                    check(torch.equal(fit, fit2) and torch.equal(dx, dx2),
+                          f"kernel B L={L} is not deterministic")
+                    if name == "128-ties" and pool == "first":
+                        _, dx_split = cnn_fused.ensemble_apply_and_grad(
+                            prep, x, None, "split")
+                        check(not torch.allclose(dx, dx_split),
+                              f"L={L} tie input: split and first agree")
+                    res.update({"L": L, "C": C, "B": name, "dtype": dn,
+                                "pool_bwd": pool})
+                    if name == "128":
+                        B = x.shape[0]
+                        n_bytes = (B * L * V * s + w_bytes + B * 4
+                                   + B * L * V * 4)
+                        bms, by = bound_ms(n_bytes, cnn_ops(
+                            torch, cnn, x, M, C, C2, K), dn)
+                        res.update({
+                            "kernel_ms": time_ms(
+                                lambda: cnn_fused.ensemble_apply_and_grad(
+                                    prep, x, None, pool)),
+                            "plain_ms": time_ms(
+                                lambda: cnn_fused.
+                                ensemble_apply_and_grad_plain(
+                                    ens, x, dtype, pool)),
+                            "library_ms": None, "bound_ms": bms,
+                            "bound_by": by})
+                    out.append(res)
+                    print("kernel B wide", json.dumps(res), flush=True)
+            del prep
     return out
 
 
@@ -849,7 +965,9 @@ def check_cli_run(torch, runtime, args, run_dir, steps, dev):
           f"{args.sampler}: artifacts {files}")
     arr = {f[:-4]: np.load(os.path.join(run_dir, f)) for f in files
            if f.endswith(".npy")}
-    n, L = CLI_CHAINS, len(GFP_WT)
+    wt = runtime.make_initial_protein_population(
+        os.path.join(args.protein_weights, args.protein), 1, "cpu")[0].numpy()
+    n, L = args.n_chains, wt.shape[0]
     n_hist = (steps + 1 if args.sampler != "CMAES" else
               1 + sum((s + 1) % CLI_LOG_EVERY == 0 for s in range(1, steps)))
     want = {"population": (n, L, 20), "energy_history": (n_hist, n),
@@ -861,8 +979,6 @@ def check_cli_run(torch, runtime, args, run_dir, steps, dev):
     pop = arr["population"]
     check(np.allclose(pop.sum(-1), 1.0, atol=1e-6),
           f"{args.sampler}: population rows are not one-hot")
-    wt = runtime.make_initial_protein_population(
-        os.path.join(args.protein_weights, args.protein), 1, "cpu")[0].numpy()
     dist = (pop.argmax(-1) != wt.argmax(-1)).sum(-1)
     if args.sampler in ("PPDE", "PPDE-PT", "simulated_annealing"):
         check(dist.max() <= CLI_NMUT,
@@ -2191,7 +2307,7 @@ def phase_memory(torch, esm2, dev, card):
 
 def bench_expected(row, args, dev):
     """The launches ``python -m ppde_tpu_torch.scripts.bench`` must make
-    in one configuration at its defaults (``args``): one energy_and_grad
+    in one configuration at phase 13's flags (``args``): one energy_and_grad
     for the initial state and one a step, over the untimed and the 3 timed
     executions; kernels A and B once a call (bf16) on the GFP configs, C
     and C' once a layer a piece on the transformer config, none on MNIST."""
@@ -2214,20 +2330,21 @@ def bench_expected(row, args, dev):
 
 def phase_bench(torch, dev, card, ppde_runs):
     """Phase 13: ``python -m ppde_tpu_torch.scripts.bench`` at its
-    defaults, in a subprocess (it sets its own counters, which start at 0,
-    and reads them around each configuration): exit code 0, one JSON line
-    with every key, the four configurations with finite positive rates and
+    defaults but for ``BENCH_ARGV``'s steps, in a subprocess (it sets its
+    own counters, which start at 0, and reads them around each
+    configuration): exit code 0, one JSON line with every key, the four
+    configurations with finite positive rates and
     their checks' numbers, the headline rule, and each kernel's launches
     exactly as ``bench_expected`` says. ``ppde_runs``: ppde.run's steps/s
     of the same configurations in phases 4 and 6, set beside the bench's.
     Returns (the bench's line with the phase's numbers, its launches)."""
     from ppde_tpu_torch.scripts import bench
 
-    args = bench.build_parser().parse_args([])
+    args = bench.build_parser().parse_args(list(BENCH_ARGV))
     t = time.perf_counter()
-    p = subprocess.run([sys.executable, "-m", "ppde_tpu_torch.scripts.bench"],
-                       cwd=ROOT, capture_output=True, text=True,
-                       timeout=BENCH_TIMEOUT)
+    p = subprocess.run([sys.executable, "-m", "ppde_tpu_torch.scripts.bench",
+                        *BENCH_ARGV], cwd=ROOT, capture_output=True,
+                       text=True, timeout=BENCH_TIMEOUT)
     wall_s = time.perf_counter() - t
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke_bench.log"),
               "w") as f:
@@ -2335,7 +2452,7 @@ def with_flags(argv, flags):
     return out
 
 
-def cell_launches(args, steps, pieces=1):
+def cell_launches(args, steps, pieces=1, L=len(GFP_WT)):
     """The launches of one protein CLI run of PPDE or PPDE-PT (or of a
     sampler that takes no gradient, on an energy without a transformer:
     none), its transformer expert's gradient in ``pieces`` pieces. A
@@ -2345,7 +2462,9 @@ def cell_launches(args, steps, pieces=1):
     (twice under remat: transformer-L), plus one forward a layer for the
     expert's wild-type score at load and one for the CLI's wild-type
     energy (one piece each). ``--energy_function supervised`` has neither
-    Potts nor transformer term."""
+    Potts nor transformer term. A wild type of L > 256 residues (the
+    reference-width CNN, C = L; the bf16 expert at T = L) runs B's wide
+    kernel and the key-tiled kernels C and C'."""
     from ppde_tpu_torch.models import esm2
 
     poe = args.energy_function == "product_of_experts"
@@ -2358,13 +2477,19 @@ def cell_launches(args, steps, pieces=1):
     f32 = args.compute_dtype == "f32"
     want = {"potts_energy": calls * potts, "potts_energy_f32": calls * potts,
             "cnn_ensemble": calls, "cnn_ensemble_f32": calls * f32,
-            "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+            "cnn_ensemble_wide": calls * (L > 256),
+            "cnn_ensemble_wide_f32": calls * f32 * (L > 256),
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "flash_attention_fwd_kt": 0, "flash_attention_bwd_kt": 0}
     if name:
         layers = esm2.CONFIGS[name]["layers"]
         remat = name == "transformer-L"
         want.update(flash_attention_fwd=layers * (
             2 + (1 + remat) * pieces * calls),
             flash_attention_bwd=layers * pieces * calls)
+        for way in ("fwd", "bwd"):
+            want[f"flash_attention_{way}_kt"] = (
+                want[f"flash_attention_{way}"] * (L > 256))
     return want
 
 
@@ -2583,6 +2708,174 @@ def timing(torch, times):
             return res
         return timed
     return wrap
+
+
+def device_us(torch, fn):
+    """Device microseconds of one call of fn by the port's kernels (A, B,
+    C, C') and the rest, their kernel counts, and the call's wall
+    microseconds: torch.profiler after a warm-up call, read from the
+    exported Chrome trace's kernel events. The trace can lose kernels
+    launched through ctypes (A's and B's in a whole run of this script on
+    the H100): phase 16 also times A and B alone by CUDA events."""
+    from ppde_tpu_torch import profiling
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e6
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+    kinds = (("A", ("potts_",)), ("B", ("fit_grad_kernel", "tokens_kernel",
+                                        "cnn_member_reduce")),
+             ("C", ("attn_fwd",)), ("C'", ("attn_bwd",)))
+    out = dict.fromkeys([k for k, _ in kinds] + ["other"], 0.0)
+    n = dict.fromkeys(out, 0)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        kind = next((k for k, frags in kinds
+                     if any(f in e["name"] for f in frags)), "other")
+        out[kind] += e["dur"]
+        n[kind] += 1
+    out["wall"] = wall
+    out["kernels"] = n
+    return out
+
+
+def phase_long(torch, counters, dev, card):
+    """Phase 16: proteins of more than 256 residues through the protein
+    CLI (``LONG_RUNS``): PPDE on seeded wild types of 400 residues (potts
+    expert, the CNN in float32 and in bf16: kernel A and B's wide kernel)
+    and 1022 residues (potts+transformer-S, random init, CNN float32: A,
+    B's wide kernel, and the key-tiled C and C' at T = 1022, one piece of
+    CLI_CHAINS chains, as resolve_esm_chunk predicts). Each run's launches
+    exactly ``cell_launches``, phase 7's artifact checks (finite values,
+    the nmut budget, the best energies against a fresh evaluation) and an
+    acceptance rate strictly inside (0, 1); steps/s, peak memory, the
+    device time by kernel in one traced energy_and_grad of the run's
+    population, and A and B on it alone by CUDA events. At 1022 the one-piece transformer gradient's peak
+    memory (over the bytes held before it, as phase 12 (e) measures it)
+    against ``runtime.ESM_GRAD_MEMORY``'s prediction."""
+    from ppde_tpu_torch import codec, runtime
+    from ppde_tpu_torch.models import esm2
+    from ppde_tpu_torch.models import potts as potts_mod
+    from ppde_tpu_torch.ops import cnn_fused, potts_fused
+    from ppde_tpu_torch.scripts import directed_evolution as de
+    from ppde_tpu_torch.scripts import seeded_protein
+
+    runs, launches, by_run, captured = [], {n: 0 for n in counters}, {}, []
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+
+    def capturing(orig):
+        def get(args, device):
+            runner = orig(args, device)
+
+            def run(**kw):
+                captured.append(runner(**kw))
+                return captured[-1]
+            return run
+        return get
+
+    log_path = os.path.join(ROOT, "chiprun_out", "chip_smoke_long.log")
+    with tempfile.TemporaryDirectory() as tmp, open(log_path, "w") as log, \
+            patched(de, "get_sampler_runner", capturing):
+        run = functools.partial(run_main, torch, counters, log, launches,
+                                by_run)
+        for label, L, expert, cdt, steps in LONG_RUNS:
+            rng = np.random.default_rng(LONG_SEED + L)
+            wt = "".join(np.array(list(codec.ALPHABET))[
+                rng.integers(0, 20, L)])
+            protein = f"seeded_L{L}"
+            t0 = time.perf_counter()
+            if not os.path.isdir(os.path.join(tmp, protein)):
+                seeded_protein.write_protein_dir(tmp, protein, wt, seed=0)
+            setup_s = time.perf_counter() - t0
+            name = next((e for e in expert.split("+")
+                         if e.startswith("transformer")), None)
+            argv = ["--protein_weights", tmp, "--protein", protein,
+                    "--results_path", os.path.join(tmp, "results"),
+                    "--sampler", "PPDE",
+                    "--run_signature", label.replace(" ", "_"),
+                    "--n_iters", str(steps), "--n_chains", str(CLI_CHAINS),
+                    "--log_every", str(LONG_LOG_EVERY),
+                    "--nmut_threshold", str(CLI_NMUT),
+                    "--energy_lamda", "15",
+                    "--disable_MSA_transformer_scoring",
+                    "--unsupervised_expert", expert,
+                    "--compute_dtype", cdt] + ["--allow_random_esm"] * bool(
+                        name)
+            args = de.build_parser().parse_args(argv)
+            chunk = runtime.resolve_esm_chunk(
+                args.esm_chunk, name is not None, CLI_CHAINS, name, L,
+                card_bytes)
+            check(chunk is None, f"{label}: the transformer's gradient in "
+                  f"chunks of {chunk}, not one piece")
+            captured.clear()
+            run_dir, out, got, secs, tm = run(label, de, argv)
+            want = cell_launches(args, steps, 1, L)
+            check(got == want, f"{label}: kernel launches {got}, not {want}")
+            r = check_cli_run(torch, runtime, args, run_dir, steps, dev)
+            res = captured[-1]
+            rate = float(res.n_accepted.sum()) / (steps * CLI_CHAINS)
+            check(0.0 < rate < 1.0, f"{label}: acceptance rate {rate}")
+            # one traced energy_and_grad of the run's final population, and
+            # at 1022 the one-piece gradient's peak memory
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", UserWarning)
+                en = runtime.build_protein_energy(args, dev)[0]
+            x = torch.as_tensor(res.final_x).to(dev)
+            with torch.no_grad():
+                us = device_us(torch, lambda: en.energy_and_grad(en.params,
+                                                                 x))
+            # kernels A and B on this population alone, by CUDA events
+            sup = cnn_fused.prepare_ensemble(en.params["sup"], None if cdt ==
+                                             "f32" else torch.bfloat16)
+            us["B_alone_ms"] = time_ms(
+                lambda: cnn_fused.ensemble_apply_and_grad(sup, x), 3)
+            pp = en.params["potts"]
+            planes = potts_fused.prepare(pp.W, pp.h)
+            xf = potts_mod._pad_flat(pp, x, torch.bfloat16)
+            us["A_alone_ms"] = time_ms(
+                lambda: potts_fused.energy_and_grad(planes, None, xf))
+            del sup, planes, xf
+            r.update({"run": label, "L": L, "expert": expert,
+                      "compute_dtype": cdt, "steps": steps,
+                      "n_chains": CLI_CHAINS, "acceptance_rate": rate,
+                      "setup_s": setup_s, "main_s": secs,
+                      "peak_memory_gb": tm["main_peak_memory_gb"],
+                      "traced_energy_and_grad_us": us, "launches": got,
+                      "launches_want": want, "card": card})
+            if name:
+                base_b, per = runtime.ESM_GRAD_MEMORY[name]
+                predicted = base_b + per * CLI_CHAINS * L
+                tparams, tapply = esm2.load_expert(
+                    name, wt, allow_random=True, dtype=torch.bfloat16,
+                    device=dev)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated(dev)
+                torch.cuda.reset_peak_memory_stats(dev)
+                with torch.enable_grad():
+                    xg = x.float().requires_grad_(True)
+                    (g,) = torch.autograd.grad(tapply(tparams, xg).sum(), xg)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(g).all()),
+                      f"{label}: non-finite transformer gradient")
+                peak = torch.cuda.max_memory_allocated(dev) - base
+                r.update({"transformer_grad_peak_bytes": peak,
+                          "transformer_grad_predicted_bytes": predicted,
+                          "transformer_grad_peak_over_predicted":
+                              peak / predicted})
+                del tparams, tapply, g, xg
+            del x, en
+            torch.cuda.empty_cache()
+            runs.append(r)
+            print("long", json.dumps(r), flush=True)
+    return runs, launches
 
 
 def phase_evidence(torch, counters, dev, card):
@@ -3114,6 +3407,25 @@ def attention_row(c, c1, way, launches, line):
             "one_piece": attention_numbers(c1, way)}
 
 
+def kernel_rows(counts):
+    """The launches of each row of the kernels line from the counters: A's
+    bf16 and float32 launches; B's tc (bf16), simt (float32) and wide (each
+    type) kernels; the register (rs) and key-tiled kernels of C and C'."""
+    wide32 = counts["cnn_ensemble_wide_f32"]
+    wide16 = counts["cnn_ensemble_wide"] - wide32
+    return {
+        "potts_energy": counts["potts_energy"] - counts["potts_energy_f32"],
+        "potts_energy_f32": counts["potts_energy_f32"],
+        "cnn_ensemble": (counts["cnn_ensemble"] - counts["cnn_ensemble_f32"]
+                         - wide16),
+        "cnn_ensemble_f32": counts["cnn_ensemble_f32"] - wide32,
+        "cnn_ensemble_wide": wide16, "cnn_ensemble_wide_f32": wide32,
+        **{f"flash_attention_{w}": counts[f"flash_attention_{w}"]
+           - counts[f"flash_attention_{w}_kt"] for w in ("fwd", "bwd")},
+        **{f"flash_attention_{w}_kt": counts[f"flash_attention_{w}_kt"]
+           for w in ("fwd", "bwd")}}
+
+
 def main() -> int:
     import torch
 
@@ -3169,7 +3481,8 @@ def main() -> int:
                r["steps_per_sec"] for r in got["transformer"][0]
                if r["chunk_size"] is None}}),
         "large": lambda: phase_large(torch, counters, dev, card),
-        "evidence": lambda: phase_evidence(torch, counters, dev, card)}
+        "evidence": lambda: phase_evidence(torch, counters, dev, card),
+        "long": lambda: phase_long(torch, counters, dev, card)}
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     got = {}
     for name, run in phases.items():
@@ -3188,9 +3501,10 @@ def main() -> int:
     bench_line, bench_launches = got["bench"]
     large_runs, large_launches = got["large"]
     evid_runs, evid_launches = got["evidence"]
+    long_runs, long_launches = got["long"]
     for more in (tr_launches, cli_launches, eval_launches, train_launches,
                  mesh_launches, bench_launches, large_launches,
-                 evid_launches):
+                 evid_launches, long_launches):
         for name, n in more.items():
             launches[name] += n
 
@@ -3205,7 +3519,7 @@ def main() -> int:
     def row_a(name, a, n):
         return {"name": name, "route": "cuda",
                 "source": "ppde_tpu_torch/csrc/potts_energy.cu",
-                "replaces": "ppde_tpu/ops/potts_pallas.py:55",
+                "replaces": "ppde_tpu/ops/potts_pallas.py:56",
                 "launches": n,
                 "max_abs_err": max(a["max_abs_err_grad"], a["max_abs_err_H"]),
                 "ms": a["kernel_ms"], "plain_ms": a["plain_ms"],
@@ -3216,7 +3530,7 @@ def main() -> int:
     def row_b(name, b, n):
         return {"name": name, "route": "cuda",
                 "source": "ppde_tpu_torch/csrc/cnn_ensemble.cu",
-                "replaces": "ppde_tpu/ops/cnn_pallas.py:136",
+                "replaces": "ppde_tpu/ops/cnn_pallas.py:138",
                 "launches": n,
                 "max_abs_err": max(b["max_abs_err_fit"], b["max_abs_err_dx"]),
                 "ms": b["kernel_ms"], "plain_ms": b["plain_ms"],
@@ -3228,20 +3542,50 @@ def main() -> int:
              and r["dtype"] == "bfloat16")
         for case in ATTN_CASES[:2] + ((1280, 237, 24), (640, 237, 24),
                                       (640, 237, 64)))
-    n_a, n_a32 = launches["potts_energy"], launches["potts_energy_f32"]
-    n_b, n_b32 = launches["cnn_ensemble"], launches["cnn_ensemble_f32"]
+    by_row = kernel_rows(launches)
+
+    def headline_wide(dn):  # the 1022-residue case, 128 random sequences
+        return next(r for r in pb if r.get("L") == LONG_CNN_LENGTHS[-1]
+                    and r["B"] == "128" and r["dtype"] == dn
+                    and r["pool_bwd"] == "split")
+
+    # the key-tiled C and C' at the shape phase 16 gives them: one piece of
+    # 128 chains of transformer-S at T = 1022, bf16
+    ckt = next(r for r in pc if (r["Z"], r["T"], r["hd"]) == (2560, 1022, 24)
+               and r["dtype"] == "bfloat16")
     kernels = {"kernels": [
         row_a("potts_energy", headline(pa, 1024, "bfloat16", W="symmetric"),
-              n_a - n_a32),
+              by_row["potts_energy"]),
         row_a("potts_energy_f32", headline(pa, 128, "float32",
-                                           W="symmetric"), n_a32),
+                                           W="symmetric"),
+              by_row["potts_energy_f32"]),
         row_b("cnn_ensemble", headline(pb, 1024, "bfloat16",
-                                       pool_bwd="split"), n_b - n_b32),
+                                       pool_bwd="split"),
+              by_row["cnn_ensemble"]),
         row_b("cnn_ensemble_f32", headline(pb, 128, "float32",
-                                           pool_bwd="split"), n_b32),
-        attention_row(c, c1, "fwd", launches["flash_attention_fwd"], 83),
-        attention_row(c, c1, "bwd", launches["flash_attention_bwd"], 108),
+                                           pool_bwd="split"),
+              by_row["cnn_ensemble_f32"]),
+        row_b("cnn_ensemble_wide", headline_wide("bfloat16"),
+              by_row["cnn_ensemble_wide"]),
+        row_b("cnn_ensemble_wide_f32", headline_wide("float32"),
+              by_row["cnn_ensemble_wide_f32"]),
+        attention_row(c, c1, "fwd", by_row["flash_attention_fwd"], 78),
+        attention_row(c, c1, "bwd", by_row["flash_attention_bwd"], 99),
+        dict(attention_row(ckt, ckt, "fwd", by_row["flash_attention_fwd_kt"],
+                           78), name="flash_attention_fwd_kt"),
+        dict(attention_row(ckt, ckt, "bwd", by_row["flash_attention_bwd_kt"],
+                           99), name="flash_attention_bwd_kt"),
     ]}
+    # the key-tiled kernels also run every float32 call: GFP's chunk-16 and
+    # one-piece shapes beside the library call
+    for row in kernels["kernels"][-2:]:
+        way = row["name"].split("_")[2]
+        row["float32"] = {
+            label: attention_numbers(next(
+                r for r in pc if (r["Z"], r["T"], r["hd"]) == case
+                and r["dtype"] == "float32"), way)
+            for label, case in (("chunk_16", ATTN_CASES[0]),
+                                ("one_piece", ATTN_CASES[1]))}
     # kernels C and C' by path: the transformer sampler (phase 6), the
     # evaluation's transformer column (phase 10), finetune_esm and the CLI
     # run on its checkpoint (phase 11); finetune_esm's shapes' numbers and
@@ -3287,16 +3631,15 @@ def main() -> int:
                             blk["whole_ms"], "max_abs_err":
                             blk["max_abs_err_blocks_vs_plain"]}
     # every kernel's launches in phase 13's bench run, phase 14's
-    # large-expert runs and phase 15's evidence drivers, by type
-    for row in kernels["kernels"]:
-        name = row["name"]
-        for path, got_n in (("bench", bench_launches),
-                            ("large_experts", large_launches),
-                            ("evidence_drivers", evid_launches)):
-            n = got_n[name]
-            if name in ("potts_energy", "cnn_ensemble"):
-                n -= got_n[name + "_f32"]
-            row.setdefault("launches_by_path", {})[path] = n
+    # large-expert runs, phase 15's evidence drivers and phase 16's long
+    # proteins, by kernel
+    for path, got_n in (("bench", bench_launches),
+                        ("large_experts", large_launches),
+                        ("evidence_drivers", evid_launches),
+                        ("long_proteins", long_launches)):
+        rows_n = kernel_rows(got_n)
+        for row in kernels["kernels"]:
+            row.setdefault("launches_by_path", {})[path] = rows_n[row["name"]]
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel the main path runs was not launched: {kernels}")
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3306,7 +3649,8 @@ def main() -> int:
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
                    "eval": eval_runs, "training": train_runs,
                    "mesh": mesh_runs, "bench": bench_line,
-                   "large": large_runs, "evidence": evid_runs, **kernels},
+                   "large": large_runs, "evidence": evid_runs,
+                   "long": long_runs, **kernels},
                   f, indent=1)
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -86,6 +86,32 @@
 //     fall back to a warp scanning the tie masks); dP = G1 @ enc_w^T is the
 //     second product, staged over G1, and col2im sums K terms per entry of
 //     dx in a fixed order, adding to what the previous row block left.
+// Design of the wide kernel (namespace wide; both types, every shape the
+// other two do not take: wild types longer than 256 residues, whose
+// reference-width CNN has C = L, or wider ensembles). No length or
+// channel limit; K*V <= 128.
+//   * Grid B x M blocks of 256 threads, one per (sample, member); the
+//     tokens of x (one-hot letter and value, else -1) from a first kernel.
+//   * Products on FMAs in float32; bf16 runs on the bf16-rounded weights'
+//     values (prepare_ensemble's wide layout, float32) with H1, H2, the
+//     routed gradient and G1 rounded to bf16 where the other kernels round.
+//   * Forward: T in strips of 32 rows, 2C in chunks of 512 columns. H1^T
+//     of a strip, 1,024 channels at a time (rnd(relu(conv + b)), a lane a
+//     channel), is the shared-memory A operand; emb_w streams from L2 in
+//     16-row stages (cp.async, two buffers); each thread holds an 8 x 8
+//     tile. A chunk's column maxima, the rows that reach them and the
+//     first of them come from the accumulators by integer atomics in
+//     shared memory (H2 >= 0: its bits order as its values); they fold
+//     into running statistics in device memory (a larger max restarts
+//     them), and each strip's rows at the running max go to device memory
+//     as one word of bits a channel. A strip before the one that first
+//     reached a channel's final max marked smaller values, so the
+//     backward reads the words from that strip on: no T x 2C mask.
+//   * Backward, strip by strip: each channel's routed rows of the strip (a
+//     word), the strip's relu' bits recomputed from the conv, G1 gathered
+//     a warp a row from the routed rows of emb_w^T, then dP = G1 enc_w^T
+//     as a product and col2im, one thread per entry of dx in a fixed
+//     order, added to what the strips before wrote.
 // Blocks of different members write separate [M, B, L*V] partials, and a
 // second kernel adds them in member order: no atomics on values (the integer
 // atomics on the pool's masks and counts commute), so results repeat bit
@@ -1498,6 +1524,537 @@ fit_grad_kernel(const F32Args a) {
 
 }  // namespace simt
 
+// ---------------------------------------------------------------------------
+// Any T and C, both types: a block per (sample, member), row strips
+// ---------------------------------------------------------------------------
+namespace wide {
+
+using tc::rb;
+using tc::smem_u32;
+
+constexpr int THREADS = 256;  // 64 (tx) x 4 (ty)
+constexpr int R = 32;         // rows t of a strip: one mark word a channel
+constexpr int NC = 512;       // embed columns of a chunk: 8 a thread
+constexpr int KS = 16;        // depth of a weight stage (C padded to it)
+// (512 channels with a ring of 3 or 4 stages ran half again slower at
+// L = 1022 on the H100: H1 is recomputed for each column chunk once it
+// does not fit)
+constexpr int DC = 1024;      // conv channels of H1 held at once
+constexpr int NSTG = 2;       // emb_w stages in flight (a ring)
+constexpr int RS = R + 4;     // H1^T row stride (floats): 16-byte rows
+constexpr int KVP = 128;      // K*V padded (enc_w^T's columns): the limit
+constexpr int GQ = DC / 32;   // conv channels a lane holds in the backward
+constexpr int WARPS = THREADS / 32;
+
+struct Args {
+  const float* x;      // [B, L*V]   (bf16's values in float32 for bf16)
+  const int2* tok;     // [B, L]     one-hot letter (else -1) and value
+  const float* encw;   // [M, K*V, Cp]   rows of enc_w (conv)
+  const float* encT;   // [M, Cp, KVP]   enc_w^T (dP)
+  const float* emb;    // [M, Cp, C2p]   emb_w (embed product)
+  const float* embwT;  // [M, C2, Cp]    rows of emb_w^T (G1)
+  const float* encb;   // [M, Cp]
+  const float* embb;   // [M, C2p]
+  const float* decw;   // [M, C2]
+  const float* decb;   // [M]
+  float* pred;         // [M, B]        scratch
+  float* dxm;          // [M, B, L*V]   scratch
+  float* stat;         // [M, B, 3, C2] scratch: max, count, first row;
+                       // backward: gradient, first row, a strip's rows
+  unsigned* marks;     // [M, B, nstrip, C2] scratch: rows at the max
+  int B, L, V, K, C, C2, M, pool_first, rnd, Cp, C2p, nstrip;
+};
+
+// Shared memory in bytes (offsets from the block's dynamic shared memory).
+namespace lay {
+constexpr int h1t = 0;                           // H1^T of a strip [DC][RS]
+constexpr int stg = h1t + DC * RS * 4;           // NSTG stages of emb_w
+constexpr int smax = stg + NSTG * KS * NC * 4;   // per chunk column: strip
+constexpr int scnt = smax + NC * 4;              //   max (float bits), rows
+constexpr int sfirst = scnt + NC * 4;            //   at it, first such row,
+constexpr int smark = sfirst + NC * 4;           //   their bits
+constexpr int red = smark + NC * 4;              // partial sums of pred
+constexpr int total = red + WARPS * 4;
+// backward: G1^T of a strip over H1^T, enc_w^T's stages and dP of a
+// strip over the emb_w stages, the relu bits over the column statistics
+static_assert(2 * KS * KVP * 4 + R * KVP * 4 <= smax - stg &&
+                  DC * 4 <= red - smax && THREADS == 8 * 32 &&
+                  KVP == 32 * 4 && R == 8 * 4,
+              "the backward's buffers and its dP tiling");
+static_assert(total <= 232448, "more than a block's shared memory");
+}  // namespace lay
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// conv + bias at (t, c) before the relu: for each tap k the row of enc_w of
+// the position's letter (one-hot), else every nonzero letter's row. The
+// forward and the backward's relu mask both come from here: the same bits.
+__device__ __forceinline__ float conv_pre(const Args& a, const int2* tok,
+                                          const float* xb, const float* encw,
+                                          const float* encb, int t, int c) {
+  const int V = a.V, Cp = a.Cp;
+  float acc = 0.f;
+  for (int k = 0; k < a.K; ++k) {
+    const int2 tv = tok[t + k];
+    if (tv.x >= 0) {
+      acc = fmaf(__int_as_float(tv.y),
+                 __ldg(encw + (size_t)(k * V + tv.x) * Cp + c), acc);
+    } else {
+      for (int v = 0; v < V; ++v) {
+        const float x = xb[(t + k) * V + v];
+        if (x != 0.f)
+          acc = fmaf(x, __ldg(encw + (size_t)(k * V + v) * Cp + c), acc);
+      }
+    }
+  }
+  return acc + encb[c];
+}
+
+constexpr int KFAST = 5;  // taps of the one-hot conv's fast path
+
+// conv + b before the relu at rows t .. t+3 of channel c (rows from n_t on:
+// 0): conv_pre's sums in its order, but for a sample whose every position
+// is one-hot (and K <= KFAST) with the 20 row loads of enc_w issued
+// before the first is used, so that their latencies overlap.
+__device__ __forceinline__ void conv4(const Args& a, const int2* tok,
+                                      const float* xb, const float* encw,
+                                      const float* encb, bool onehot, int t,
+                                      int n_t, int c, float (&pre)[4]) {
+  if (!onehot || a.K > KFAST) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pre[i] = t + i < n_t ? conv_pre(a, tok, xb, encw, encb, t + i, c)
+                           : 0.f;
+    return;
+  }
+  float w[4][KFAST], xv[4][KFAST];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < KFAST; ++k) {
+      const bool in = t + i < n_t && k < a.K;
+      const int2 tv = in ? tok[t + i + k] : make_int2(0, 0);
+      xv[i][k] = __int_as_float(tv.y);
+      w[i][k] = in ? __ldg(encw + (size_t)(k * a.V + tv.x) * a.Cp + c) : 0.f;
+    }
+  const float b = encb[c];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < KFAST; ++k)
+      if (k < a.K) acc = fmaf(xv[i][k], w[i][k], acc);
+    pre[i] = t + i < n_t ? acc + b : 0.f;
+  }
+}
+
+// acc[i][j] += sum over a stage's 16 k of H1^T[k][row_i] * Bs[k][col_j]:
+// rows ty*4 + i (i < 4) and 16 + ty*4 + i - 4, columns tx*4 + j (j < 4) and
+// 256 + tx*4 + j - 4. A warp's lanes share ty: its A loads are broadcasts,
+// its B loads 512 contiguous bytes.
+__device__ __forceinline__ void stage_product(float (&acc)[8][8],
+                                              const float* A,
+                                              const float* Bs, int tx,
+                                              int ty) {
+#pragma unroll 4
+  for (int kk = 0; kk < KS; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(A + kk * RS + ty * 4);
+    const float4 a1 =
+        *reinterpret_cast<const float4*>(A + kk * RS + 16 + ty * 4);
+    const float4 b0 =
+        *reinterpret_cast<const float4*>(Bs + kk * NC + tx * 4);
+    const float4 b1 =
+        *reinterpret_cast<const float4*>(Bs + kk * NC + 256 + tx * 4);
+    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 1) fit_grad_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* h1t = reinterpret_cast<float*>(smem + lay::h1t);
+  float* stg = reinterpret_cast<float*>(smem + lay::stg);
+  int* smax = reinterpret_cast<int*>(smem + lay::smax);
+  int* scnt = reinterpret_cast<int*>(smem + lay::scnt);
+  int* sfirst = reinterpret_cast<int*>(smem + lay::sfirst);
+  unsigned* smark = reinterpret_cast<unsigned*>(smem + lay::smark);
+  float* red = reinterpret_cast<float*>(smem + lay::red);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 63, ty = tid >> 6;
+  const int b = blockIdx.x, m = blockIdx.y;
+  const int V = a.V, K = a.K, C2 = a.C2, Cp = a.Cp, C2p = a.C2p;
+  const int n_t = a.L - K + 1, LV = a.L * V;
+  const size_t mb = (size_t)m * a.B + b;
+  const float* encw = a.encw + (size_t)m * K * V * Cp;
+  const float* encT = a.encT + (size_t)m * Cp * KVP;
+  const float* emb = a.emb + (size_t)m * Cp * C2p;
+  const float* embwT = a.embwT + (size_t)m * C2 * Cp;
+  const float* encb = a.encb + (size_t)m * Cp;
+  const float* embb = a.embb + (size_t)m * C2p;
+  const float* decw = a.decw + (size_t)m * C2;
+  const int2* tok = a.tok + (size_t)b * a.L;
+  const float* xb = a.x + (size_t)b * LV;
+  // per channel: running max (from -1: H2 >= 0), rows at it, first such row;
+  // after the forward: the routed gradient and the first row (-1: none)
+  float* st_max = a.stat + mb * 3 * C2;
+  int* st_cnt = reinterpret_cast<int*>(st_max + C2);
+  int* st_first = st_cnt + C2;
+  unsigned* marks = a.marks + mb * a.nstrip * C2;
+  auto row_of = [&](int i) { return (i < 4 ? 0 : 16) + ty * 4 + (i & 3); };
+  auto col_of = [&](int j) { return (j < 4 ? 0 : 256) + tx * 4 + (j & 3); };
+
+  for (int c = tid; c < C2; c += THREADS) {
+    st_max[c] = -1.f;
+    st_cnt[c] = 0;
+    st_first[c] = 0;
+  }
+  for (int c = tid; c < NC; c += THREADS) {
+    smax[c] = -1;
+    scnt[c] = 0;
+    sfirst[c] = INT_MAX;
+    smark[c] = 0u;
+  }
+  int all_onehot = 1;  // every position of the sample one-hot
+  for (int l = tid; l < a.L; l += THREADS) all_onehot &= tok[l].x >= 0;
+  const bool onehot = __syncthreads_and(all_onehot) != 0;
+  const int ndc = (Cp + DC - 1) / DC, nch = C2p / NC;
+
+  for (int s = 0; s < a.nstrip; ++s) {
+    const int t0 = s * R;
+    for (int ch = 0; ch < nch; ++ch) {
+      float acc[8][8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      for (int dc = 0; dc < ndc; ++dc) {
+        const int c0 = dc * DC, nc = min(DC, Cp - c0);
+        if (ch == 0 || ndc > 1) {
+          // -- H1^T = rnd(relu(conv + b)) of this strip's rows (0 past T)
+          // and channels c0 .. c0 + nc - 1; a lane a channel --
+          __syncthreads();  // every warp is done with the last H1^T
+          for (int c = tid; c < nc; c += THREADS)
+            for (int r = 0; r < R; r += 4) {
+              float h[4];
+              conv4(a, tok, xb, encw, encb, onehot, t0 + r, n_t, c0 + c, h);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                h[i] = h[i] > 0.f ? h[i] : 0.f;
+                if (a.rnd) h[i] = rb(h[i]);
+              }
+              *reinterpret_cast<float4*>(h1t + c * RS + r) =
+                  make_float4(h[0], h[1], h[2], h[3]);
+            }
+        }
+        // -- the embed product over these channels, emb_w rows staged KS
+        // at a time (two buffers, cp.async) --
+        const int nks = nc / KS;
+        auto stage = [&](int ks, int buf) {
+          const float* src = emb + (size_t)(c0 + ks * KS) * C2p + ch * NC;
+          const uint32_t dst = smem_u32(stg + buf * KS * NC);
+          for (int i = tid; i < KS * NC / 4; i += THREADS) {
+            const int r = i / (NC / 4), c4 = i % (NC / 4);
+            cp_async16(dst + (r * NC + c4 * 4) * 4, src + (size_t)r * C2p +
+                                                        c4 * 4);
+          }
+        };
+        for (int p = 0; p < NSTG - 1; ++p) {
+          if (p < nks) stage(p, p);
+          cp_async_commit();
+        }
+        for (int ks = 0; ks < nks; ++ks) {
+          const int ahead = ks + NSTG - 1;
+          if (ahead < nks) stage(ahead, ahead % NSTG);
+          cp_async_commit();
+          cp_async_wait<NSTG - 1>();  // stage ks has landed
+          __syncthreads();
+          stage_product(acc, h1t + ks * KS * RS,
+                        stg + (ks % NSTG) * KS * NC, tx, ty);
+          __syncthreads();
+        }
+      }
+      // -- H2 = rnd(relu(acc + b)) (rows past T: -1, out of the pool);
+      // the strip's column maxima, the rows that reach them and the first
+      // of those, by integer atomics (they commute: the same result in any
+      // order; H2 >= 0, so its bits order as its values) --
+      const int cb = ch * NC;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float bias = embb[cb + col_of(j)];
+        float best = -1.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float v = acc[i][j] + bias;
+          v = v > 0.f ? v : 0.f;
+          if (a.rnd) v = rb(v);
+          if (t0 + row_of(i) >= n_t) v = -1.f;
+          acc[i][j] = v;
+          best = fmaxf(best, v);
+        }
+        if (best >= 0.f) atomicMax(&smax[col_of(j)], __float_as_int(best));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int want = smax[col_of(j)];
+        unsigned bits = 0u;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (want >= 0 && __float_as_int(acc[i][j]) == want)
+            bits |= 1u << row_of(i);
+        if (bits) {
+          atomicAdd(&scnt[col_of(j)], __popc(bits));
+          atomicMin(&sfirst[col_of(j)], __ffs(bits) - 1);
+          atomicOr(&smark[col_of(j)], bits);
+        }
+      }
+      __syncthreads();
+      // -- fold into the running statistics, a thread a column: a larger
+      // max restarts them, an equal one adds rows; the strip's mark word
+      // (rows at the running max) goes to device memory --
+      for (int c = tid; c < NC; c += THREADS) {
+        const int c2 = cb + c;
+        if (c2 < C2) {
+          unsigned word = 0u;
+          if (smax[c] >= 0) {
+            const float v = __int_as_float(smax[c]), old = st_max[c2];
+            if (v > old) {
+              st_max[c2] = v;
+              st_cnt[c2] = scnt[c];
+              st_first[c2] = t0 + sfirst[c];
+              word = smark[c];
+            } else if (v == old) {
+              st_cnt[c2] += scnt[c];
+              word = smark[c];
+            }
+          }
+          marks[(size_t)s * C2 + c2] = word;
+        }
+        smax[c] = -1;
+        scnt[c] = 0;
+        sfirst[c] = INT_MAX;
+        smark[c] = 0u;
+      }
+    }
+  }
+  __syncthreads();
+
+  // -- pred_m (fixed-order reduction); per channel the routed gradient
+  // rnd(mx > 0 ? dec_w / (split ? count : 1) : 0) over the max, and the
+  // first row over the count (-1: no gradient) --
+  {
+    float sum = 0.f;
+    for (int c = tid; c < C2; c += THREADS) {
+      const float best = st_max[c], d = decw[c];
+      sum += best * d;
+      float sc = best > 0.f ? d / (float)(a.pool_first ? 1 : st_cnt[c]) : 0.f;
+      if (a.rnd) sc = rb(sc);
+      st_max[c] = sc;
+      st_cnt[c] = sc != 0.f ? st_first[c] : -1;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    if (lane == 0) red[warp] = sum;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float sum = 0.f;
+    for (int w = 0; w < WARPS; ++w) sum += red[w];
+    a.pred[mb] = sum + a.decb[m];
+  }
+
+  // -- backward, strip by strip. (1) Each channel's routed rows of the
+  // strip as a word of bits ("split": the strip's mark word, from the
+  // strip of the first row on; "first": the first row alone), in device
+  // memory. Then for each DC channels: (2) the bits of conv + b > 0
+  // (recomputed, a thread a channel); (3) G1^T = rnd(sum over a row's
+  // routed channels, ascending, of their gradients times the rows of
+  // emb_w^T) * [conv + b > 0], a warp a row; (4) dP += G1 enc_w^T, a
+  // product over the channels ascending with enc_w^T staged KS rows at a
+  // time. Then col2im of the strip, one thread per entry of dx, added to
+  // what the strips before wrote --
+  float* g1t = reinterpret_cast<float*>(smem + lay::h1t);  // [DC][RS]
+  float* estg = reinterpret_cast<float*>(smem + lay::stg);  // 2 [KS][KVP]
+  float* dps = estg + 2 * KS * KVP;                         // [R][KVP]
+  unsigned* hpos = reinterpret_cast<unsigned*>(smem + lay::smax);  // [DC]
+  float* out = a.dxm + mb * LV;
+  const float* sc_of = st_max;
+  const int* first_of = st_cnt;
+  unsigned* wrow = reinterpret_cast<unsigned*>(st_first);  // [C2]
+  const int KV = K * V;
+  const int ry = tid >> 5;  // dP: rows ry*4 .. +3, columns lane*4 .. +3
+  for (int s = 0; s < a.nstrip; ++s) {
+    const int t0 = s * R;
+    for (int c2 = tid; c2 < C2; c2 += THREADS) {
+      const int f = first_of[c2];
+      unsigned w = 0u;
+      if (f >= 0)
+        w = a.pool_first ? (f / R == s ? 1u << (f % R) : 0u)
+                         : (s >= f / R ? marks[(size_t)s * C2 + c2] : 0u);
+      wrow[c2] = w;
+    }
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int dc = 0; dc < ndc; ++dc) {
+      const int c0 = dc * DC, nc = min(DC, Cp - c0);
+      __syncthreads();  // wrow written; G1^T and hpos read
+      for (int c = tid; c < nc; c += THREADS) {
+        unsigned bits = 0u;
+        for (int r = 0; r < R; r += 4) {
+          float h[4];
+          conv4(a, tok, xb, encw, encb, onehot, t0 + r, n_t, c0 + c, h);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            bits |= (unsigned)(h[i] > 0.f) << (r + i);
+        }
+        hpos[c] = bits;
+      }
+      __syncthreads();
+      for (int r = warp; r < R; r += WARPS) {
+        float g[GQ];
+#pragma unroll
+        for (int q = 0; q < GQ; ++q) g[q] = 0.f;
+        for (int cb = 0; t0 + r < n_t && cb < C2; cb += 128) {
+          unsigned w4[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int c2 = cb + 32 * u + lane;
+            w4[u] = c2 < C2 ? wrow[c2] : 0u;
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            unsigned bal = __ballot_sync(0xffffffffu, (w4[u] >> r) & 1u);
+            while (bal) {  // warp-uniform; two channels' rows in flight
+              int cs[2];
+#pragma unroll
+              for (int v = 0; v < 2; ++v) {
+                cs[v] = bal ? cb + 32 * u + __ffs(bal) - 1 : -1;
+                bal &= bal - 1u;
+              }
+              float w[2][GQ];
+#pragma unroll
+              for (int v = 0; v < 2; ++v)
+#pragma unroll
+                for (int q = 0; q < GQ; ++q) {
+                  const int c = lane + 32 * q;
+                  w[v][q] = cs[v] >= 0 && c < nc
+                                ? __ldg(embwT + (size_t)cs[v] * Cp + c0 + c)
+                                : 0.f;
+                }
+#pragma unroll
+              for (int v = 0; v < 2; ++v)
+                if (cs[v] >= 0) {
+                  const float sc = sc_of[cs[v]];
+#pragma unroll
+                  for (int q = 0; q < GQ; ++q)
+                    g[q] = fmaf(sc, w[v][q], g[q]);
+                }
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < GQ; ++q) {
+          const int c = lane + 32 * q;
+          g1t[c * RS + r] = c < nc && ((hpos[c] >> r) & 1u)
+                                ? (a.rnd ? rb(g[q]) : g[q])
+                                : 0.f;
+        }
+      }
+      const int nks = nc / KS;
+      auto stage = [&](int ks, int buf) {
+        const float* src = encT + (size_t)(c0 + ks * KS) * KVP;
+        const uint32_t dst = smem_u32(estg + buf * KS * KVP);
+        for (int i = tid; i < KS * KVP / 4; i += THREADS)
+          cp_async16(dst + i * 16, src + i * 4);
+      };
+      stage(0, 0);
+      cp_async_commit();
+      for (int ks = 0; ks < nks; ++ks) {
+        if (ks + 1 < nks) stage(ks + 1, (ks + 1) & 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();  // (and, the first time, G1^T written)
+        const float* A = g1t + ks * KS * RS;
+        const float* Bs = estg + (ks & 1) * KS * KVP;
+#pragma unroll 4
+        for (int kk = 0; kk < KS; ++kk) {
+          const float4 av =
+              *reinterpret_cast<const float4*>(A + kk * RS + ry * 4);
+          const float4 bv =
+              *reinterpret_cast<const float4*>(Bs + kk * KVP + lane * 4);
+          const float x[4] = {av.x, av.y, av.z, av.w};
+          const float y[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+        }
+        __syncthreads();
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(dps + (ry * 4 + i) * KVP + lane * 4) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    __syncthreads();
+    const int t_end = min(t0 + R, n_t);
+    const int f_hi = (t_end - 1) * V + KV;
+    const int f_old = s > 0 ? (t0 - 1) * V + KV : 0;
+    for (int f = t0 * V + tid; f < f_hi; f += THREADS) {
+      const int pos = f / V, v = f - pos * V;
+      float acc = f < f_old ? out[f] : 0.f;
+      for (int k = 0; k < K; ++k) {
+        const int t = pos - k;
+        if (t >= t0 && t < t_end) acc += dps[(t - t0) * KVP + k * V + v];
+      }
+      out[f] = acc;
+    }
+  }
+}
+
+// each position's letter if it is one-hot (else -1) and its value
+__global__ void tokens_kernel(const float* __restrict__ x, int2* tok, long n,
+                              int V) {
+  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* xv = x + i * V;
+  int cnt = 0, first = -1;
+  float val = 0.f;
+  for (int v = 0; v < V; ++v) {
+    const float xv_ = xv[v];
+    if (xv_ != 0.f) {
+      if (first < 0) {
+        first = v;
+        val = xv_;
+      }
+      ++cnt;
+    }
+  }
+  tok[i] = make_int2(cnt == 1 ? first : -1, __float_as_int(val));
+}
+
+}  // namespace wide
+
 // fit = mean_m pred, dx = sum_m dxm / M, members added in order
 __global__ void cnn_member_reduce(const float* __restrict__ pred,
                                   const float* __restrict__ dxm,
@@ -1558,6 +2115,15 @@ bool simt_ok(int L, int V, int K, int C, int C2) {
          C <= simt::MAX_C && C2 <= simt::MAX_C2 && L <= simt::MAX_L;
 }
 
+// which kernel takes these sizes in dtype (0 = float32, 1 = bfloat16): 0
+// simt, 1 tc, 2 wide; -1 none (K*V over the depth every kernel has)
+int kernel_for(int L, int V, int K, int C, int C2, int dtype) {
+  if (L < K || K < 1 || V < 1 || C < 1 || C2 < 1) return -1;
+  if (dtype == 0 && simt_ok(L, V, K, C, C2)) return 0;
+  if (dtype == 1 && tc_ok(L, V, K, C, C2)) return 1;
+  return K * V <= wide::KVP ? 2 : -1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1566,21 +2132,11 @@ extern "C" {
 // 1 = bfloat16); the wrapper checks it against the card's 227 KB.
 long cnn_smem_bytes(int dtype) { return (long)smem_bytes(dtype); }
 
-// Limits of the float32 kernel: K*V (the dP tile's width, also the columns
-// of an embed chunk of its layout: emb [M, nchunk, Cp, this]), C (conv
-// channels), T = L-K+1, C2 (embed channels).
+// The float32 kernel's layout: the columns of an embed chunk (emb [M,
+// nchunk, Cp, this], also enc_w^T's columns) and the depth C is padded to.
 int cnn_max_kv() { return simt::NT; }
-int cnn_max_c() { return simt::MAX_C; }
-int cnn_max_t() { return simt::MAX_T; }
-int cnn_max_c2() { return simt::MAX_C2; }
-// The depth C is padded to in the float32 layout (Cp, a multiple of this).
 int cnn_f32_depth() { return simt::KS; }
 
-// 1 if the bf16 kernel takes these sizes: T = L-K+1 <= 256, K*V <= 104, V
-// even and <= 32, C <= 256, C2 <= 512, L*V <= 5248, L <= 320.
-int cnn_bf16_ok(int L, int V, int K, int C, int C2) {
-  return tc_ok(L, V, K, C, C2) ? 1 : 0;
-}
 #ifdef CNN_PHASE_CLOCKS
 // Copies the 8 phase clocks of block (0, 0) to out (reset != 0: zeroes
 // them instead). Returns a cudaError_t.
@@ -1676,6 +2232,69 @@ int cnn_ensemble_fit_and_grad_bf16(const void* x, const void* enc_blob,
                              (int)smem_bytes(1));
   if (err != cudaSuccess) return static_cast<int>(err);
   tc::fit_grad_kernel<<<dim3(per, M), tc::THREADS, smem_bytes(1), s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return member_reduce(a.pred, a.dxm, static_cast<float*>(fit),
+                       static_cast<float*>(dx), M, B, (long)B * L * V, s);
+}
+
+// The kernel that takes these sizes in dtype: 0 simt (float32), 1 tc
+// (bfloat16), 2 wide (either type: T, C or C2 beyond the other two), -1 none.
+int cnn_kernel_for(int L, int V, int K, int C, int C2, int dtype) {
+  return kernel_for(L, V, K, C, C2, dtype);
+}
+
+// Columns of an embed chunk of the wide kernel's emb layout (C2 is padded
+// to a multiple), the depth C is padded to, and its K*V limit.
+int cnn_wide_chunk() { return wide::NC; }
+int cnn_wide_depth() { return wide::KS; }
+int cnn_wide_max_kv() { return wide::KVP; }
+
+// Either type, from the float32 tensors prepare_ensemble's wide layout
+// holds (the bf16 ensemble's values in float32 for bf16: x [B, L*V], encw
+// [M, K*V, Cp], encT [M, Cp, 128], emb [M, Cp, C2p], embwT [M, C2, Cp],
+// encb [M, Cp], embb [M, C2p], decw [M, C2], decb [M]; Cp = C rounded up to
+// 16, C2p = C2 rounded up to 512, zero-padded); rnd = 1 rounds the
+// activations and the routed gradient to bf16. Scratch: tok [B, L] int2,
+// stat [M, B, 3, C2], marks [M, B, ceil(T / 32), C2]. Returns a cudaError_t.
+int cnn_ensemble_fit_and_grad_wide(
+    const void* x, void* tok, const void* encw, const void* encT,
+    const void* emb, const void* embwT, const void* encb, const void* embb,
+    const void* decw, const void* decb, void* pred, void* dxm, void* stat,
+    void* marks, void* fit, void* dx, int B, int L, int V, int K, int C,
+    int C2, int M, int pool_first, int rnd, void* stream) {
+  if (B <= 0 || M <= 0 || L < K || K * V > wide::KVP)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_t = L - K + 1;
+  wide::Args a{static_cast<const float*>(x),
+               static_cast<const int2*>(tok),
+               static_cast<const float*>(encw),
+               static_cast<const float*>(encT),
+               static_cast<const float*>(emb),
+               static_cast<const float*>(embwT),
+               static_cast<const float*>(encb),
+               static_cast<const float*>(embb),
+               static_cast<const float*>(decw),
+               static_cast<const float*>(decb),
+               static_cast<float*>(pred),
+               static_cast<float*>(dxm),
+               static_cast<float*>(stat),
+               static_cast<unsigned*>(marks),
+               B, L, V, K, C, C2, M, pool_first, rnd,
+               round_up(C, wide::KS), round_up(C2, wide::NC),
+               (n_t + wide::R - 1) / wide::R};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long n_pos = (long)B * L;
+  wide::tokens_kernel<<<(unsigned)((n_pos + 255) / 256), 256, 0, s>>>(
+      a.x, static_cast<int2*>(tok), n_pos, V);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(wide::fit_grad_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wide::lay::total);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wide::fit_grad_kernel<<<dim3(B, M), wide::THREADS, wide::lay::total, s>>>(
+      a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return member_reduce(a.pred, a.dxm, static_cast<float*>(fit),

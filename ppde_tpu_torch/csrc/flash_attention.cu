@@ -14,17 +14,22 @@
 //     dw = dout v^T,  delta = rowsum(w32 * dw),  ds = cast(w32 * (dw - delta))
 //     dq = ds k,      dk = ds^T q,               dv = cast(w32)^T dout
 //
-// Every product sums in float32; "cast" rounds to the input type (bfloat16
-// products run on mma.sync.m16n8k16, float32 products on FMAs in full
-// float32).
+// Every product sums in float32; "cast" rounds to the input type. bfloat16
+// products run on mma.sync.m16n8k16. float32 first products (the scores q
+// k^T and dw = dout v^T) run on FMAs in full float32 (exp turns the scores'
+// absolute error into the weights' relative error, and ds = w32 (dw -
+// delta) cancels); the second products (w v, ds k, w^T dout, ds^T q) on
+// mma.sync.m16n8k8 in TF32 as three split products (3xTF32: x = big +
+// small, both TF32, and a b = big_a big_b + big_a small_b + small_a big_b,
+// about 2^-22 relative), each 16-key step's sum added in float32.
 //
-// What bounds them on the H100: at ESM2's head widths (hd 24 to 64) and
-// protein lengths (T of a few hundred) the bytes are small (4 Z T hd
-// elements forward, 7 backward) and so are the operations (4 Z T^2 hd
-// forward, 10 backward): at Z = 2560, T = 237, hd = 24 in bf16 the card
-// could do the forward in about 35 us and the backward in 61 us, both set
-// by the bytes. The [Z, T, T] scores, which a plain version writes and reads
-// several times, never leave the chip.
+// What bounds them on the H100: at ESM2's head widths (hd 24 to 64) the
+// bytes are small (4 Z T hd elements forward, 7 backward) and so are the
+// operations (4 Z T^2 hd forward, 10 backward): at Z = 2560, T = 237, hd =
+// 24 in bf16 the card could do the forward in about 35 us and the backward
+// in 61 us, both set by the bytes; at T = 1024 the operations set it. The
+// [Z, T, T] scores, which a plain version writes and reads several times,
+// never leave the chip.
 //
 // Two designs, chosen by type and T in the launchers below.
 //
@@ -58,33 +63,43 @@
 // kernel, which spilled kernels A and B; mma.sync leaves the allocation to
 // ptxas.
 //
-// float32 (any T <= 512) and bf16 with 256 < T <= 512, kernels attn_*
-// without the suffix: the TPU kernel holds a whole [T, T] float32 score
-// block on chip; 225 KB at T = 237 does not fit a block's 227 KB of shared
-// memory. The thin side is small, so a block holds 64 rows of the scores
-// against ALL T columns, [64, T] float32 (up to T = 512: 133 KB). That keeps
-// the TPU kernel's arithmetic exactly (normalise in float32, then cast, then
-// the product) with no online softmax. Thin operands are staged through shared
-// memory, zero-padded to a head width of 16, 32 or 64 (hd must be a multiple
-// of 8, so that every global load is 16 bytes) and to a multiple of 64 rows;
-// padded key columns are left out of the row max and sum and get weight 0.
-// Nothing is padded or transposed in device memory: the kernels read q, k,
-// v, dout [Z, T, hd] as they are. A block waits on global memory, not on
-// arithmetic (8 mma per warp and tile), so a round stages up to 256 rows in
-// bf16 with all its loads in flight before the first store (T = 237 is one
-// round per product), and delta and ds are formed on the accumulators of
-// dout v^T, which never goes through shared memory.
+// float32 (any T) and bf16 with T > 256, kernels attn_*_kt: key-tiled, so
+// that nothing in the design caps T. A block is again a 64-row strip of
+// one z, a warp 16 rows, but the other operand is staged 64 rows (a tile)
+// at a time, double-buffered by cp.async, and a warp holds the scores of
+// one 16 x 16 group (or, for the max, one tile) at a time. The TPU
+// kernel's arithmetic is kept: softmax normalised in float32 with the row's
+// true max and sum, then cast, then the product, by passes over the tiles.
+//   * Forward, bf16: pass 1 walks the key tiles for each row's max and sum
+//     (the sum rescaled as the running max grows: float32 scalars only, the
+//     weights are never formed with a partial max); pass 2 forms
+//     cast(exp(s - max) / sum) and multiplies by v. Three products.
+//     float32, where the cast is the identity: one pass, o and the sum
+//     rescaled together, o / sum at the end (the same float32 arithmetic
+//     in another order). Two products.
+//   * dq half: pass 1 walks the (k, v) tiles for each row's max and sum
+//     and, rescaled beside the sum, delta = rowsum(w32 * dw) (dw = dout
+//     v^T); pass 2 dw again, ds = cast(w32 * (dw - delta)) and dq += ds k.
+//     Five products. Each row's max, sum and delta go to the [Z, 3, T]
+//     stats scratch.
+//   * dk/dv half: a warp's 16 keys walk the query tiles with those tiles'
+//     stats staged beside them (the rs kernel's loop): four products.
+// float32's other products as 3xTF32: the m16n8k8 TF32 layouts differ from
+// bf16's, so a second product takes its A fragment from an n8 accumulator
+// tile by reading its summed index in the order the accumulator holds it
+// (key 2 tig as k = tig, key 2 tig + 1 as k = tig + 4) and the B operand's
+// rows in the same order; float32 rows are staged with a stride of hd + 4
+// floats, so the fragment patterns (and the score FMAs' 16-byte loads) fall
+// in different banks. exp is ex2.approx, as in the rs kernels (its error,
+// about 2^-22, is below the 3xTF32 products').
 //
 // dk and dv sum over query rows and dq over key rows. Blocks run in no
 // order and atomics would change the sum's order from run to run, so the
-// backward is two kernels: attn_bwd_dq owns 64 query rows (softmax by rows,
-// delta, ds, dq) and writes each row's max, sum and delta to a [Z, 3, T]
-// scratch; attn_bwd_dkdv owns 64 key rows against all queries, i.e. a
-// [64, T] block of the TRANSPOSED scores, rebuilds w32 and ds from that
-// scratch, and writes dv and dk. Every output element is written once by one
-// block with a fixed order of sums: results repeat bit for bit. The _rs
-// kernels split the backward the same way, a warp per 16 query rows (dq)
-// and a warp per 16 key rows (dk, dv): 8 products and 2 passes of exp.
+// backward is two kernels: the dq half owns query rows and writes each
+// row's max, sum and delta to a [Z, 3, T] scratch; the dk/dv half owns key
+// rows against all queries, rebuilds w32 and ds from that scratch, and
+// writes dv and dk. Every output element is written once by one warp with
+// a fixed order of sums: results repeat bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -93,32 +108,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int BM = 64;        // score rows per block
-constexpr int BN = 64;        // score columns per tile
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int T_MAX = 512;    // [64, T] float32 scores + tiles fit 227 KB
-
-template <typename T>
-constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
-// elements of a 16-byte chunk, the unit of every global load
-template <typename T>
-constexpr int kVec = 16 / sizeof(T);
-// rows of a thin operand staged per round (between two barriers)
-template <typename T>
-constexpr int kR = kBf16<T> ? 256 : 64;
-// row stride of a staged [rows, HDP] thin tile: bf16 rows stay 16-byte
-// aligned and conflict-free for the mma fragments, float32 rows get an odd
-// stride
-template <typename T, int HDP>
-constexpr int kAP = kBf16<T> ? HDP + 8 : HDP + 1;
-// row stride of a transposed bf16 tile [HDP, kR]
-constexpr int BTP = kR<__nv_bfloat16> + 8;
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // two float32 values rounded to bf16, the first in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -134,461 +123,6 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// A block's shared memory: S [BM, SP] float32 scores / weights / ds; stat
-// 3 * Tp floats (row or column max, sum, delta); red 2 * BM floats (partial
-// row sums); two resident thin tiles A1, A2 [BM, kAP]; one staging buffer B
-// of kR rows.
-template <typename T, int HDP>
-struct Tiles {
-  float* S;
-  float* stat;
-  float* red;
-  T* A1;
-  T* A2;
-  T* B;
-  int Tp, SP;
-  __device__ Tiles(unsigned char* base, int Tn) {
-    Tp = (Tn + BN - 1) / BN * BN;
-    SP = Tp + 8;
-    S = reinterpret_cast<float*>(base);
-    stat = S + BM * SP;
-    red = stat + 3 * Tp;
-    A1 = reinterpret_cast<T*>(red + 2 * BM);
-    A2 = A1 + BM * kAP<T, HDP>;
-    B = A2 + BM * kAP<T, HDP>;
-  }
-};
-
-template <typename T, int HDP>
-size_t smem_bytes(int Tn) {
-  const int Tp = (Tn + BN - 1) / BN * BN;
-  return (size_t)(BM * (Tp + 8) + 3 * Tp + 2 * BM) * sizeof(float) +
-         (size_t)(2 * BM + kR<T>) * kAP<T, HDP> * sizeof(T);
-}
-
-// Stage ROWS rows t0 .. of src [Tn, hd] (hd a multiple of 8), zero beyond Tn
-// and hd, by 16-byte loads: a batch of loads is started before its stores, so
-// their latencies overlap. TRANSPOSED = false: dst [ROWS, STRIDE] as src
-// lies; true (bf16): dst [HDP, STRIDE] with dst[d][t], the lanes along t so
-// that neighbouring lanes store neighbouring halves of a word.
-template <typename T, int HDP, int ROWS, int STRIDE, bool TRANSPOSED>
-__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
-                                      int t0, int Tn, int hd) {
-  constexpr int V = kVec<T>;
-  constexpr int CPR = HDP / V;  // chunks per padded row
-  constexpr int TOTAL = ROWS * CPR;
-  constexpr int PER = (TOTAL + THREADS - 1) / THREADS;
-  constexpr int BATCH = PER < 4 ? PER : 4;
-  static_assert(PER % BATCH == 0, "chunks per thread in whole batches");
-#pragma unroll
-  for (int b0 = 0; b0 < PER; b0 += BATCH) {
-    uint4 regs[BATCH];
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int i = threadIdx.x + (b0 + j) * THREADS;
-      const int r = TRANSPOSED ? i % ROWS : i / CPR;
-      const int c = TRANSPOSED ? i / ROWS : i % CPR;
-      regs[j] = (i < TOTAL && t0 + r < Tn && c * V < hd)
-                    ? *reinterpret_cast<const uint4*>(
-                          src + (size_t)(t0 + r) * hd + c * V)
-                    : make_uint4(0u, 0u, 0u, 0u);
-    }
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int i = threadIdx.x + (b0 + j) * THREADS;
-      if (i >= TOTAL) continue;
-      const int r = TRANSPOSED ? i % ROWS : i / CPR;
-      const int c = TRANSPOSED ? i / ROWS : i % CPR;
-      const T* e = reinterpret_cast<const T*>(&regs[j]);
-      if constexpr (TRANSPOSED) {
-#pragma unroll
-        for (int x = 0; x < V; ++x) dst[(c * V + x) * STRIDE + r] = e[x];
-      } else if constexpr (kBf16<T>) {
-        *reinterpret_cast<uint4*>(dst + r * STRIDE + c * V) = regs[j];
-      } else {
-#pragma unroll
-        for (int x = 0; x < V; ++x) dst[r * STRIDE + c * V + x] = e[x];
-      }
-    }
-  }
-}
-
-// One [64, 64] tile of A [64, HDP] * B [64, HDP]^T (both staged thin tiles,
-// float32 sums); f(li, r, c, value) is called once per element by the thread
-// that owns it, li counting the thread's own rows. The same thread owns the
-// same element in every call, so an f that updates S in place needs no
-// barrier between calls.
-template <typename T, int HDP, typename F>
-__device__ __forceinline__ void score_tile(const T* A, const T* B, F f) {
-  constexpr int AP = kAP<T, HDP>;
-  if constexpr (kBf16<T>) {
-    // 8 warps as 4 (16-row blocks) x 2 (32-column halves)
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, tig = lane & 3, wm = warp & 3, wn = warp >> 2;
-    float acc[4][4];
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
-    const __nv_bfloat16* a_row = A + (wm * 16 + g) * AP + 2 * tig;
-#pragma unroll
-    for (int kk = 0; kk < HDP; kk += 16) {
-      uint32_t a[4];
-      a[0] = ld32(a_row + kk);
-      a[1] = ld32(a_row + 8 * AP + kk);
-      a[2] = ld32(a_row + kk + 8);
-      a[3] = ld32(a_row + 8 * AP + kk + 8);
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const __nv_bfloat16* b_row =
-            B + (wn * 32 + ni * 8 + g) * AP + kk + 2 * tig;
-        mma_bf16(acc[ni], a, ld32(b_row), ld32(b_row + 8));
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        f(e >> 1, wm * 16 + g + (e >> 1) * 8,
-          wn * 32 + ni * 8 + 2 * tig + (e & 1), acc[ni][e]);
-  } else {
-    // 16 x 16 threads, each 4 x 4 outputs
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HDP; ++d) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * AP + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = B[(tx + 16 * j) * AP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) f(i, ty + 16 * i, tx + 16 * j, acc[i][j]);
-  }
-}
-
-// Rows a thread owns in score_tile, and the sum over a row's columns of the
-// threads' partial sums part[li], in a fixed order: lanes by an xor tree,
-// then (bf16) the two column halves through red.
-template <typename T>
-constexpr int kOwnRows = kBf16<T> ? 2 : 4;
-
-template <typename T>
-__device__ __forceinline__ void reduce_rows(const float* part, float* red,
-                                            float* out) {
-  if constexpr (kBf16<T>) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, tig = lane & 3, wm = warp & 3, wn = warp >> 2;
-#pragma unroll
-    for (int li = 0; li < 2; ++li) {
-      float v = part[li];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      if (tig == 0) red[wn * BM + wm * 16 + g + 8 * li] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < BM)
-      out[threadIdx.x] = red[threadIdx.x] + red[BM + threadIdx.x];
-  } else {
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-    for (int li = 0; li < 4; ++li) {
-      float v = part[li];
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (tx == 0) out[ty + 16 * li] = v;
-    }
-  }
-  __syncthreads();
-}
-
-// All column tiles of A [64, HDP] * cols [Tn, hd]^T: cols is staged kR rows
-// per round, f(li, r, col, value) sees every element of the [64, Tp] block.
-// staged = true: the call before this one staged the same cols and nothing
-// has written B since, so a single round's rows are still there.
-template <typename T, int HDP, typename F>
-__device__ __forceinline__ void scores(const Tiles<T, HDP>& s, const T* A,
-                                       const T* __restrict__ cols, int Tn,
-                                       int hd, F f, bool staged = false) {
-  constexpr int AP = kAP<T, HDP>;
-  staged = staged && s.Tp <= kR<T>;
-  for (int c0 = 0; c0 < s.Tp; c0 += kR<T>) {
-    __syncthreads();
-    if (!staged) stage<T, HDP, kR<T>, AP, false>(s.B, cols, c0, Tn, hd);
-    __syncthreads();
-    for (int t = 0; t < kR<T> && c0 + t < s.Tp; t += BN)
-      score_tile<T, HDP>(A, s.B + t * AP,
-                         [&](int li, int r, int c, float v) {
-                           f(li, r, c0 + t + c, v);
-                         });
-  }
-  __syncthreads();
-}
-
-// exp for the softmax: ex2.approx in bf16 (its error is far below the
-// rounding of the weights to bf16), the accurate expf in float32
-template <typename T>
-__device__ __forceinline__ float exp_t(float x) {
-  if constexpr (kBf16<T>)
-    return __expf(x);
-  else
-    return expf(x);
-}
-
-// Rows of S [64, Tp] -> softmax over the first Tn columns, in float32 with
-// the row max subtracted and e * (1 / sum); columns Tn .. Tp-1 become 0. A
-// warp holds one row in registers (T_MAX / 32 values a lane): one read, one
-// write. Optionally keeps each row's max in m_out[r] and sum in l_out[r].
-template <typename T>
-__device__ __forceinline__ void softmax_rows(float* S, int SP, int Tn, int Tp,
-                                             float* m_out, float* l_out) {
-  constexpr int PER = T_MAX / 32;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < BM; r += WARPS) {
-    float* row = S + r * SP;
-    float vals[PER];
-    float m = -CUDART_INF_F;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int j = lane + 32 * i;
-      vals[i] = j < Tn ? row[j] : -CUDART_INF_F;
-      m = fmaxf(m, vals[i]);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      vals[i] = lane + 32 * i < Tn ? exp_t<T>(vals[i] - m) : 0.f;
-      sum += vals[i];
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float inv = 1.f / sum;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int j = lane + 32 * i;
-      if (j < Tp) row[j] = vals[i] * inv;
-    }
-    if (m_out != nullptr && lane == 0) {
-      m_out[r] = m;
-      l_out[r] = sum;
-    }
-  }
-  __syncthreads();
-}
-
-// dst rows row0 .. row0+63 of [Tn, hd] = cast(S [64, Tp]) * src [Tn, hd],
-// float32 sums, the result cast to T. src is staged kR rows per round:
-// transposed for the bf16 mma (its B fragment pairs values along the summed
-// index), as it lies for the float32 FMAs.
-template <typename T, int HDP>
-__device__ __forceinline__ void out_product(const Tiles<T, HDP>& s,
-                                            const T* __restrict__ src, int Tn,
-                                            int hd, T* __restrict__ dst,
-                                            int row0) {
-  if constexpr (kBf16<T>) {
-    constexpr int NT = HDP / 16;  // 8-column tiles per warp (two warps a row)
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, tig = lane & 3, wm = warp & 3, wn = warp >> 2;
-    float acc[NT][4];
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[ni][e] = 0.f;
-    for (int k0 = 0; k0 < s.Tp; k0 += kR<T>) {
-      __syncthreads();
-      stage<T, HDP, kR<T>, BTP, true>(s.B, src, k0, Tn, hd);
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < kR<T> && k0 + kk < s.Tp; kk += 16) {
-        const float* s0 = s.S + (wm * 16 + g) * s.SP + k0 + kk + 2 * tig;
-        const float2 v0 = *reinterpret_cast<const float2*>(s0);
-        const float2 v1 = *reinterpret_cast<const float2*>(s0 + 8 * s.SP);
-        const float2 v2 = *reinterpret_cast<const float2*>(s0 + 8);
-        const float2 v3 = *reinterpret_cast<const float2*>(s0 + 8 * s.SP + 8);
-        uint32_t a[4];
-        a[0] = pack_bf16(v0.x, v0.y);
-        a[1] = pack_bf16(v1.x, v1.y);
-        a[2] = pack_bf16(v2.x, v2.y);
-        a[3] = pack_bf16(v3.x, v3.y);
-#pragma unroll
-        for (int ni = 0; ni < NT; ++ni) {
-          const __nv_bfloat16* b_row =
-              s.B + ((wn * NT + ni) * 8 + g) * BTP + kk + 2 * tig;
-          mma_bf16(acc[ni], a, ld32(b_row), ld32(b_row + 8));
-        }
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < NT; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row0 + wm * 16 + g + (e >> 1) * 8;
-        const int c = (wn * NT + ni) * 8 + 2 * tig + (e & 1);
-        if (r < Tn && c < hd)
-          dst[(size_t)r * hd + c] = __float2bfloat16_rn(acc[ni][e]);
-      }
-  } else {
-    constexpr int NJ = HDP / 16;
-    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    float acc[4][NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < s.Tp; k0 += kR<T>) {
-      __syncthreads();
-      stage<T, HDP, kR<T>, HDP, false>(s.B, src, k0, Tn, hd);
-      __syncthreads();
-#pragma unroll 8
-      for (int t = 0; t < kR<T>; ++t) {
-        float a[4], b[NJ];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = s.S[(ty + 16 * i) * s.SP + k0 + t];
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) b[j] = s.B[t * HDP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int r = row0 + ty + 16 * i, c = tx + 16 * j;
-        if (r < Tn && c < hd) dst[(size_t)r * hd + c] = acc[i][j];
-      }
-  }
-}
-
-// Kernel C. Block (query tile, z): o rows = cast(softmax(q k^T)) v.
-template <typename T, int HDP>
-__global__ void __launch_bounds__(THREADS, 2)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, T* __restrict__ o, int Tn, int hd,
-                int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tiles<T, HDP> s(smem, Tn);
-  constexpr int AP = kAP<T, HDP>;
-  const int z = blockIdx.x / n_tiles, r0 = (blockIdx.x % n_tiles) * BM;
-  const size_t off = (size_t)z * Tn * hd;
-  stage<T, HDP, BM, AP, false>(s.A1, q + off, r0, Tn, hd);
-  scores<T, HDP>(s, s.A1, k + off, Tn, hd,
-                 [&](int, int r, int c, float v_) { s.S[r * s.SP + c] = v_; });
-  softmax_rows<T>(s.S, s.SP, Tn, s.Tp, nullptr, nullptr);
-  out_product<T, HDP>(s, v + off, Tn, hd, o + off, r0);
-}
-
-// Kernel C', first half. Block (query tile, z): w32 by rows, delta, ds, dq;
-// each row's max, sum and delta go to stats [Z, 3, Tn].
-template <typename T, int HDP>
-__global__ void __launch_bounds__(THREADS, 2)
-attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   T* __restrict__ dq, float* __restrict__ stats, int Tn,
-                   int hd, int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tiles<T, HDP> s(smem, Tn);
-  constexpr int AP = kAP<T, HDP>;
-  const int z = blockIdx.x / n_tiles, r0 = (blockIdx.x % n_tiles) * BM;
-  const size_t off = (size_t)z * Tn * hd;
-  float* m_s = s.stat;
-  float* l_s = s.stat + BM;
-  float* delta_s = s.stat + 2 * BM;
-  stage<T, HDP, BM, AP, false>(s.A1, q + off, r0, Tn, hd);
-  stage<T, HDP, BM, AP, false>(s.A2, dout + off, r0, Tn, hd);
-  scores<T, HDP>(s, s.A1, k + off, Tn, hd,
-                 [&](int, int r, int c, float v_) { s.S[r * s.SP + c] = v_; });
-  softmax_rows<T>(s.S, s.SP, Tn, s.Tp, m_s, l_s);
-
-  // delta = rowsum(w32 * dw), dw = dout v^T taken from the accumulators
-  float part[kOwnRows<T>];
-#pragma unroll
-  for (int i = 0; i < kOwnRows<T>; ++i) part[i] = 0.f;
-  scores<T, HDP>(s, s.A2, v + off, Tn, hd,
-                 [&](int li, int r, int c, float dw) {
-                   part[li] = fmaf(s.S[r * s.SP + c], dw, part[li]);
-                 });
-  reduce_rows<T>(part, s.red, delta_s);
-  if (threadIdx.x < BM && r0 + threadIdx.x < Tn) {
-    float* st = stats + (size_t)z * 3 * Tn + r0 + threadIdx.x;
-    st[0] = m_s[threadIdx.x];
-    st[Tn] = l_s[threadIdx.x];
-    st[2 * Tn] = delta_s[threadIdx.x];
-  }
-
-  // ds = w32 * (dw - delta), written over w32 (dw is computed a second time:
-  // it is cheaper than keeping a second [64, T] block)
-  scores<T, HDP>(s, s.A2, v + off, Tn, hd,
-                 [&](int, int r, int c, float dw) {
-                   float* w = s.S + r * s.SP + c;
-                   *w = *w * (dw - delta_s[r]);
-                 },
-                 /*staged=*/true);
-  out_product<T, HDP>(s, k + off, Tn, hd, dq + off, r0);
-}
-
-// Kernel C', second half. Block (key tile, z): the [64 keys, T queries]
-// block of the transposed scores; w32 and ds rebuilt from the query rows'
-// max, sum and delta; dv = cast(w32)^T dout, dk = cast(ds)^T q.
-template <typename T, int HDP>
-__global__ void __launch_bounds__(THREADS, 2)
-attn_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     T* __restrict__ dk, T* __restrict__ dv,
-                     const float* __restrict__ stats, int Tn, int hd,
-                     int n_tiles) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tiles<T, HDP> s(smem, Tn);
-  constexpr int AP = kAP<T, HDP>;
-  const int z = blockIdx.x / n_tiles, k0 = (blockIdx.x % n_tiles) * BM;
-  const size_t off = (size_t)z * Tn * hd;
-  float* m_s = s.stat;
-  float* inv_l_s = s.stat + s.Tp;
-  float* delta_s = s.stat + 2 * s.Tp;
-  for (int j = threadIdx.x; j < s.Tp; j += THREADS) {
-    const float* st = stats + (size_t)z * 3 * Tn + j;
-    m_s[j] = j < Tn ? st[0] : 0.f;
-    inv_l_s[j] = j < Tn ? 1.f / st[Tn] : 1.f;
-    delta_s[j] = j < Tn ? st[2 * Tn] : 0.f;
-  }
-  stage<T, HDP, BM, AP, false>(s.A1, k + off, k0, Tn, hd);
-  stage<T, HDP, BM, AP, false>(s.A2, v + off, k0, Tn, hd);
-  // w32[key, query] = exp(s - max[query]) * (1 / sum[query]); 0 on the
-  // padding
-  scores<T, HDP>(s, s.A1, q + off, Tn, hd,
-                 [&](int, int r, int c, float v_) {
-                   s.S[r * s.SP + c] = (c < Tn && k0 + r < Tn)
-                                           ? exp_t<T>(v_ - m_s[c]) * inv_l_s[c]
-                                           : 0.f;
-                 });
-  out_product<T, HDP>(s, dout + off, Tn, hd, dv + off, k0);
-  // ds[key, query] = w32 * (dw - delta[query]), dw = v dout^T
-  scores<T, HDP>(s, s.A2, dout + off, Tn, hd,
-                 [&](int, int r, int c, float dw) {
-                   float* w = s.S + r * s.SP + c;
-                   *w = *w * (dw - delta_s[c]);
-                 });
-  out_product<T, HDP>(s, q + off, Tn, hd, dk + off, k0);
 }
 
 template <typename K>
@@ -1210,78 +744,750 @@ int by_hd(int hd, F f) {
 
 }  // namespace rs
 
-template <typename T, int HDP>
+// ---------------------------------------------------------------------------
+// float32 (any T) and bf16 with T > 256: key-tiled
+// ---------------------------------------------------------------------------
+namespace kt {
+
+using rs::bf16;
+using rs::cp_async16;
+using rs::cp_async4;
+using rs::cp_async_commit;
+using rs::cp_async_wait;
+using rs::ex2;
+using rs::L2E;
+using rs::saddr;
+constexpr int WARPS = 4;
+constexpr int THREADS = 32 * WARPS;  // rs::stage copies with as many
+constexpr int STRIP = 16 * WARPS;    // rows (queries, or keys) of a block
+constexpr int TILE = 64;             // rows of the other operand a step
+static_assert(THREADS == rs::THREADS, "rs::stage's thread count");
+
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+
+// Row stride (elements) of a staged [rows, hd] operand: bf16 as the rs
+// kernels'; float32 hd + 4 (rows 16-byte aligned; hd + 4 is 4 times an odd
+// number, so the rows g and columns tig of a first product's fragment, and
+// the rows 2 tig, 2 tig + 1 and columns g of a second product's, fall in 32
+// different banks)
+template <typename T, int HD>
+constexpr int kStride = kF32<T> ? HD + 4 : rs::kSP<HD>;
+
+// Shared memory of a block: `strips` operands of STRIP rows, `tiles` of
+// TILE rows (each double-buffered), `stats` float32 rows of two tiles.
+template <typename T, int HD>
+constexpr size_t smem_bytes(int strips, int tiles, int stats) {
+  return (size_t)(strips * STRIP + 2 * tiles * TILE) * kStride<T, HD> *
+             sizeof(T) +
+         (size_t)stats * 2 * TILE * sizeof(float);
+}
+
+// Rows t0 .. t0+rows-1 of src [Tn, HD] into dst [rows, kStride], rows from
+// Tn on zero, by 16-byte cp.async (the caller commits the group).
+template <typename T, int HD>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src,
+                                      int t0, int rows, int Tn) {
+  if constexpr (kF32<T>) {
+    constexpr int CPR = HD / 4;  // 16-byte chunks per row
+    const int n_in = (Tn - t0 < rows ? Tn - t0 : rows) * CPR;
+    const uint4* from = reinterpret_cast<const uint4*>(src + (size_t)t0 * HD);
+    const uint32_t base = saddr(dst);
+    for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
+      const uint32_t to = (i / CPR) * (kStride<T, HD> * 4) + (i % CPR) * 16;
+      const bool in = i < n_in;
+      cp_async16(base + to, in ? from + i : from, in ? 16 : 0);
+    }
+  } else {
+    rs::stage<HD>(dst, src, t0, rows, Tn);
+  }
+}
+
+// TF32 (round to nearest, ties away) of x, in a 32-bit register
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 in, float32 accumulate
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b in about float32 precision: a = ab + as and b = (b0, b1) split
+// into TF32 parts, the two small products first, small * small left out
+__device__ __forceinline__ void mma3(float* d, const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], float b0,
+                                     float b1) {
+  uint32_t bb0, bs0, bb1, bs1;
+  split(b0, bb0, bs0);
+  split(b1, bb1, bs1);
+  mma_tf32(d, as, bb0, bb1);
+  mma_tf32(d, ab, bs0, bs1);
+  mma_tf32(d, ab, bb0, bb1);
+}
+
+// The A operand of a first product (the scores q k^T or k q^T, and dw =
+// dout v^T or v dout^T) for a warp's 16 rows: bf16 fragments (all of hd),
+// or in float32 the staged rows themselves. float32 first products are
+// summed on FMAs in full float32: exp turns a score's absolute error into
+// the weight's relative error, and ds = w32 (dw - delta) cancels; 3xTF32's
+// error (about 2^-22 of |q| |k| a term) broke float32's tolerance there
+// once scores reached +-100.
+template <typename T, int HD>
+struct ARows {
+  uint32_t f[rs::kK16<HD> + rs::kTail<HD>][4];  // bf16
+};
+template <int HD>
+struct ARows<float, HD> {
+  const float* rows;
+};
+
+template <typename T, int HD>
+__device__ __forceinline__ void load_rows(ARows<T, HD>& a, const T* rows,
+                                          int lane) {
+  if constexpr (kF32<T>)
+    a.rows = rows;
+  else
+    rs::a_frags<HD>(a.f, rows, lane);
+}
+
+// d0, d1 (two n8 accumulator tiles) = the warp's 16 rows times B's rows
+// c0 .. c0+15 of a staged operand, over hd
+template <typename T, int HD>
+__device__ __forceinline__ void scores16(float (&d0)[4], float (&d1)[4],
+                                         const ARows<T, HD>& a, const T* B,
+                                         int c0, int lane) {
+  if constexpr (kF32<T>) {
+    constexpr int SP = kStride<T, HD>;
+    const int g = lane >> 2, tig = lane & 3;
+    const float* q0 = a.rows + g * SP;
+    const float* q1 = q0 + 8 * SP;
+    const float* k0 = B + (c0 + 2 * tig) * SP;  // columns 2 tig, 2 tig + 1
+    const float* k2 = k0 + 8 * SP;              // and 8 more
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d0[e] = d1[e] = 0.f;
+    // two steps unrolled: all of hd unrolled hoisted every step's six
+    // 16-byte loads (to 384 registers at hd 64) and spilled
+#pragma unroll 2
+    for (int d = 0; d < HD; d += 4) {
+      const float4 x0 = *reinterpret_cast<const float4*>(q0 + d);
+      const float4 x1 = *reinterpret_cast<const float4*>(q1 + d);
+      const float4 y[4] = {*reinterpret_cast<const float4*>(k0 + d),
+                           *reinterpret_cast<const float4*>(k0 + SP + d),
+                           *reinterpret_cast<const float4*>(k2 + d),
+                           *reinterpret_cast<const float4*>(k2 + SP + d)};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* o = j < 2 ? d0 : d1;
+        const int col = j & 1;
+        o[col] = fmaf(x0.x, y[j].x, o[col]);
+        o[col] = fmaf(x0.y, y[j].y, o[col]);
+        o[col] = fmaf(x0.z, y[j].z, o[col]);
+        o[col] = fmaf(x0.w, y[j].w, o[col]);
+        o[2 + col] = fmaf(x1.x, y[j].x, o[2 + col]);
+        o[2 + col] = fmaf(x1.y, y[j].y, o[2 + col]);
+        o[2 + col] = fmaf(x1.z, y[j].z, o[2 + col]);
+        o[2 + col] = fmaf(x1.w, y[j].w, o[2 + col]);
+      }
+    }
+  } else {
+    const uint32_t g = (c0 / 16) * rs::kGroup<HD>;
+    rs::group_product<HD>(d0, d1, a.f, rs::cols_addr<HD>(B, lane) + g,
+                          rs::tail_addr<HD>(B, lane) + g);
+  }
+}
+
+// o += cast(x) * B over the 16 rows c0 .. c0+15 of a staged operand (the
+// summed index); x0, x1: the two n8 accumulator tiles of those 16 columns
+template <typename T, int HD>
+__device__ __forceinline__ void sum16(float (&o)[HD / 8][4],
+                                      const float (&x0)[4],
+                                      const float (&x1)[4], const T* B,
+                                      int c0, int lane) {
+  if constexpr (kF32<T>) {
+    constexpr int SP = kStride<T, HD>;
+    const int g = lane >> 2, tig = lane & 3;
+    // k = tig is column 2 tig of an n8 tile, k = tig + 4 column 2 tig + 1
+    uint32_t ab[2][4], as[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float(&x)[4] = h ? x1 : x0;
+      split(x[0], ab[h][0], as[h][0]);
+      split(x[2], ab[h][1], as[h][1]);
+      split(x[1], ab[h][2], as[h][2]);
+      split(x[3], ab[h][3], as[h][3]);
+    }
+    const float* b = B + (c0 + 2 * tig) * SP + g;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      // the tensor cores sum the 16 keys' three products; o adds them in
+      // float32 (round to nearest) over the whole of T
+      float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        mma3(t, ab[h], as[h], b[8 * h * SP + 8 * n],
+             b[(8 * h + 1) * SP + 8 * n]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] += t[e];
+    }
+  } else {
+    const uint32_t g = (c0 / 16) * rs::kGroup<HD>;
+    rs::step_product<HD>(o, x0, x1, rs::sum_addr<HD>(B, lane) + g,
+                         rs::tail_addr<HD>(B, lane) + g);
+  }
+}
+
+// A warp's 16 output rows (row0 ..) of dst [Tn, HD], cast to T.
+template <typename T, int HD>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst,
+                                           const float (&o)[HD / 8][4],
+                                           int row0, int Tn, int lane) {
+  if constexpr (kF32<T>) {
+    const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + g + 8 * h;
+      if (r >= Tn) continue;
+#pragma unroll
+      for (int n = 0; n < HD / 8; ++n)
+        *reinterpret_cast<float2*>(dst + (size_t)r * HD + n * 8 + 2 * tig) =
+            make_float2(o[n][2 * h], o[n][2 * h + 1]);
+    }
+  } else {
+    rs::store_rows<HD>(dst, o, row0, Tn, lane);
+  }
+}
+
+// One more 64-column tile of scores s for the thread's two rows: columns
+// from lim on (in the last tile only) set to -inf, the running max mx
+// (over the quad) and ml = mx log2(e) updated, and f the factor that sums
+// taken so far are rescaled by: ex2 of the difference of the two ml (0
+// from -inf on the first tile, 1 while the max stays), so that every term
+// of a sum stays ex2(s log2(e) - ml) of the latest ml up to ex2's own error
+// (rescaling by the max's difference before rounding to ml put 5e-6
+// relative between the sum and the weights at scores of +-150).
+template <int NJ>
+__device__ __forceinline__ void tile_max(float (&s)[NJ][4], int lim,
+                                         float (&mx)[2], float (&ml)[2],
+                                         float (&f)[2]) {
+  float tm[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = 8 * j + (e & 1) < lim ? s[j][e] : -CUDART_INF_F;
+      tm[e >> 1] = fmaxf(tm[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    tm[h] = fmaxf(tm[h], __shfl_xor_sync(0xffffffffu, tm[h], 1));
+    tm[h] = fmaxf(tm[h], __shfl_xor_sync(0xffffffffu, tm[h], 2));
+    const float mn = fmaxf(mx[h], tm[h]), mln = mn * L2E;
+    f[h] = mln == ml[h] ? 1.f : ex2(ml[h] - mln);
+    mx[h] = mn;
+    ml[h] = mln;
+  }
+}
+
+// Pass 1 of the bf16 forward: each of the thread's two rows' max (mx, over
+// the quad), ml = mx log2(e) as the later pass rounds it, and sum of exp(s
+// - max) (this thread's columns only), over all key tiles (tile_max).
+// Stages the key tiles into kb (two buffers); leaves no copy in flight and
+// every warp past its last read.
+template <typename T, int HD>
+__device__ __forceinline__ void row_stats(const T* rows, T* kb,
+                                          const T* __restrict__ kz, int Tn,
+                                          int lane, float (&mx)[2],
+                                          float (&ml)[2], float (&sum)[2]) {
+  constexpr int SP = kStride<T, HD>;
+  const int nt = (Tn + TILE - 1) / TILE;
+  mx[0] = mx[1] = ml[0] = ml[1] = -CUDART_INF_F;
+  sum[0] = sum[1] = 0.f;
+  stage<T, HD>(kb, kz, 0, TILE, Tn);
+  cp_async_commit();
+  for (int i = 0; i < nt; ++i) {
+    if (i + 1 < nt)
+      stage<T, HD>(kb + ((i + 1) & 1) * TILE * SP, kz, (i + 1) * TILE, TILE,
+                   Tn);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const T* tile = kb + (i & 1) * TILE * SP;
+    ARows<T, HD> a;
+    load_rows<T, HD>(a, rows, lane);
+    float s[8][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      scores16<T, HD>(s[2 * c], s[2 * c + 1], a, tile, 16 * c, lane);
+    float f[2];
+    tile_max(s, Tn - i * TILE - 2 * (lane & 3), mx, ml, f);
+    sum[0] *= f[0];
+    sum[1] *= f[1];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        sum[e >> 1] += ex2(fmaf(s[j][e], L2E, -ml[e >> 1]));
+    __syncthreads();  // the buffer is restaged two tiles on
+  }
+}
+
+// the quad's sum of a per-thread partial (a fixed order)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// w32 of an n8 accumulator tile j of a 64-column tile (columns from lim on
+// get 0): exp(s - max) * (1 / sum)
+__device__ __forceinline__ void weights(float (&s)[4], int j, int lim,
+                                        const float (&ml)[2],
+                                        const float (&inv)[2]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    s[e] = 8 * j + (e & 1) < lim
+               ? ex2(fmaf(s[e], L2E, -ml[e >> 1])) * inv[e >> 1]
+               : 0.f;
+}
+
+// Kernel C in float32, where the cast is the identity: one pass over the
+// key tiles, the weights' sum and o = sum of exp(s - max) v rescaled
+// together as the max grows (tile_max), o / sum at the end: the same
+// float32 arithmetic in another order, and half the score products of the
+// two-pass form.
+template <int HD>
+__device__ __forceinline__ void fwd_online(const float* rows, float* sk,
+                                           float* sv,
+                                           const float* __restrict__ kz,
+                                           const float* __restrict__ vz,
+                                           float* __restrict__ oz, int row0,
+                                           int Tn, int lane) {
+  constexpr int SP = kStride<float, HD>;
+  const int nt = (Tn + TILE - 1) / TILE;
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float ml[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float sum[2] = {0.f, 0.f};
+  float acc[HD / 8][4];
+  rs::zero<HD>(acc);
+  stage<float, HD>(sk, kz, 0, TILE, Tn);
+  stage<float, HD>(sv, vz, 0, TILE, Tn);
+  cp_async_commit();
+  for (int i = 0; i < nt; ++i) {
+    if (i + 1 < nt) {
+      const int b = ((i + 1) & 1) * TILE * SP;
+      stage<float, HD>(sk + b, kz, (i + 1) * TILE, TILE, Tn);
+      stage<float, HD>(sv + b, vz, (i + 1) * TILE, TILE, Tn);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const int b = (i & 1) * TILE * SP;
+    if (row0 >= Tn) {  // a warp past T (the last strip's): barriers only
+      __syncthreads();
+      continue;
+    }
+    ARows<float, HD> a;
+    load_rows<float, HD>(a, rows, lane);
+    float s[8][4], f[2];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      scores16<float, HD>(s[2 * c], s[2 * c + 1], a, sk + b, 16 * c, lane);
+    tile_max(s, Tn - i * TILE - 2 * (lane & 3), mx, ml, f);
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] *= f[e >> 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) sum[h] *= f[h];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(fmaf(s[j][e], L2E, -ml[e >> 1]));
+        sum[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      sum16<float, HD>(acc, s[2 * c], s[2 * c + 1], sv + b, 16 * c, lane);
+    __syncthreads();  // the buffers are restaged two tiles on
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) inv[h] = 1.f / quad_sum(sum[h]);
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] *= inv[e >> 1];
+  store_rows<float, HD>(oz, acc, row0, Tn, lane);
+}
+
+// Kernel C. Block (64-row strip, z); warp w owns rows r0 + 16 w ...:
+// o = cast(softmax(q k^T)) v, in two passes over the key tiles (float32:
+// one, fwd_online).
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS, kF32<T> && HD > 32 ? 2 : 3)
+attn_fwd_kt(const T* __restrict__ q, const T* __restrict__ k,
+            const T* __restrict__ v, T* __restrict__ o, int Tn,
+            int n_strips) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int SP = kStride<T, HD>;
+  T* sq = reinterpret_cast<T*>(smem);  // [STRIP, SP]
+  T* sk = sq + STRIP * SP;             // 2 x [TILE, SP]
+  T* sv = sk + 2 * TILE * SP;          // 2 x [TILE, SP]
+  const int z = blockIdx.x / n_strips, r0 = (blockIdx.x % n_strips) * STRIP;
+  const size_t off = (size_t)z * Tn * HD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nt = (Tn + TILE - 1) / TILE;
+  const T* rows = sq + 16 * warp * SP;
+  stage<T, HD>(sq, q + off, r0, STRIP, Tn);  // waited for with tile 0
+  if constexpr (kF32<T>) {
+    fwd_online<HD>(rows, sk, sv, k + off, v + off, o + off, r0 + 16 * warp,
+                   Tn, lane);
+  } else {
+    float mx[2], ml[2], sum[2], inv[2];
+    row_stats<T, HD>(rows, sk, k + off, Tn, lane, mx, ml, sum);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) inv[h] = 1.f / quad_sum(sum[h]);
+    float acc[HD / 8][4];
+    rs::zero<HD>(acc);
+    stage<T, HD>(sk, k + off, 0, TILE, Tn);
+    stage<T, HD>(sv, v + off, 0, TILE, Tn);
+    cp_async_commit();
+    for (int i = 0; i < nt; ++i) {
+      if (i + 1 < nt) {
+        const int b = ((i + 1) & 1) * TILE * SP;
+        stage<T, HD>(sk + b, k + off, (i + 1) * TILE, TILE, Tn);
+        stage<T, HD>(sv + b, v + off, (i + 1) * TILE, TILE, Tn);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const int b = (i & 1) * TILE * SP;
+      const int lim = Tn - i * TILE - 2 * (lane & 3);
+      ARows<T, HD> a;
+      load_rows<T, HD>(a, rows, lane);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float s[2][4];
+        scores16<T, HD>(s[0], s[1], a, sk + b, 16 * c, lane);
+        weights(s[0], 2 * c, lim, ml, inv);
+        weights(s[1], 2 * c + 1, lim, ml, inv);
+        sum16<T, HD>(acc, s[0], s[1], sv + b, 16 * c, lane);
+      }
+      __syncthreads();
+    }
+    store_rows<T, HD>(o + off, acc, r0 + 16 * warp, Tn, lane);
+  }
+}
+
+// Kernel C', first half. Block (64 query rows, z). Pass 1 over the (k, v)
+// tiles: each row's max and sum as row_stats takes them, and beside the sum
+// delta's numerator, the sum of exp(s - max) dw with dw = dout v^T,
+// rescaled with it; delta = rowsum(w32 * dw) = that numerator / sum. Pass
+// 2: dw again, ds = cast(w32 * (dw - delta)) and dq = ds k. Each row's
+// max, sum and delta go to stats [Z, 3, Tn].
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS, 2)
+attn_bwd_dq_kt(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               T* __restrict__ dq, float* __restrict__ stats, int Tn,
+               int n_strips) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int SP = kStride<T, HD>;
+  T* sq = reinterpret_cast<T*>(smem);  // [STRIP, SP]
+  T* sdo = sq + STRIP * SP;            // [STRIP, SP]
+  T* sk = sdo + STRIP * SP;            // 2 x [TILE, SP]
+  T* sv = sk + 2 * TILE * SP;          // 2 x [TILE, SP]
+  const int z = blockIdx.x / n_strips, r0 = (blockIdx.x % n_strips) * STRIP;
+  const size_t off = (size_t)z * Tn * HD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int nt = (Tn + TILE - 1) / TILE;
+  const int row0 = r0 + 16 * warp;
+  const T* rq = sq + 16 * warp * SP;
+  const T* rdo = sdo + 16 * warp * SP;
+  stage<T, HD>(sq, q + off, r0, STRIP, Tn);
+  stage<T, HD>(sdo, dout + off, r0, STRIP, Tn);
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float ml[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float sum[2] = {0.f, 0.f}, num[2] = {0.f, 0.f}, inv[2], delta[2];
+  float acc[HD / 8][4];
+  rs::zero<HD>(acc);
+#pragma unroll
+  for (int pass = 1; pass <= 2; ++pass) {
+    stage<T, HD>(sk, k + off, 0, TILE, Tn);
+    stage<T, HD>(sv, v + off, 0, TILE, Tn);
+    cp_async_commit();
+    for (int i = 0; i < nt; ++i) {
+      if (i + 1 < nt) {
+        const int b = ((i + 1) & 1) * TILE * SP;
+        stage<T, HD>(sk + b, k + off, (i + 1) * TILE, TILE, Tn);
+        stage<T, HD>(sv + b, v + off, (i + 1) * TILE, TILE, Tn);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const int b = (i & 1) * TILE * SP;
+      const int lim = Tn - i * TILE - 2 * tig;
+      ARows<T, HD> aq, ado;
+      load_rows<T, HD>(aq, rq, lane);
+      load_rows<T, HD>(ado, rdo, lane);
+      if (row0 >= Tn) {
+        // a warp past T (the last strip's) only stages and waits
+      } else if (pass == 1) {
+        // half a tile (32 columns) at a time: half the registers
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float s[4][4], dw[4][4];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int c0 = 32 * half + 16 * c;
+            scores16<T, HD>(s[2 * c], s[2 * c + 1], aq, sk + b, c0, lane);
+            scores16<T, HD>(dw[2 * c], dw[2 * c + 1], ado, sv + b, c0, lane);
+          }
+          float f[2];
+          tile_max(s, lim - 32 * half, mx, ml, f);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            sum[h] *= f[h];
+            num[h] *= f[h];
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float x = ex2(fmaf(s[j][e], L2E, -ml[e >> 1]));
+              sum[e >> 1] += x;
+              num[e >> 1] = fmaf(x, dw[j][e], num[e >> 1]);
+            }
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float w[2][4], dw[2][4];
+          scores16<T, HD>(w[0], w[1], aq, sk + b, 16 * c, lane);
+          scores16<T, HD>(dw[0], dw[1], ado, sv + b, 16 * c, lane);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            weights(w[h], 2 * c + h, lim, ml, inv);
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dw[h][e] = w[h][e] * (dw[h][e] - delta[e >> 1]);
+          }
+          sum16<T, HD>(acc, dw[0], dw[1], sk + b, 16 * c, lane);
+        }
+      }
+      __syncthreads();  // the buffer is restaged two tiles on
+    }
+    if (pass == 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] = quad_sum(sum[h]);
+        inv[h] = 1.f / sum[h];
+        delta[h] = quad_sum(num[h]) * inv[h];
+        const int r = row0 + g + 8 * h;
+        if (tig == 0 && r < Tn) {
+          float* st = stats + (size_t)z * 3 * Tn + r;
+          st[0] = mx[h];
+          st[Tn] = sum[h];
+          st[2 * Tn] = delta[h];
+        }
+      }
+    }
+  }
+  store_rows<T, HD>(dq + off, acc, row0, Tn, lane);
+}
+
+// Kernel C', second half. Block (64 key rows, z); warp w owns keys
+// r0 + 16 w ... and walks the query tiles, each in groups of 16 (the rs
+// kernel's loop): the transposed scores k q_c^T, w32 rebuilt from the query
+// rows' max and sum, dv += cast(w32)^T dout_c, dw^T = v dout_c^T, ds^T =
+// cast(w32 * (dw - delta)), dk += ds^T q_c. Tiles and groups are summed in
+// a fixed order, so the results repeat bit for bit.
+template <typename T, int HD>
+__global__ void __launch_bounds__(THREADS, 2)
+attn_bwd_dkdv_kt(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 T* __restrict__ dk, T* __restrict__ dv,
+                 const float* __restrict__ stats, int Tn, int n_strips) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int SP = kStride<T, HD>;
+  T* sk = reinterpret_cast<T*>(smem);  // [STRIP, SP]
+  T* sv = sk + STRIP * SP;             // [STRIP, SP]
+  T* sq = sv + STRIP * SP;             // 2 x [TILE, SP]
+  T* sdo = sq + 2 * TILE * SP;         // 2 x [TILE, SP]
+  // per query column of a tile (two buffers): -max log2(e), 1 / sum, delta
+  // (0, 0, 0 past Tn: the zero query rows' scores are 0, so their weights
+  // come out 0)
+  float* sst = reinterpret_cast<float*>(sdo + 2 * TILE * SP);  // 2 x [3, TILE]
+  const int z = blockIdx.x / n_strips, r0 = (blockIdx.x % n_strips) * STRIP;
+  const size_t off = (size_t)z * Tn * HD;
+  const float* st = stats + (size_t)z * 3 * Tn;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tig = lane & 3;
+  const int nt = (Tn + TILE - 1) / TILE;
+  const int row0 = r0 + 16 * warp;
+  // a tile's queries and stats; this thread's stats entries by 4-byte
+  // cp.async (entries past Tn are not copied: the thread writes them)
+  auto stage_tile = [&](int i) {
+    const int b = (i & 1) * TILE * SP;
+    stage<T, HD>(sq + b, q + off, i * TILE, TILE, Tn);
+    stage<T, HD>(sdo + b, dout + off, i * TILE, TILE, Tn);
+    float* dst = sst + (i & 1) * 3 * TILE;
+    for (int e = threadIdx.x; e < 3 * TILE; e += THREADS) {
+      const int r = e / TILE, j = i * TILE + e % TILE;
+      if (j < Tn) cp_async4(saddr(dst + e), st + r * Tn + j);
+    }
+  };
+  stage<T, HD>(sk, k + off, r0, STRIP, Tn);
+  stage<T, HD>(sv, v + off, r0, STRIP, Tn);
+  stage_tile(0);
+  cp_async_commit();
+  float acc_v[HD / 8][4], acc_k[HD / 8][4];
+  rs::zero<HD>(acc_v);
+  rs::zero<HD>(acc_k);
+  for (int i = 0; i < nt; ++i) {
+    if (i + 1 < nt) stage_tile(i + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
+    // the entries this thread copied (or owns past Tn) turned into -max
+    // log2(e), 1 / sum, delta
+    float* sti = sst + (i & 1) * 3 * TILE;
+    for (int e = threadIdx.x; e < 3 * TILE; e += THREADS) {
+      const int r = e / TILE;
+      const bool in = i * TILE + e % TILE < Tn;
+      const float x = sti[e];
+      sti[e] = !in ? 0.f : r == 0 ? -(x * L2E) : r == 1 ? 1.f / x : x;
+    }
+    __syncthreads();
+    const int b = (i & 1) * TILE * SP;
+    if (row0 < Tn) {  // warp-uniform; no barrier inside
+      ARows<T, HD> ak, av;
+      load_rows<T, HD>(ak, sk + 16 * warp * SP, lane);
+      load_rows<T, HD>(av, sv + 16 * warp * SP, lane);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float w[2][4], dw[2][4];
+        scores16<T, HD>(w[0], w[1], ak, sq + b, 16 * c, lane);
+        // w32[key, query] = exp(s - max[query]) * (1 / sum[query])
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int col = 16 * c + 8 * h + 2 * tig;
+          const float2 ml = *reinterpret_cast<const float2*>(sti + col);
+          const float2 iv =
+              *reinterpret_cast<const float2*>(sti + TILE + col);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            w[h][e] = ex2(fmaf(w[h][e], L2E, (e & 1) ? ml.y : ml.x)) *
+                      ((e & 1) ? iv.y : iv.x);
+        }
+        sum16<T, HD>(acc_v, w[0], w[1], sdo + b, 16 * c, lane);
+        scores16<T, HD>(dw[0], dw[1], av, sdo + b, 16 * c, lane);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 dl = *reinterpret_cast<const float2*>(
+              sti + 2 * TILE + 16 * c + 8 * h + 2 * tig);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dw[h][e] = w[h][e] * (dw[h][e] - ((e & 1) ? dl.y : dl.x));
+        }
+        sum16<T, HD>(acc_k, dw[0], dw[1], sq + b, 16 * c, lane);
+      }
+    }
+    __syncthreads();
+  }
+  if (row0 < Tn) {
+    store_rows<T, HD>(dv + off, acc_v, row0, Tn, lane);
+    store_rows<T, HD>(dk + off, acc_k, row0, Tn, lane);
+  }
+}
+
+template <typename T, int HD>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, int Z,
-               int Tn, int hd, cudaStream_t stream) {
-  const int n_tiles = (Tn + BM - 1) / BM;
-  const size_t bytes = smem_bytes<T, HDP>(Tn);
-  cudaError_t err = allow_smem(attn_fwd_kernel<T, HDP>, bytes);
+               int Tn, cudaStream_t stream) {
+  const int n_strips = (Tn + STRIP - 1) / STRIP;
+  constexpr size_t bytes = smem_bytes<T, HD>(1, 2, 0);
+  // set on every launch: the attribute belongs to the current device
+  cudaError_t err = allow_smem(attn_fwd_kt<T, HD>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_fwd_kernel<T, HDP><<<Z * n_tiles, THREADS, bytes, stream>>>(
+  attn_fwd_kt<T, HD><<<Z * n_strips, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Tn, hd, n_tiles);
+      static_cast<const T*>(v), static_cast<T*>(o), Tn, n_strips);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HDP>
+template <typename T, int HD>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout,
                void* dq, void* dk, void* dv, void* stats, int Z, int Tn,
-               int hd, cudaStream_t stream) {
-  const int n_tiles = (Tn + BM - 1) / BM;
-  const size_t bytes = smem_bytes<T, HDP>(Tn);
-  cudaError_t err = allow_smem(attn_bwd_dq_kernel<T, HDP>, bytes);
+               cudaStream_t stream) {
+  const int n_strips = (Tn + STRIP - 1) / STRIP;
+  constexpr size_t dq_bytes = smem_bytes<T, HD>(2, 2, 0);
+  constexpr size_t dkdv_bytes = smem_bytes<T, HD>(2, 2, 3);
+  cudaError_t err = allow_smem(attn_bwd_dq_kt<T, HD>, dq_bytes);
+  if (err == cudaSuccess)
+    err = allow_smem(attn_bwd_dkdv_kt<T, HD>, dkdv_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem(attn_bwd_dkdv_kernel<T, HDP>, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dq_kernel<T, HDP><<<Z * n_tiles, THREADS, bytes, stream>>>(
+  attn_bwd_dq_kt<T, HD><<<Z * n_strips, THREADS, dq_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<T*>(dq), static_cast<float*>(stats), Tn, hd, n_tiles);
+      static_cast<T*>(dq), static_cast<float*>(stats), Tn, n_strips);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_bwd_dkdv_kernel<T, HDP><<<Z * n_tiles, THREADS, bytes, stream>>>(
+  attn_bwd_dkdv_kt<T, HD><<<Z * n_strips, THREADS, dkdv_bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<const float*>(stats), Tn, hd, n_tiles);
+      static_cast<const float*>(stats), Tn, n_strips);
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace kt
+
 bool bad_shape(int Z, int Tn, int hd) {
-  return Z < 1 || Tn < 1 || Tn > T_MAX || hd < 8 || hd > 64 || hd % 8 != 0;
+  return Z < 1 || Tn < 1 || hd < 8 || hd > 64 || hd % 8 != 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// The largest T the kernels take.
-int flash_attention_max_t() { return T_MAX; }
+// Which kernels a call of dtype (0 = float32, 1 = bfloat16) at T runs: 0 the
+// register-resident ones (bf16, T <= 256), 1 the key-tiled ones.
+int flash_attention_key_tiled(int T, int dtype) {
+  return dtype == 1 && T <= rs::T_REG ? 0 : 1;
+}
 
 // o [Z, T, hd] = softmax(q k^T) v. dtype: 0 = float32, 1 = bfloat16 (q, k, v
-// and o); bf16 with T <= 256 runs the register-resident kernels. Returns a
+// and o); flash_attention_key_tiled says which kernels run. Returns a
 // cudaError_t.
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         int Z, int T, int hd, int dtype, void* stream) {
-  if (bad_shape(Z, T, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(Z, T, hd) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (hd <= 16) return launch_fwd<float, 16>(q, k, v, o, Z, T, hd, s);
-    if (hd <= 32) return launch_fwd<float, 32>(q, k, v, o, Z, T, hd, s);
-    return launch_fwd<float, 64>(q, k, v, o, Z, T, hd, s);
-  }
-  if (dtype == 1 && T <= rs::T_REG)
+  if (!flash_attention_key_tiled(T, dtype))
     return rs::by_hd(hd, [&](auto HD) {
       return rs::launch_fwd<decltype(HD)::value>(q, k, v, o, Z, T, s);
     });
-  if (dtype == 1) {
-    if (hd <= 16)
-      return launch_fwd<__nv_bfloat16, 16>(q, k, v, o, Z, T, hd, s);
-    if (hd <= 32)
-      return launch_fwd<__nv_bfloat16, 32>(q, k, v, o, Z, T, hd, s);
-    return launch_fwd<__nv_bfloat16, 64>(q, k, v, o, Z, T, hd, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return rs::by_hd(hd, [&](auto HD) {
+    constexpr int H = decltype(HD)::value;
+    return dtype == 0 ? kt::launch_fwd<float, H>(q, k, v, o, Z, T, s)
+                      : kt::launch_fwd<__nv_bfloat16, H>(q, k, v, o, Z, T, s);
+  });
 }
 
 // dq, dk, dv [Z, T, hd] from q, k, v, dout; stats is a [Z, 3, T] float32
@@ -1290,34 +1496,22 @@ int flash_attention_bwd(const void* q, const void* k, const void* v,
                         const void* dout, void* dq, void* dk, void* dv,
                         void* stats, int Z, int T, int hd, int dtype,
                         void* stream) {
-  if (bad_shape(Z, T, hd)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(Z, T, hd) || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (hd <= 16)
-      return launch_bwd<float, 16>(q, k, v, dout, dq, dk, dv, stats, Z, T,
-                                   hd, s);
-    if (hd <= 32)
-      return launch_bwd<float, 32>(q, k, v, dout, dq, dk, dv, stats, Z, T,
-                                   hd, s);
-    return launch_bwd<float, 64>(q, k, v, dout, dq, dk, dv, stats, Z, T, hd,
-                                 s);
-  }
-  if (dtype == 1 && T <= rs::T_REG)
+  if (!flash_attention_key_tiled(T, dtype))
     return rs::by_hd(hd, [&](auto HD) {
       return rs::launch_bwd<decltype(HD)::value>(q, k, v, dout, dq, dk, dv,
                                                   stats, Z, T, s);
     });
-  if (dtype == 1) {
-    if (hd <= 16)
-      return launch_bwd<__nv_bfloat16, 16>(q, k, v, dout, dq, dk, dv, stats,
-                                           Z, T, hd, s);
-    if (hd <= 32)
-      return launch_bwd<__nv_bfloat16, 32>(q, k, v, dout, dq, dk, dv, stats,
-                                           Z, T, hd, s);
-    return launch_bwd<__nv_bfloat16, 64>(q, k, v, dout, dq, dk, dv, stats, Z,
-                                         T, hd, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return rs::by_hd(hd, [&](auto HD) {
+    constexpr int H = decltype(HD)::value;
+    return dtype == 0
+               ? kt::launch_bwd<float, H>(q, k, v, dout, dq, dk, dv, stats,
+                                          Z, T, s)
+               : kt::launch_bwd<__nv_bfloat16, H>(q, k, v, dout, dq, dk, dv,
+                                                  stats, Z, T, s);
+  });
 }
 
 }  // extern "C"

@@ -15,19 +15,24 @@ are saved for the backward pass).
 
 Bound on the H100: the bytes of the thin tensors (4 Z T hd elements forward,
 7 backward), and beside them the special function units' rate for the one
-exp per score (forward) or two (backward); the [Z, T, T] scores never reach
-device memory. In bf16 with T <= 256 the scores live in registers: in the
-forward and the dq half a warp holds its 16 score rows against all columns,
-in the dk/dv half its 16 keys against 16 queries at a time; otherwise
-(float32, or 256 < T <= 512) a block keeps 64 rows of scores against all T
-columns in shared memory. Both load 16 bytes at a time
-from 16-byte aligned tensors, so they take 1 <= T <= 512 (``T_MAX``) and hd
-a multiple of 8 up to 64 (``HD_MAX``); the wrapper raises beyond that. No
-atomics: outputs repeat bit for bit (see the .cu source).
+exp per score (forward) or two (backward); at T = 1024 the products' operations
+(4 Z T^2 hd forward, 10 backward). The [Z, T, T] scores never reach device
+memory. In bf16 with T <= 256 the scores live in registers: in the forward
+and the dq half a warp holds its 16 score rows against all columns, in the
+dk/dv half its 16 keys against 16 queries at a time. Otherwise (float32, or
+T > 256) the kernels are key-tiled: a block's 64 rows walk the other
+operand 64 rows at a time, in passes (the row max and sum first, then the
+weights normalised in float32, cast and multiplied), so T has no upper
+limit; in float32 the scores and dout v^T are summed on FMAs, the other
+products on the tensor cores as three TF32 products.
+Both load 16 bytes at a time from 16-byte aligned tensors, so they take any
+T >= 1 and hd a multiple of 8 up to 64 (``HD_MAX``); the wrapper raises
+beyond that. No atomics: outputs repeat bit for bit (see the .cu source).
 
 ``flash_attention`` and ``flash_attention_bwd`` run the plain versions for
 CPU tensors and the kernels for CUDA tensors; ``launches_fwd`` and
-``launches_bwd`` count kernel launches.
+``launches_bwd`` count kernel launches, ``launches_fwd_kt`` and
+``launches_bwd_kt`` those of them by the key-tiled kernels.
 """
 from __future__ import annotations
 
@@ -39,7 +44,9 @@ from ppde_tpu_torch.ops import _build
 
 launches_fwd = 0  # launches of kernel C
 launches_bwd = 0  # launches of kernel C' (its two halves count as one)
-T_MAX = 512
+# those of them by the key-tiled kernels (the library's choice)
+launches_fwd_kt = 0
+launches_bwd_kt = 0
 HD_MAX = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -82,6 +89,8 @@ def _lib():
         lib.flash_attention_bwd.argtypes = [ctypes.c_void_p] * 8 + [
             ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.flash_attention_bwd.restype = ctypes.c_int
+        lib.flash_attention_key_tiled.argtypes = [ctypes.c_int] * 2
+        lib.flash_attention_key_tiled.restype = ctypes.c_int
     return lib
 
 
@@ -106,15 +115,15 @@ def _check(q, *others):
         raise ValueError("q, k, v (and dout) must start on a 16-byte "
                          "boundary (the kernels load 16 bytes at a time)")
     Z, T, hd = q.shape
-    if Z < 1 or not 1 <= T <= T_MAX or not 8 <= hd <= HD_MAX or hd % 8:
-        raise ValueError(f"kernels C and C' take Z >= 1, 1 <= T <= {T_MAX} "
-                         f"and hd a multiple of 8 up to {HD_MAX}; got Z={Z}, "
-                         f"T={T}, hd={hd}")
+    if Z < 1 or T < 1 or not 8 <= hd <= HD_MAX or hd % 8:
+        raise ValueError(f"kernels C and C' take Z >= 1, T >= 1 and hd a "
+                         f"multiple of 8 up to {HD_MAX}; got Z={Z}, T={T}, "
+                         f"hd={hd}")
     return Z, T, hd
 
 
 def _fwd_cuda(q, k, v):
-    global launches_fwd
+    global launches_fwd, launches_fwd_kt
     Z, T, hd = _check(q, k, v)
     lib = _lib()
     o = torch.empty_like(q)
@@ -126,11 +135,12 @@ def _fwd_cuda(q, k, v):
         raise RuntimeError(f"kernel C (flash_attention_fwd) launch failed: "
                            f"cudaError {err}")
     launches_fwd += 1
+    launches_fwd_kt += lib.flash_attention_key_tiled(T, _DTYPES[q.dtype])
     return o
 
 
 def _bwd_cuda(q, k, v, dout):
-    global launches_bwd
+    global launches_bwd, launches_bwd_kt
     Z, T, hd = _check(q, k, v, dout)
     lib = _lib()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
@@ -147,6 +157,7 @@ def _bwd_cuda(q, k, v, dout):
         raise RuntimeError(f"kernel C' (flash_attention_bwd) launch failed: "
                            f"cudaError {err}")
     launches_bwd += 1
+    launches_bwd_kt += lib.flash_attention_key_tiled(T, _DTYPES[q.dtype])
     return dq, dk, dv
 
 
@@ -167,7 +178,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor,
                     v: torch.Tensor) -> torch.Tensor:
     """softmax(q k^T) v over contiguous [Z, T, hd] tensors (scale q before
     the call): kernels C / C' on CUDA, ``attention_plain`` and autograd on
-    CPU. On CUDA it takes 1 <= T <= 512 and hd a multiple of 8 up to 64, and
+    CPU. On CUDA it takes any T >= 1 and hd a multiple of 8 up to 64, and
     raises beyond."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v)

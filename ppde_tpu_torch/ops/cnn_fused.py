@@ -24,10 +24,24 @@ on wgmma with H1 / G1 as the shared-memory operand; float32 (the CLI's
 default) runs them on FMAs from 8 x 8 register tiles, rows in blocks of 128,
 and keeps a bitmask of H1 > 0 for the backward pass (see the .cu source).
 
+Shapes that neither takes (T = L-K+1 > 256, C > 256, 2C > 512, or bf16's
+L*V > 5248 and L > 320: wild types longer than 256 residues, whose
+reference-width CNN has C = L) go to a third kernel, in either type
+(namespace wide): a block per (sample, member) walks T in strips of 32 rows
+and 2C in chunks of 512 columns, with emb_w staged from L2 and products on
+FMAs in float32 (bf16 as its rounded values), the column maxima folded
+strip by strip (max, first row, count) and the rows at each strip's
+maximum kept as one word of bits a channel in device memory; the backward
+pass recomputes a strip's relu' bits from the conv, gathers G1 at the
+routed rows and runs dP = G1 enc_w^T as a product. No length or channel
+limit: only K*V > 128 raises.
+
 Weights are prepared once: ``prepare_ensemble(stacked, dtype)`` returns a
 ``Prepared`` that ``ensemble_apply_and_grad`` takes in place of the stacked
 layout (``energy.protein_poe`` keeps one per energy); handing in the stacked
-layout prepares on every call.
+layout prepares on every call. Which kernel runs is the library's choice
+(``cnn_kernel_for``, by shape and type); each kernel's layout is made at
+its first call and kept on the ``Prepared``.
 
 The plain version is ``models.cnn.ensemble_apply_and_grad_plain``.
 ``ensemble_apply_and_grad`` runs it for a CPU tensor and the kernel for a
@@ -47,8 +61,10 @@ from ppde_tpu_torch.ops import _build
 __all__ = ["ensemble_apply_and_grad", "ensemble_apply_and_grad_plain",
            "prepare_ensemble", "Prepared"]
 
-launches = 0      # kernel launches made by ensemble_apply_and_grad
-launches_f32 = 0  # those of them in float32
+launches = 0       # kernel launches made by ensemble_apply_and_grad
+launches_f32 = 0   # those of them in float32
+launches_wide = 0  # those of them by the wide kernel (either type)
+launches_wide_f32 = 0  # those in float32
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 kernel's tiles (csrc/cnn_ensemble.cu, namespace tc)
@@ -59,20 +75,37 @@ KV_PAD = 104     # K*V padded
 # the float32 kernel's layout (namespace simt)
 F32_CHUNK = 128  # columns of a product: an embed chunk; dP (K*V padded)
 F32_DEPTH = 16   # depth of a weight stage: C is padded to a multiple
+# the wide kernel's layout (namespace wide): C padded to WIDE_DEPTH, C2 to
+# WIDE_CHUNK; K*V at most WIDE_KV
+WIDE_CHUNK, WIDE_DEPTH, WIDE_KV = 512, 16, 128
+
+
+# the kernels, as the library's cnn_kernel_for names them
+SIMT, TC, WIDE = 0, 1, 2
 
 
 @dataclasses.dataclass
 class Prepared:
-    """An ensemble cast, reshaped and tiled once for kernel B.
+    """An ensemble cast once for kernel B, each kernel's layout made at its
+    first call and kept.
 
     ``stacked`` is the plain layout it was made from (the CPU path and the
-    plain version use it); ``tensors`` are what the kernel of ``dtype``
-    reads."""
+    plain version use it); ``tensors`` the decoder in the compute type;
+    ``layouts`` the layouts made so far, by kernel (``SIMT``, ``TC``,
+    ``WIDE``)."""
 
     stacked: dict
     dtype: torch.dtype
     dims: tuple  # (M, K, V, C, C2)
     tensors: dict
+    layouts: dict = dataclasses.field(default_factory=dict)
+
+    def layout(self, kind: int) -> dict:
+        """The tensors kernel ``kind`` reads (made at the first call)."""
+        if kind not in self.layouts:
+            self.layouts[kind] = {**self.tensors, **_LAYOUTS[kind](
+                self.stacked, self.dtype)}
+        return self.layouts[kind]
 
 
 def swizzle_tiles(wt: torch.Tensor) -> torch.Tensor:
@@ -97,68 +130,122 @@ def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
 
 
 def prepare_ensemble(stacked, compute_dtype=None) -> Prepared:
-    """Cast, reshape and tile a stacked ensemble (the layout of
-    ``models.cnn.init_ensemble``) once, for many calls of
-    ``ensemble_apply_and_grad``."""
+    """Cast a stacked ensemble (the layout of ``models.cnn.init_ensemble``)
+    once, for many calls of ``ensemble_apply_and_grad``; the kernels'
+    layouts are made at their first calls."""
     cdt = compute_dtype or torch.float32
     if cdt not in _DTYPES:
         raise TypeError(f"compute_dtype must be float32 or bfloat16: {cdt}")
+    M, K, V, C = stacked["encoder"]["w"].shape
+    C2 = stacked["embed"]["w"].shape[-1]
+    dec = stacked["decoder"]
+    t = {"decw": dec["w"].to(cdt).reshape(M, C2).contiguous(),
+         "decb": dec["b"].to(torch.float32).reshape(M).contiguous()}
+    return Prepared(stacked, cdt, (M, K, V, C, C2), t)
+
+
+def simt_layout(stacked, compute_dtype=torch.float32) -> dict:
+    """The float32 kernel's tensors, C padded to F32_DEPTH: enc_w's rows
+    [j][c], its transpose [c][j] (F32_CHUNK columns), emb_w in column
+    chunks [ch][c][c2], emb_w^T's rows [c2][c] and the biases."""
+    enc, emb = stacked["encoder"], stacked["embed"]
+    M, K, V, C = enc["w"].shape
+    C2 = emb["w"].shape[-1]
+    f32 = torch.float32
+    encw = enc["w"].reshape(M, K * V, C).to(f32)
+    Cp = -(-C // F32_DEPTH) * F32_DEPTH
+    n_chunk = -(-C2 // F32_CHUNK)
+    return {
+        # rows of enc_w [j][c] (the conv's gather)
+        "encw": _pad_to(encw, K * V, Cp).contiguous(),
+        # B operand of dP = G1 @ enc_w^T: [c][j]
+        "encT": _pad_to(encw.transpose(1, 2), Cp, F32_CHUNK).contiguous(),
+        # B operand of H2 = H1 @ emb_w, chunk by chunk: [ch][c][c2]
+        "emb": _pad_to(emb["w"].to(f32), Cp, n_chunk * F32_CHUNK).reshape(
+            M, Cp, n_chunk, F32_CHUNK).transpose(1, 2).contiguous(),
+        # rows of emb_w^T [c2][c] (the gather of G1)
+        "embwT": _pad_to(emb["w"].to(f32).transpose(1, 2), C2,
+                         Cp).contiguous(),
+        "encb": _pad_to(enc["b"].to(f32).reshape(M, 1, C), 1,
+                        Cp).reshape(M, Cp).contiguous(),
+        "embb": _pad_to(emb["b"].to(f32).reshape(M, 1, C2), 1,
+                        n_chunk * F32_CHUNK).reshape(M, -1).contiguous()}
+
+
+def tc_layout(stacked, compute_dtype=torch.bfloat16) -> dict:
+    """The bf16 kernel's tensors: enc_w and emb_w^T as swizzled tiles of
+    depth MAX_C (emb_w^T in chunks of CHUNK rows), emb_w^T's rows [c2][c]
+    and the float32 biases."""
+    enc, emb = stacked["encoder"], stacked["embed"]
+    M, K, V, C = enc["w"].shape
+    C2 = emb["w"].shape[-1]
+    f32 = torch.float32
+    encw = enc["w"].reshape(M, K * V, C).to(torch.bfloat16)
+    embwT = emb["w"].to(torch.bfloat16).transpose(1, 2)    # [M, C2, C]
+    n_chunk = -(-C2 // CHUNK)
+    return {
+        # B operand of dP = G1 @ enc_w^T and the conv's rows: [j][c]
+        "enc_blob": swizzle_tiles(_pad_to(encw, KV_PAD, MAX_C)),
+        # B operand of H2 = H1 @ emb_w, chunk by chunk: [c2][c]
+        "emb_blob": swizzle_tiles(
+            _pad_to(embwT, n_chunk * CHUNK, MAX_C).reshape(
+                M, n_chunk, CHUNK, MAX_C)),
+        "embwT": _pad_to(embwT, C2, MAX_C).contiguous(),
+        "encb": _pad_to(enc["b"].to(f32).reshape(M, 1, C), 1,
+                        MAX_C).reshape(M, MAX_C).contiguous(),
+        "embb": _pad_to(emb["b"].to(f32).reshape(M, 1, C2), 1,
+                        n_chunk * CHUNK).reshape(M, -1).contiguous()}
+
+
+def wide_layout(stacked, compute_dtype) -> dict:
+    """The wide kernel's float32 tensors (for bf16: the bf16-rounded
+    weights' values): enc_w's rows [j][c] and its transpose [c][j] (128
+    columns), emb_w [c][c2] with C2 padded to WIDE_CHUNK, emb_w^T's rows
+    [c2][c], the biases and the decoder; C padded to WIDE_DEPTH."""
     enc, emb, dec = stacked["encoder"], stacked["embed"], stacked["decoder"]
     M, K, V, C = enc["w"].shape
     C2 = emb["w"].shape[-1]
     f32 = torch.float32
-    encw = enc["w"].reshape(M, K * V, C).to(cdt)
-    embwT = emb["w"].to(cdt).transpose(1, 2)           # [M, C2, C]
-    t = {"decw": dec["w"].to(cdt).reshape(M, C2).contiguous(),
-         "decb": dec["b"].to(f32).reshape(M).contiguous()}
-    if cdt == torch.float32:
-        Cp = -(-C // F32_DEPTH) * F32_DEPTH
-        n_chunk = -(-C2 // F32_CHUNK)
-        t.update(
-            # rows of enc_w [j][c] (the conv's gather)
-            encw=_pad_to(encw, K * V, Cp).contiguous(),
-            # B operand of dP = G1 @ enc_w^T: [c][j]
-            encT=_pad_to(encw.transpose(1, 2), Cp, F32_CHUNK).contiguous(),
-            # B operand of H2 = H1 @ emb_w, chunk by chunk: [ch][c][c2]
-            emb=_pad_to(emb["w"].to(f32), Cp, n_chunk * F32_CHUNK).reshape(
-                M, Cp, n_chunk, F32_CHUNK).transpose(1, 2).contiguous(),
-            # rows of emb_w^T [c2][c] (the gather of G1)
-            embwT=_pad_to(embwT, C2, Cp).contiguous(),
-            encb=_pad_to(enc["b"].to(f32).reshape(M, 1, C), 1,
-                         Cp).reshape(M, Cp).contiguous(),
-            embb=_pad_to(emb["b"].to(f32).reshape(M, 1, C2), 1,
-                         n_chunk * F32_CHUNK).reshape(M, -1).contiguous())
-    elif K * V <= KV_PAD and C <= MAX_C:
-        n_chunk = -(-C2 // CHUNK)
-        t.update(
-            # B operand of dP = G1 @ enc_w^T and the conv's rows: [j][c]
-            enc_blob=swizzle_tiles(_pad_to(encw, KV_PAD, MAX_C)),
-            # B operand of H2 = H1 @ emb_w, chunk by chunk: [c2][c]
-            emb_blob=swizzle_tiles(
-                _pad_to(embwT, n_chunk * CHUNK, MAX_C).reshape(
-                    M, n_chunk, CHUNK, MAX_C)),
-            embwT=_pad_to(embwT, C2, MAX_C).contiguous(),
-            encb=_pad_to(enc["b"].to(f32).reshape(M, 1, C), 1,
-                         MAX_C).reshape(M, MAX_C).contiguous(),
-            embb=_pad_to(emb["b"].to(f32).reshape(M, 1, C2), 1,
-                         n_chunk * CHUNK).reshape(M, -1).contiguous())
-    return Prepared(stacked, cdt, (M, K, V, C, C2), t)
+    Cp = -(-C // WIDE_DEPTH) * WIDE_DEPTH
+    C2p = -(-C2 // WIDE_CHUNK) * WIDE_CHUNK
+
+    def rnd(t):
+        return t.to(compute_dtype).to(f32)
+
+    encw = rnd(enc["w"]).reshape(M, K * V, C)
+    embw = rnd(emb["w"])
+    return {
+        "encw": _pad_to(encw, K * V, Cp).contiguous(),
+        "encT": _pad_to(encw.transpose(1, 2), Cp, WIDE_KV).contiguous(),
+        "emb": _pad_to(embw, Cp, C2p).contiguous(),
+        "embwT": _pad_to(embw.transpose(1, 2), C2, Cp).contiguous(),
+        "encb": _pad_to(enc["b"].to(f32).reshape(M, 1, C), 1,
+                        Cp).reshape(M, Cp).contiguous(),
+        "embb": _pad_to(emb["b"].to(f32).reshape(M, 1, C2), 1,
+                        C2p).reshape(M, C2p).contiguous(),
+        "decw": rnd(dec["w"]).reshape(M, C2).contiguous(),
+        "decb": dec["b"].to(f32).reshape(M).contiguous()}
+
+
+_LAYOUTS = {SIMT: simt_layout, TC: tc_layout, WIDE: wide_layout}
 
 
 def _lib():
     lib = _build.library("cnn_ensemble")
     fn = lib.cnn_ensemble_fit_and_grad
     if fn.argtypes is None:  # declare once: ints would cut the pointers
-        for f, n_ptr in ((fn, 13), (lib.cnn_ensemble_fit_and_grad_bf16, 12)):
-            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 8 + [
-                ctypes.c_void_p]
+        for f, n_ptr, n_int in (
+                (fn, 13, 8), (lib.cnn_ensemble_fit_and_grad_bf16, 12, 8),
+                (lib.cnn_ensemble_fit_and_grad_wide, 16, 9)):
+            f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
+                + [ctypes.c_void_p]
             f.restype = ctypes.c_int
         lib.cnn_smem_bytes.argtypes = [ctypes.c_int]
         lib.cnn_smem_bytes.restype = ctypes.c_long
-        lib.cnn_bf16_ok.argtypes = [ctypes.c_int] * 5
-        lib.cnn_bf16_ok.restype = ctypes.c_int
-        for name in ("cnn_max_kv", "cnn_max_c", "cnn_max_t", "cnn_max_c2",
-                     "cnn_f32_depth", "cnn_bf16_chunk"):
+        lib.cnn_kernel_for.argtypes = [ctypes.c_int] * 6
+        lib.cnn_kernel_for.restype = ctypes.c_int
+        for name in ("cnn_max_kv", "cnn_f32_depth", "cnn_bf16_chunk",
+                     "cnn_wide_chunk", "cnn_wide_depth", "cnn_wide_max_kv"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -184,7 +271,7 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
         return ensemble_apply_and_grad_plain(
             prep.stacked if prep is not None else stacked, x, compute_dtype,
             pool_bwd)
-    global launches, launches_f32
+    global launches, launches_f32, launches_wide, launches_wide_f32
     if pool_bwd not in ("split", "first"):
         raise ValueError(f"pool_bwd must be 'split' or 'first': {pool_bwd}")
     if prep is None:
@@ -195,52 +282,66 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
     if Vx != V or L < K:
         raise ValueError(f"x {tuple(x.shape)} does not fit an encoder of "
                          f"K={K}, V={V}")
-    t = prep.tensors
-    if t["decw"].device != x.device:
+    if prep.tensors["decw"].device != x.device:
         raise ValueError("x and the ensemble must lie on the same device")
     lib = _lib()
-    if cdt == torch.float32:
-        if (K * V > lib.cnn_max_kv() or C > lib.cnn_max_c()
-                or L - K + 1 > lib.cnn_max_t() or C2 > lib.cnn_max_c2()
-                or (lib.cnn_max_kv(), lib.cnn_f32_depth())
-                != (F32_CHUNK, F32_DEPTH)):
-            raise ValueError(
-                f"kernel B (float32) takes K*V <= {lib.cnn_max_kv()}, C <= "
-                f"{lib.cnn_max_c()}, L-K+1 <= {lib.cnn_max_t()} and 2C <= "
-                f"{lib.cnn_max_c2()}; got K*V={K * V}, C={C}, "
-                f"L-K+1={L - K + 1}, 2C={C2}")
-    elif not lib.cnn_bf16_ok(L, V, K, C, C2) or lib.cnn_bf16_chunk() != CHUNK:
-        raise ValueError(
-            f"kernel B (bfloat16) takes L-K+1 <= 256, K*V <= {KV_PAD}, an "
-            f"even V <= 32, C <= {MAX_C}, 2C <= 512, L*V <= 5248 and L <= 320; got "
-            f"L={L}, K={K}, V={V}, C={C}, 2C={C2}")
-    smem = lib.cnn_smem_bytes(_DTYPES[cdt])
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"kernel B needs {smem} bytes of shared memory "
-                         f"(limit {SMEM_LIMIT})")
+    kind = lib.cnn_kernel_for(L, V, K, C, C2, _DTYPES[cdt])
+    if kind < 0:
+        raise ValueError(f"kernel B takes K*V <= {lib.cnn_wide_max_kv()}; "
+                         f"got K={K}, V={V}")
+    if ((lib.cnn_max_kv(), lib.cnn_f32_depth(), lib.cnn_bf16_chunk(),
+         lib.cnn_wide_chunk(), lib.cnn_wide_depth(), lib.cnn_wide_max_kv())
+            != (F32_CHUNK, F32_DEPTH, CHUNK, WIDE_CHUNK, WIDE_DEPTH,
+                WIDE_KV)):
+        raise RuntimeError("kernel B's library and cnn_fused.py disagree on "
+                           "the weight layouts")
     f32 = torch.float32
-    xc = x.to(cdt).contiguous()
     dev = x.device
     pred = torch.empty((M, B), dtype=f32, device=dev)
     dxm = torch.empty((M, B, L * V), dtype=f32, device=dev)
     fit = torch.empty((B,), dtype=f32, device=dev)
     dx = torch.empty((B, L, V), dtype=f32, device=dev)
-    if cdt == torch.float32:
-        fn, w = lib.cnn_ensemble_fit_and_grad, (
-            t["encw"], t["encT"], t["emb"], t["embwT"], t["encb"], t["embb"])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    w = prep.layout(kind)
+    if kind == WIDE:
+        n_strip = -(-(L - K + 1) // 32)
+        xc = x.to(cdt).to(f32).contiguous()
+        tok = torch.empty((B, L, 2), dtype=torch.int32, device=dev)
+        stat = torch.empty((M, B, 3, C2), dtype=f32, device=dev)
+        marks = torch.empty((M, B, n_strip, C2), dtype=torch.int32,
+                            device=dev)
+        with torch.cuda.device(dev):
+            err = lib.cnn_ensemble_fit_and_grad_wide(
+                xc.data_ptr(), tok.data_ptr(),
+                *(w[k].data_ptr() for k in ("encw", "encT", "emb", "embwT",
+                                            "encb", "embb", "decw", "decb")),
+                pred.data_ptr(), dxm.data_ptr(), stat.data_ptr(),
+                marks.data_ptr(), fit.data_ptr(), dx.data_ptr(), B, L, V, K,
+                C, C2, M, int(pool_bwd == "first"),
+                int(cdt == torch.bfloat16), stream)
     else:
-        fn, w = lib.cnn_ensemble_fit_and_grad_bf16, (
-            t["enc_blob"], t["emb_blob"], t["embwT"], t["encb"], t["embb"])
-    with torch.cuda.device(dev):
-        err = fn(xc.data_ptr(), *(a.data_ptr() for a in w),
-                 t["decw"].data_ptr(), t["decb"].data_ptr(),
-                 pred.data_ptr(), dxm.data_ptr(), fit.data_ptr(),
-                 dx.data_ptr(), B, L, V, K, C, C2, M,
-                 int(pool_bwd == "first"),
-                 torch.cuda.current_stream().cuda_stream)
+        smem = lib.cnn_smem_bytes(_DTYPES[cdt])
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"kernel B needs {smem} bytes of shared memory "
+                             f"(limit {SMEM_LIMIT})")
+        xc = x.to(cdt).contiguous()
+        if kind == SIMT:
+            fn, names = lib.cnn_ensemble_fit_and_grad, (
+                "encw", "encT", "emb", "embwT", "encb", "embb")
+        else:
+            fn, names = lib.cnn_ensemble_fit_and_grad_bf16, (
+                "enc_blob", "emb_blob", "embwT", "encb", "embb")
+        with torch.cuda.device(dev):
+            err = fn(xc.data_ptr(), *(w[k].data_ptr() for k in names),
+                     w["decw"].data_ptr(), w["decb"].data_ptr(),
+                     pred.data_ptr(), dxm.data_ptr(), fit.data_ptr(),
+                     dx.data_ptr(), B, L, V, K, C, C2, M,
+                     int(pool_bwd == "first"), stream)
     if err:
         raise RuntimeError(f"kernel B (cnn_ensemble) launch failed: "
                            f"cudaError {err}")
     launches += 1
     launches_f32 += int(cdt == torch.float32)
+    launches_wide += int(kind == WIDE)
+    launches_wide_f32 += int(kind == WIDE and cdt == torch.float32)
     return fit, dx

@@ -111,13 +111,18 @@ DIFFERENCES = {
 }
 
 # every kernel's launch counter: (wrapper module, attribute); the _f32
-# counters count the float32 launches among the others
+# counters count the float32 launches among the others, _wide those of
+# kernel B's wide kernel, _kt those of the key-tiled kernels C and C'
 COUNTERS = {"potts_energy": (potts_fused, "launches"),
             "potts_energy_f32": (potts_fused, "launches_f32"),
             "cnn_ensemble": (cnn_fused, "launches"),
             "cnn_ensemble_f32": (cnn_fused, "launches_f32"),
+            "cnn_ensemble_wide": (cnn_fused, "launches_wide"),
+            "cnn_ensemble_wide_f32": (cnn_fused, "launches_wide_f32"),
             "flash_attention_fwd": (attention_fused, "launches_fwd"),
-            "flash_attention_bwd": (attention_fused, "launches_bwd")}
+            "flash_attention_bwd": (attention_fused, "launches_bwd"),
+            "flash_attention_fwd_kt": (attention_fused, "launches_fwd_kt"),
+            "flash_attention_bwd_kt": (attention_fused, "launches_bwd_kt")}
 
 
 class CheckFailed(AssertionError):
@@ -331,10 +336,16 @@ def expected_launches(device, n_calls: int, dtype: str, cnn_pieces: int,
         return dict.fromkeys(COUNTERS, 0)
     b = n_calls * cnn_pieces
     f32 = dtype == "f32"
+    # GFP (L = 237, T = 233; the experts' T = 237): kernel B's simt or tc
+    # kernel, never the wide one; C and C' by the register kernels in bf16
+    # and by the key-tiled ones in float32
+    kt = n_calls * attention * f32
     return {"potts_energy": n_calls, "potts_energy_f32": n_calls * f32,
             "cnn_ensemble": b, "cnn_ensemble_f32": b * f32,
+            "cnn_ensemble_wide": 0, "cnn_ensemble_wide_f32": 0,
             "flash_attention_fwd": n_calls * attention,
-            "flash_attention_bwd": n_calls * attention}
+            "flash_attention_bwd": n_calls * attention,
+            "flash_attention_fwd_kt": kt, "flash_attention_bwd_kt": kt}
 
 
 def _finish_row(row, timing, steps, launches, expected, checks):

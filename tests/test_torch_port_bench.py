@@ -290,6 +290,31 @@ def test_bench_torch_transformer_at_full_width():
     assert 0 < row["checks"]["acceptance_rate"] < 1
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("attention", [0, 12])
+def test_expected_launches_on_the_card(dtype, attention):
+    """The launch counts the bench demands of a CUDA run (a device object
+    only: nothing runs): A once a call, B once a piece, C and C'
+    ``attention`` times a call; at GFP's T = 237 the key-tiled C and C'
+    take every float32 call and no bf16 one (the register kernels take
+    bf16 up to T = 256), B's wide kernel none; none at all on the CPU."""
+    n, pieces = 7, 2
+    got = bench.expected_launches(torch.device("cuda"), n, dtype, pieces,
+                                  attention)
+    f32 = dtype == "f32"
+    assert set(got) == set(bench.COUNTERS)
+    assert got == {"potts_energy": n, "potts_energy_f32": n * f32,
+                   "cnn_ensemble": n * pieces,
+                   "cnn_ensemble_f32": n * pieces * f32,
+                   "cnn_ensemble_wide": 0, "cnn_ensemble_wide_f32": 0,
+                   "flash_attention_fwd": n * attention,
+                   "flash_attention_bwd": n * attention,
+                   "flash_attention_fwd_kt": n * attention * f32,
+                   "flash_attention_bwd_kt": n * attention * f32}
+    assert not any(bench.expected_launches(torch.device("cpu"), n, dtype,
+                                           pieces, attention).values())
+
+
 def test_default_device_needs_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device runs")

@@ -170,7 +170,7 @@ def test_prepared_bf16_tiles_hold_the_weights(ens):
     weights: enc_w as [j, c], emb_w^T as [c2, c] in chunks of CHUNK rows."""
     _, t = ens
     prep = cnn_fused.prepare_ensemble(t, torch.bfloat16)
-    tt = prep.tensors
+    tt = prep.layout(cnn_fused.TC)
     n_chunk = -(-2 * C // cnn_fused.CHUNK)
     assert tt["enc_blob"].shape == (M, 4, cnn_fused.KV_PAD, cnn_fused.TILE_K)
     assert tt["emb_blob"].shape == (M, n_chunk, 4, cnn_fused.CHUNK,
@@ -250,7 +250,7 @@ def test_prepared_f32_layout_holds_the_weights(width):
     the decoder, C padded to a multiple of 16."""
     j = jcnn.init_ensemble(jax.random.PRNGKey(width), M, input_size=width)
     t = convert.cnn_ensemble_from_numpy(jax.tree.map(np.asarray, j), "cpu")
-    tt = cnn_fused.prepare_ensemble(t).tensors
+    tt = cnn_fused.prepare_ensemble(t).layout(cnn_fused.SIMT)
     K, C2 = 5, 2 * width
     Cp = -(-width // cnn_fused.F32_DEPTH) * cnn_fused.F32_DEPTH
     n_chunk = -(-C2 // cnn_fused.F32_CHUNK)
@@ -280,3 +280,68 @@ def test_prepared_f32_layout_holds_the_weights(width):
     assert torch.equal(tt["decw"], t["decoder"]["w"].reshape(M, C2))
     assert all(v.dtype == torch.float32 and v.is_contiguous()
                for v in tt.values())
+
+
+# proteins past 256 residues: the reference-width CNN (C = L, the shapes of
+# kernel B's wide kernel on the card) and a narrow one at the same length
+@pytest.mark.parametrize("pool", ["split", "first"])
+@pytest.mark.parametrize("width", [300, 16])
+def test_long_sequences_match_jax(width, pool):
+    """Fitness and input gradient at L = 300 (T = 296) against the XLA VJP
+    of the JAX ensemble and the TPU kernel's body in interpret mode,
+    float32, on random and on period-5 (tied) sequences."""
+    length = 300
+    j = jcnn.init_ensemble(jax.random.PRNGKey(width), M, input_size=width)
+    t = convert.cnn_ensemble_from_numpy(jax.tree.map(np.asarray, j), "cpu")
+    rng = np.random.default_rng(width)
+    x = jcodec.ints_to_onehot(np.concatenate([
+        rng.integers(0, V, (2, length)),
+        np.tile(rng.integers(0, V, (1, 5)), (1, length // 5))]))
+    ft, gt = cnn_fused.ensemble_apply_and_grad(
+        cnn_fused.prepare_ensemble(t), torch.from_numpy(x), pool_bwd=pool)
+    assert ft.shape == (3,) and gt.shape == x.shape
+    fj, gj = _jax_fit_and_grad(j, x, pool)
+    np.testing.assert_allclose(ft.numpy(), fj, **F_TOL)
+    np.testing.assert_allclose(gt.numpy(), gj, **G_TOL)
+    fk, gk = cnn_pallas.ensemble_apply_and_grad(
+        j, jnp.asarray(x), compute_dtype=jnp.float32, batch_tile=8,
+        interpret=True, pool_bwd=pool)
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fk), **F_TOL)
+    np.testing.assert_allclose(gt.numpy(), np.asarray(gk), **G_TOL)
+
+
+def test_wide_layout_holds_the_weights():
+    """The wide kernel's layout: float32 tensors of the compute type's
+    values, C padded to WIDE_DEPTH, C2 to WIDE_CHUNK, zero-padded."""
+    width = 300
+    j = jcnn.init_ensemble(jax.random.PRNGKey(1), M, input_size=width)
+    t = convert.cnn_ensemble_from_numpy(jax.tree.map(np.asarray, j), "cpu")
+    Cp, C2p = 304, 1024
+    for cdt in (torch.float32, torch.bfloat16):
+        w = cnn_fused.wide_layout(t, cdt)
+        enc = t["encoder"]["w"].to(cdt).float().reshape(M, 5 * V, width)
+        emb = t["embed"]["w"].to(cdt).float()
+        assert w["encw"].shape == (M, 5 * V, Cp)
+        assert torch.equal(w["encw"][:, :, :width], enc)
+        assert not w["encw"][:, :, width:].any()
+        assert w["encT"].shape == (M, Cp, cnn_fused.WIDE_KV)
+        assert torch.equal(w["encT"][:, :width, :5 * V], enc.transpose(1, 2))
+        assert w["emb"].shape == (M, Cp, C2p)
+        assert torch.equal(w["emb"][:, :width, :2 * width], emb)
+        assert not w["emb"][:, width:].any()
+        assert not w["emb"][:, :, 2 * width:].any()
+        assert torch.equal(w["embwT"], torch.nn.functional.pad(
+            emb.transpose(1, 2), (0, Cp - width)))
+        assert w["embb"].shape == (M, C2p) and w["encb"].shape == (M, Cp)
+        assert torch.equal(w["decw"], t["decoder"]["w"].to(cdt).float()
+                           .reshape(M, -1))
+        assert all(v.dtype == torch.float32 and v.is_contiguous()
+                   for v in w.values())
+    # a kernel's layout is made at its first call, and kept
+    prep = cnn_fused.prepare_ensemble(t)
+    assert set(prep.tensors) == {"decw", "decb"} and not prep.layouts
+    w = prep.layout(cnn_fused.WIDE)
+    assert set(prep.layouts) == {cnn_fused.WIDE}
+    assert prep.layout(cnn_fused.WIDE) is w
+    assert torch.equal(w["decw"], cnn_fused.wide_layout(t, torch.float32)[
+        "decw"])

@@ -321,3 +321,28 @@ def test_prepared_potts_planes_follow_in_place_updates():
     s1, g1 = potts.score_and_grad(tp, xs, prepared=prep)
     assert torch.equal(s0, s1) and torch.equal(g0, g1)
     assert g.shape == xs.shape
+
+
+def test_protein_poe_at_300_residues_matches_jax(tmp_path):
+    """A wild type past 256 residues (drawn from a numpy seed) with the
+    reference-width CNN (C = L = 300), the Potts term and the tiny ESM2
+    expert (T = 300): on the card the path of kernel B's wide kernel and
+    the key-tiled kernels C and C'; here the plain versions against the JAX
+    package's energy_and_grad. The Potts gradient sums 6,000 couplings a
+    entry (entries up to about 30): gradients are held at the transformer
+    tolerance plus rtol 1e-5, float32's rounding of such sums."""
+    rng = np.random.default_rng(300)
+    wt = "".join(np.array(list("ACDEFGHIKLMNPQRSTVWY"))[
+        rng.integers(0, 20, 300)])
+    jen, ten = _tr_pair(wt, 1.5, tmp_path)
+    assert ten.params["sup"]["embed"]["w"].shape[-2:] == (300, 600)
+    x = jcodec.seqs_to_onehot([wt])
+    x = np.concatenate([x, _x(rng, 2, 300)])
+    x[0, 7] = np.roll(x[0, 7], 3)  # one mutation of the wild type
+    with torch.no_grad():
+        e, fit, grad = ten.energy_and_grad(ten.params, torch.from_numpy(x))
+    ej, fj, gj = jen.energy_and_grad(jen.params, jnp.asarray(x))
+    np.testing.assert_allclose(e.numpy(), np.asarray(ej), **TR_E_TOL)
+    np.testing.assert_allclose(fit.numpy(), np.asarray(fj), **E_TOL)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(gj),
+                               **dict(TR_G_TOL, rtol=1e-5))

@@ -323,29 +323,70 @@ def test_cnn_f32_kernel_takes_relaxed_inputs(dev, L):
 
 
 def test_cnn_f32_kernel_rejects_what_it_does_not_take(dev):
+    """Every length and channel count has a kernel now; a patch deeper than
+    the kernels' K*V of 128 still raises."""
     g = torch.Generator(device=dev).manual_seed(0)
     x = _onehot(np.random.default_rng(0), 2, 40, dev)
-    wide = cnn.init_ensemble(g, 2, input_size=257)          # C > 256
-    with pytest.raises(ValueError):
-        cnn_fused.ensemble_apply_and_grad(wide, x, F32)
     deep = cnn.init_ensemble(g, 2, input_size=24, kernel_size=7)  # K*V 140
     with pytest.raises(ValueError):
         cnn_fused.ensemble_apply_and_grad(deep, x, F32)
-    ens = cnn.init_ensemble(g, 2, input_size=24)
-    long_x = _onehot(np.random.default_rng(0), 2, 300, dev)  # T > 256
-    with pytest.raises(ValueError):
-        cnn_fused.ensemble_apply_and_grad(ens, long_x, F32)
 
 
 def test_cnn_kernel_rejects_bad_input(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     ens = cnn.init_ensemble(g, 2, input_size=24)
     prep = cnn_fused.prepare_ensemble(ens, BF16)
-    x = _onehot(np.random.default_rng(0), 2, 300, dev)   # T > 256
-    with pytest.raises(ValueError):
-        cnn_fused.ensemble_apply_and_grad(prep, x)
+    x = _onehot(np.random.default_rng(0), 2, 300, dev)
     with pytest.raises(TypeError):
         cnn_fused.ensemble_apply_and_grad(prep, x[:, :40], F32)
+
+
+@pytest.mark.parametrize("pool", ["split", "first"])
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("L,C,B", [
+    (261, 261, 3), (400, 400, 3), (1022, 1022, 2),  # the reference width
+    (300, 24, 5),     # T > 256 alone
+    (40, 300, 4),     # C > 256 alone
+    (9, 600, 3),      # a sequence of 5 rows, C over one depth chunk of 512
+    (1100, 1100, 1),  # C over the 1,024 channels of H1 held at once
+])
+def test_cnn_wide_kernel_matches_plain(dev, dtype, L, C, B, pool, ties):
+    """The wide kernel (T > 256, C > 256 or 2C > 512) against its plain
+    version at the reference width C = L and beside it, ties included:
+    launched once, repeatable, and split and first differ on ties."""
+    g = torch.Generator(device=dev).manual_seed(L + C)
+    ens = cnn.init_ensemble(g, 3, input_size=C)
+    x = (_tie_input(B, L, dev) if ties
+         else _onehot(np.random.default_rng(B + L), B, L, dev))
+    prep = cnn_fused.prepare_ensemble(ens, dtype)
+    n0, w0 = cnn_fused.launches, cnn_fused.launches_wide
+    fit, dx = cnn_fused.ensemble_apply_and_grad(prep, x, None, pool)
+    assert (cnn_fused.launches, cnn_fused.launches_wide) == (n0 + 1, w0 + 1)
+    fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, dtype, pool)
+    _check_cnn(fit, dx, fit0, dx0, dtype)
+    fit2, dx2 = cnn_fused.ensemble_apply_and_grad(ens, x, dtype, pool)
+    assert torch.equal(fit, fit2) and torch.equal(dx, dx2)
+    if ties and L > 9:
+        _, dx_other = cnn_fused.ensemble_apply_and_grad(
+            prep, x, None, "first" if pool == "split" else "split")
+        assert not torch.allclose(dx, dx_other)
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_cnn_wide_kernel_takes_relaxed_inputs(dev, dtype):
+    """Inputs that are not one-hot go through the wide kernel's general
+    conv, in the forward and in the backward's relu mask."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    ens = cnn.init_ensemble(g, 3, input_size=300)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.random((3, 300, 20)).astype(np.float32))
+    x = (x * (x > 0.7)).to(dev)
+    for pool in ("split", "first"):
+        fit, dx = cnn_fused.ensemble_apply_and_grad(ens, x, dtype, pool)
+        fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(ens, x, dtype,
+                                                            pool)
+        _check_cnn(fit, dx, fit0, dx0, dtype)
 
 
 def _qkv(Z, T, hd, dtype, dev, seed=0, n=3):
@@ -365,8 +406,9 @@ def _attn_tol(dtype):
 ATTN_SHAPES = [(4, 16, 8), (7, 33, 16), (6, 237, 24), (8, 64, 32),
                (3, 130, 64), (2, 1, 24), (2, 512, 64), (5, 65, 48)] + [
     # the edges of the tilings: 16-column groups and 64-row strips of the
-    # bf16 register kernels (T <= 256), the switch to the shared-memory
-    # kernels above 256, the largest T; hd an odd multiple of 8 (8, 24, 40:
+    # bf16 register kernels (T <= 256), the switch to the key-tiled kernels
+    # above 256 (float32: all T), their 64-row tiles; hd an odd multiple of
+    # 8 (8, 24, 40:
     # a last k8 step, rows unpadded in shared memory) and a multiple of 16
     # (32, 64: rows padded by 8)
     (3, T, hd) for T in (1, 15, 16, 17, 63, 64, 65, 237, 255, 256, 257, 512)
@@ -403,7 +445,7 @@ def test_attention_bwd_kernel_matches_plain(dev, dtype, Z, T, hd):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("T", [64, 237, 512])
+@pytest.mark.parametrize("T", [64, 237, 512, 1024])
 def test_attention_kernels_wide_score_range(dev, dtype, T):
     """Scores spread over about +-150: exp underflows to 0 for most columns
     and overflows unless the row max is subtracted; the kernels must still
@@ -427,8 +469,35 @@ def test_attention_kernels_wide_score_range(dev, dtype, T):
             f"{name}: {m}"), **_attn_tol(dtype))
 
 
+@pytest.mark.parametrize("dtype", [F32, BF16])
+@pytest.mark.parametrize("hd", [24, 32, 64])
+@pytest.mark.parametrize("T", [257, 513, 601, 1024])
+def test_attention_kernels_at_long_lengths(dev, dtype, T, hd):
+    """The key-tiled kernels past the old limit of T = 512, up to ESM2's
+    trained context (T = 1024): forward and backward against the plain
+    versions, repeatable bit for bit, launched once each."""
+    Z = 3
+    q, k, v, dout = _qkv(Z, T, hd, dtype, dev, seed=T * hd, n=4)
+    n0 = (attention_fused.launches_fwd_kt, attention_fused.launches_bwd_kt)
+    o = attention_fused.flash_attention(q, k, v)
+    got = attention_fused.flash_attention_bwd(q, k, v, dout)
+    assert (attention_fused.launches_fwd_kt,
+            attention_fused.launches_bwd_kt) == (n0[0] + 1, n0[1] + 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        o.float(), attention_fused.attention_plain(q, k, v).float(),
+        **_attn_tol(dtype))
+    want = attention_fused.attention_bwd_plain(q, k, v, dout)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(a.float(), b.float(), msg=lambda m: (
+            f"{name}: {m}"), **_attn_tol(dtype))
+    assert torch.equal(o, attention_fused.flash_attention(q, k, v))
+    again = attention_fused.flash_attention_bwd(q, k, v, dout)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
 @pytest.mark.parametrize("Z,T,hd", [(320, 237, 24), (40, 256, 64),
-                                    (20, 512, 64)])
+                                    (20, 512, 64), (20, 1024, 24)])
 def test_attention_bwd_kernel_repeats_bit_for_bit(dev, Z, T, hd):
     """Kernel C' uses no atomics: three runs on the same inputs, at the
     chunk-16 call of the transformer path and beside it, give equal bits."""
@@ -467,9 +536,9 @@ def test_attention_kernel_rejects_bad_input(dev):
     with pytest.raises(ValueError):
         attention_fused.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                         v.transpose(1, 2))
-    big = torch.zeros((1, attention_fused.T_MAX + 1, 8), device=dev)
+    empty = torch.zeros((1, 0, 8), device=dev)
     with pytest.raises(ValueError):
-        attention_fused.flash_attention(big, big, big)
+        attention_fused.flash_attention(empty, empty, empty)
     wide = torch.zeros((1, 8, attention_fused.HD_MAX + 8), device=dev)
     with pytest.raises(ValueError):
         attention_fused.flash_attention(wide, wide, wide)

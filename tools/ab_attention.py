@@ -1,6 +1,7 @@
 """Kernels C and C' of several trees of the repository, timed in one call.
 
     python tools/ab_attention.py ROOT [ROOT ...] [--transformer] [--sass]
+        [--cases Z,T,HD,DTYPE ...]
 
 Each ROOT is a checkout of the repository: this tree as ``.``, the parent
 commit unpacked by ``git archive`` into a git-ignored directory. For each
@@ -10,7 +11,9 @@ the transformer path's two calls in bf16, (Z, T, hd) = (320, 237, 24) (the
 gradient in chunks of 16 chains) and (2560, 237, 24) (in one piece), the
 forward and backward times by CUDA events (``chip_smoke.time_ms``) and the
 device time of each kernel by name (``profile_port_step.us_by_kernel`` of
-this tree). ``--transformer`` adds ROOT's chip_smoke.py phase 6 (the potts +
+this tree). ``--cases`` replaces those two calls by others (DTYPE f32 or
+bf16), and adds each one's ``scaled_dot_product_attention`` forward and
+forward-plus-backward-less-forward times. ``--transformer`` adds ROOT's chip_smoke.py phase 6 (the potts +
 transformer-S sampler in both chunkings: steps/s). ``--sass`` adds, for each kernel of ROOT's bf16 hd = 24
 instances, its instruction count and its most frequent opcodes
 (``cuobjdump -sass`` of the built library). Give the roots as parent,
@@ -52,7 +55,15 @@ def sass_opcodes(lib_path: str, namer, n_top: int = 24) -> dict:
     return found
 
 
-def child(root: str, transformer: bool, sass: bool) -> None:
+def parse_case(text: str) -> tuple:
+    """"Z,T,HD,DTYPE" -> (Z, T, hd, "f32" or "bf16")."""
+    z, t, hd, dtype = text.split(",")
+    if dtype not in ("f32", "bf16"):
+        raise argparse.ArgumentTypeError(f"DTYPE must be f32 or bf16: {text}")
+    return int(z), int(t), int(hd), dtype
+
+
+def child(root: str, transformer: bool, sass: bool, cases=None) -> None:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -69,17 +80,28 @@ def child(root: str, transformer: bool, sass: bool) -> None:
     build_s = _build.build_all()
     dev = torch.device("cuda")
     out = {"root": root, "card": card, "build_s": build_s, "shapes": []}
-    for Z, T, hd in SHAPES:
+    for Z, T, hd, dtype in cases or [(*s, "bf16") for s in SHAPES]:
         gen = torch.Generator(device=dev).manual_seed(Z + T + hd)
+        tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
         q, k, v, dout = ((torch.randn((Z, T, hd), generator=gen, device=dev)
-                          * 0.5).to(torch.bfloat16) for _ in range(4))
+                          * 0.5).to(tdt) for _ in range(4))
         calls = {"fwd": lambda: attention_fused.flash_attention(q, k, v),
                  "bwd": lambda: attention_fused.flash_attention_bwd(
                      q, k, v, dout)}
-        r = {"Z": Z, "T": T, "hd": hd}
+        r = {"Z": Z, "T": T, "hd": hd, "dtype": dtype}
         for way, fn in calls.items():
             r[f"{way}_ms"] = chip_smoke.time_ms(fn, 20)
             r[f"{way}_us_by_kernel"] = us_by_kernel(torch, fn)
+        if cases:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+            def fwd_bwd():
+                torch.autograd.grad(sdpa(*qs, scale=1.0), qs, dout)
+            r["fwd_sdpa_ms"] = chip_smoke.time_ms(
+                lambda: sdpa(q, k, v, scale=1.0), 20)
+            r["bwd_sdpa_ms"] = chip_smoke.time_ms(fwd_bwd, 20) - r[
+                "fwd_sdpa_ms"]
         out["shapes"].append(r)
     if transformer:
         from ppde_tpu_torch import codec, energy as energy_mod
@@ -113,16 +135,20 @@ def main() -> int:
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--transformer", action="store_true")
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--cases", nargs="+", type=parse_case, default=None,
+                    metavar="Z,T,HD,DTYPE")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.roots[0], args.transformer, args.sass)
+        child(args.roots[0], args.transformer, args.sass, args.cases)
         return 0
     rc = 0
     for root in args.roots:
         cmd = [sys.executable, os.path.abspath(__file__), "--child", root]
         cmd += [f for f, on in (("--transformer", args.transformer),
                                 ("--sass", args.sass)) if on]
+        if args.cases:
+            cmd += ["--cases", *(",".join(map(str, c)) for c in args.cases)]
         res = subprocess.run(cmd, capture_output=True, text=True)
         lines = [ln for ln in res.stdout.splitlines() if ln.startswith("AB ")]
         if res.returncode or not lines:
