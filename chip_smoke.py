@@ -16,9 +16,10 @@ no result line):
      plain version at GFP width (M=3, C=237, L=237), same batches and types,
      both max-pool backward modes, plus an input with exact ties and, in
      float32, one that is not one-hot; weights prepared once, as the
-     sampler has them, and in the stacked layout; then B's wide kernel at
-     the reference width of longer wild types (C = L = 400 and 1022), 128
-     random and 128 tied sequences, both types and modes;
+     sampler has them, and in the stacked layout; then B's wide kernels
+     at the reference width of longer wild types (C = L = 400 and 1022),
+     128 random and 128 tied sequences (and at 400, 128 that are not
+     one-hot), both types and modes;
   4. the PPDE-PAS sampler on GFP with the Potts + CNN-ensemble energy
      (synthetic seeded Potts, seeded 3-member ensemble, bf16, lambda=15,
      pas_length=2, nmut_threshold=10): 128 chains and 1024 chains. The
@@ -675,11 +676,14 @@ def phase_cnn(torch, cnn, cnn_fused, dev):
 
 def phase_cnn_long(torch, cnn, cnn_fused, dev):
     """Kernel B's wide kernel: wild types of LONG_CNN_LENGTHS residues at the
-    reference width (C = L), 128 random sequences and 128 of period 5 (exact
-    ties in every channel), both types and pool modes, against the plain
-    version at phase 3's tolerances; repeatable, launched once a call (on
-    the wide kernel), split and first apart on the ties; the random
-    inputs timed beside the plain version, with their bound."""
+    reference width (C = L), 128 random sequences, 128 of period 5 (exact
+    ties in every channel) and, at the first length, 128 that are not
+    one-hot (several letters or none at a position: the general conv, in
+    the forward and in the backward's relu mask), both types and pool
+    modes, against the plain version at phase 3's tolerances; repeatable,
+    launched once a call (on the wide kernel), split and first apart on the
+    ties; the random inputs timed beside the plain version, with their
+    bound."""
     out = []
     for L in LONG_CNN_LENGTHS:
         ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(L), 3,
@@ -690,8 +694,11 @@ def phase_cnn_long(torch, cnn, cnn_fused, dev):
         base = torch.randint(0, 20, (128, 5), generator=xgen, device=dev)
         ties = torch.nn.functional.one_hot(
             base.repeat(1, -(-L // 5))[:, :L], 20).float()
-        inputs = (("128", random_onehot(torch, xgen, 128, L, dev)),
-                  ("128-ties", ties))
+        inputs = [("128", random_onehot(torch, xgen, 128, L, dev)),
+                  ("128-ties", ties)]
+        if L == LONG_CNN_LENGTHS[0]:
+            r = torch.rand((128, L, 20), generator=xgen, device=dev)
+            inputs.append(("128-relaxed", r * (r > 0.7)))
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
             s = 2 if dtype == torch.bfloat16 else 4

@@ -86,32 +86,52 @@
 //     fall back to a warp scanning the tie masks); dP = G1 @ enc_w^T is the
 //     second product, staged over G1, and col2im sums K terms per entry of
 //     dx in a fixed order, adding to what the previous row block left.
-// Design of the wide kernel (namespace wide; both types, every shape the
+// Design of the wide kernels (namespace wide; both types, every shape the
 // other two do not take: wild types longer than 256 residues, whose
 // reference-width CNN has C = L, or wider ensembles). No length or
-// channel limit; K*V <= 128.
-//   * Grid B x M blocks of 256 threads, one per (sample, member); the
-//     tokens of x (one-hot letter and value, else -1) from a first kernel.
-//   * Products on FMAs in float32; bf16 runs on the bf16-rounded weights'
-//     values (prepare_ensemble's wide layout, float32) with H1, H2, the
-//     routed gradient and G1 rounded to bf16 where the other kernels round.
-//   * Forward: T in strips of 32 rows, 2C in chunks of 512 columns. H1^T
-//     of a strip, 1,024 channels at a time (rnd(relu(conv + b)), a lane a
-//     channel), is the shared-memory A operand; emb_w streams from L2 in
-//     16-row stages (cp.async, two buffers); each thread holds an 8 x 8
-//     tile. A chunk's column maxima, the rows that reach them and the
-//     first of them come from the accumulators by integer atomics in
-//     shared memory (H2 >= 0: its bits order as its values); they fold
-//     into running statistics in device memory (a larger max restarts
-//     them), and each strip's rows at the running max go to device memory
-//     as one word of bits a channel. A strip before the one that first
-//     reached a channel's final max marked smaller values, so the
-//     backward reads the words from that strip on: no T x 2C mask.
-//   * Backward, strip by strip: each channel's routed rows of the strip (a
-//     word), the strip's relu' bits recomputed from the conv, G1 gathered
-//     a warp a row from the routed rows of emb_w^T, then dP = G1 enc_w^T
-//     as a product and col2im, one thread per entry of dx in a fixed
-//     order, added to what the strips before wrote.
+// channel limit; K*V <= 128. The embed product is [B*T, C] x [C, 2C] a
+// member, every sample on the same emb_w, so the unit of work is (member,
+// column tile, sample), its rows walked in tiles of 128.
+//   * Kernels: the tokens of x (one-hot letter and value, else -1); the
+//     forward, a block per (sample, column tile, member); the backward, a
+//     block per (sample, member); the member reduction.
+//   * Forward, bf16 (fwd_tc<N>): two warpgroups of 64 rows; column tiles
+//     of N = 256 or 200 (wgmma n; whichever pads 2C less: 800 runs as 800).
+//     Per depth chunk of 64 channels a ring slot (cp.async.bulk, mbarriers)
+//     brings the emb_w^T tile [N][64] and the enc_w tile [K*V][64], both
+//     128-byte swizzled as prepare_ensemble lays them out. The conv runs on
+//     the tensor cores too: the tile's patches P [128][K*V] (one-hot
+//     entries, or x where a position is not one-hot) times the enc_w tile
+//     read MN-major (wgmma m64n64k16, transposed B; exact products), then
+//     rnd(relu(+ b)) into the swizzled H1 tile that the embed wgmma
+//     (m64nNk16) reads. A slot is refilled by the warp that releases it
+//     last (a count; no warp waits).
+//   * Forward, float32 (fwd_simt; FMAs, no TF32): 32 x 16 threads, 8 x 8
+//     sums each, tiles of 128 rows x 256 columns; per depth stage of 16
+//     channels the ring brings emb_w [16][256] and enc_w [K*V][16], the
+//     block builds H1 of the stage (a gather-add of enc_w rows, 4 channels
+//     a thread) into one of two buffers, one barrier a stage (after which
+//     thread 0 refills the slot the stage before used); the halves of a
+//     tile past T or 2C are left out of the products.
+//   * Max-pool, both: each warp's column maxima of the accumulators
+//     (shuffles), the tile's from them (the bias, relu and rounding act on
+//     the maximum alone), then only the columns whose tile max reaches the
+//     running max compare their rows (integer atomics on four words of bits
+//     a column). The tile folds into running max, count and first row in
+//     row order (a larger max restarts them); its mark words go to device
+//     memory. A tile before the one that first reached a channel's final
+//     max marked smaller values, so the backward reads the words from that
+//     tile on: no T x 2C mask, no float atomics.
+//   * Backward, per row tile: pred and the routed gradients once; each
+//     row's routed channels as a run of a CSR list (counts by integer
+//     atomics, a prefix sum, each run sorted: the order is fixed), rows past
+//     4,096 pairs scan the channels; per depth chunk, G1 = rnd([H1 > 0] *
+//     the routed rows of emb_w^T), two threads a row with the loads of 8 /
+//     pieces-a-thread entries in flight, the relu mask from the forward's
+//     own conv (bf16: the same tensor-core product; float32: the same
+//     gather-add); dP = G1 enc_w^T (bf16 wgmma m64n128k16, K*V padded to
+//     128; float32 FMAs, 8 x 8 a thread); col2im of the tile, one thread per
+//     entry of dx in a fixed order, added to what the tiles before wrote.
 // Blocks of different members write separate [M, B, L*V] partials, and a
 // second kernel adds them in member order: no atomics on values (the integer
 // atomics on the pool's masks and counts commute), so results repeat bit
@@ -125,16 +145,17 @@
 namespace {
 
 // Built with -DCNN_PHASE_CLOCKS (tools/profile_port_step.py --phases), thread
-// 0 of block (0, 0) adds the clocks each phase of a sample took into
-// g_phase_clocks; otherwise PHASE_TICK is empty. Both kernels tick the same
-// eight phases.
+// 0 of block (0, 0, 0) adds the clocks each phase took into g_phase_clocks;
+// otherwise PHASE_TICK is empty. Every kernel ticks the same eight phases
+// (the wide pair: the forward 1-3, the backward 0 and 4-7).
 #ifdef CNN_PHASE_CLOCKS
 __device__ long long g_phase_clocks[8];
-#define PHASE_TICK(i)                                              \
-  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0) {    \
-    const long long now_ = clock64();                              \
-    g_phase_clocks[i] += now_ - phase_t0;                          \
-    phase_t0 = now_;                                               \
+#define PHASE_TICK(i)                                                  \
+  if (threadIdx.x == 0 && blockIdx.x == 0 && blockIdx.y == 0 &&        \
+      blockIdx.z == 0) {                                               \
+    const long long now_ = clock64();                                  \
+    g_phase_clocks[i] += now_ - phase_t0;                              \
+    phase_t0 = now_;                                                   \
   }
 #else
 #define PHASE_TICK(i)
@@ -1525,510 +1546,1322 @@ fit_grad_kernel(const F32Args a) {
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
-// Any T and C, both types: a block per (sample, member), row strips
+// Any T and C, both types: a forward kernel per (sample, column tile,
+// member) and a backward kernel per (sample, member); rows in tiles of 128
 // ---------------------------------------------------------------------------
 namespace wide {
 
+using tc::bf_hi;
+using tc::bf_lo;
+using tc::fence_async_proxy;
+using tc::mbar_init;
+using tc::mbar_wait;
 using tc::rb;
 using tc::smem_u32;
+using tc::sw;
+using tc::wgmma_commit;
+using tc::wgmma_desc;
+using tc::wgmma_fence;
+using tc::wgmma_wait;
 
-constexpr int THREADS = 256;  // 64 (tx) x 4 (ty)
-constexpr int R = 32;         // rows t of a strip: one mark word a channel
-constexpr int NC = 512;       // embed columns of a chunk: 8 a thread
-constexpr int KS = 16;        // depth of a weight stage (C padded to it)
-// (512 channels with a ring of 3 or 4 stages ran half again slower at
-// L = 1022 on the H100: H1 is recomputed for each column chunk once it
-// does not fit)
-constexpr int DC = 1024;      // conv channels of H1 held at once
-constexpr int NSTG = 2;       // emb_w stages in flight (a ring)
-constexpr int RS = R + 4;     // H1^T row stride (floats): 16-byte rows
-constexpr int KVP = 128;      // K*V padded (enc_w^T's columns): the limit
-constexpr int GQ = DC / 32;   // conv channels a lane holds in the backward
+constexpr int THREADS = 256;  // two warpgroups (bf16); 16 x 16 (float32 dP)
 constexpr int WARPS = THREADS / 32;
+constexpr int RT = 128;       // rows t of a row tile: four mark words a channel
+constexpr int KVP = 128;      // K*V: the limit, and dP's columns padded
+constexpr int KB = 64;        // bf16 depth chunk: 128-byte rows
+constexpr int KS = 16;        // float32 depth stage
+constexpr int NF = 256;       // float32 forward's column tile (8 x 8 a
+                              // thread of FTHREADS)
+constexpr int FTHREADS = 512;  // the float32 forward: 32 x 16 threads
+constexpr int LDA = KS + 4;   // row stride of float32 H1 / G1 (floats)
+constexpr int DPS = KVP + 4;  // row stride of the staged dP (floats)
+constexpr int PCAP = 4096;    // (row, channel) pairs a row tile lists
+constexpr int MAX_POS = RT + KVP;  // positions the patches of a tile cover
 
 struct Args {
   const float* x;      // [B, L*V]   (bf16's values in float32 for bf16)
   const int2* tok;     // [B, L]     one-hot letter (else -1) and value
-  const float* encw;   // [M, K*V, Cp]   rows of enc_w (conv)
-  const float* encT;   // [M, Cp, KVP]   enc_w^T (dP)
-  const float* emb;    // [M, Cp, C2p]   emb_w (embed product)
-  const float* embwT;  // [M, C2, Cp]    rows of emb_w^T (G1)
+  const void* enc;     // bf16: [M, nkb, 128, 64] swizzled tiles of enc_w
+                       // [j][c]; float32: [M, nks, K*V, 16] stages of it
+  const float* encT;   // float32: [M, Cp, 128] enc_w^T (dP); bf16: unused
+  const void* emb;     // bf16: [M, ncol, nkb, N, 64] swizzled tiles of
+                       // emb_w^T [c2][c]; float32: [M, ncol, Cp, 256] emb_w
+  const void* embwT;   // [M, C2, Cp]  rows of emb_w^T (G1), the type's
   const float* encb;   // [M, Cp]
-  const float* embb;   // [M, C2p]
-  const float* decw;   // [M, C2]
+  const float* embb;   // [M, ncol * N]
+  const float* decw;   // [M, C2]     (bf16's values in float32)
   const float* decb;   // [M]
   float* pred;         // [M, B]        scratch
   float* dxm;          // [M, B, L*V]   scratch
   float* stat;         // [M, B, 3, C2] scratch: max, count, first row;
-                       // backward: gradient, first row, a strip's rows
-  unsigned* marks;     // [M, B, nstrip, C2] scratch: rows at the max
-  int B, L, V, K, C, C2, M, pool_first, rnd, Cp, C2p, nstrip;
+                       // backward: gradient, first row (-1: none)
+  uint4* marks;        // [M, B, nrt, C2] scratch: a tile's rows at the max
+  int B, L, V, K, C, C2, M, pool_first, N, Cp, ncol, nrt;
 };
 
-// Shared memory in bytes (offsets from the block's dynamic shared memory).
-namespace lay {
-constexpr int h1t = 0;                           // H1^T of a strip [DC][RS]
-constexpr int stg = h1t + DC * RS * 4;           // NSTG stages of emb_w
-constexpr int smax = stg + NSTG * KS * NC * 4;   // per chunk column: strip
-constexpr int scnt = smax + NC * 4;              //   max (float bits), rows
-constexpr int sfirst = scnt + NC * 4;            //   at it, first such row,
-constexpr int smark = sfirst + NC * 4;           //   their bits
-constexpr int red = smark + NC * 4;              // partial sums of pred
-constexpr int total = red + WARPS * 4;
-// backward: G1^T of a strip over H1^T, enc_w^T's stages and dP of a
-// strip over the emb_w stages, the relu bits over the column statistics
-static_assert(2 * KS * KVP * 4 + R * KVP * 4 <= smax - stg &&
-                  DC * 4 <= red - smax && THREADS == 8 * 32 &&
-                  KVP == 32 * 4 && R == 8 * 4,
-              "the backward's buffers and its dP tiling");
-static_assert(total <= 232448, "more than a block's shared memory");
-}  // namespace lay
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+// d[64 x N] (+)= a[64 x 16] * b[N x 16]^T from shared memory, both K-major
+// in the 128-byte swizzle; accumulate = 0 overwrites d
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void wg_mma(float (&d)[N / 2], uint64_t da,
+                                       uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wg_mma<128>(float (&d)[64], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// conv + bias at (t, c) before the relu: for each tap k the row of enc_w of
-// the position's letter (one-hot), else every nonzero letter's row. The
-// forward and the backward's relu mask both come from here: the same bits.
-__device__ __forceinline__ float conv_pre(const Args& a, const int2* tok,
-                                          const float* xb, const float* encw,
-                                          const float* encb, int t, int c) {
-  const int V = a.V, Cp = a.Cp;
-  float acc = 0.f;
-  for (int k = 0; k < a.K; ++k) {
-    const int2 tv = tok[t + k];
+template <>
+__device__ __forceinline__ void wg_mma<200>(float (&d)[100], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %102, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n200k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99}, "
+      "%100, %101, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wg_mma<256>(float (&d)[128], uint64_t da,
+                                          uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+
+__device__ __forceinline__ void wg_bar(int wg) {  // one warpgroup's barrier
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+
+// The bf16 conv as a product on the tensor cores: a row tile's patches P
+// [128 rows][128] (row r: x at positions t0 + r .. t0 + r + K - 1, the
+// K*V entries of its patch; zero past them) in two swizzled 64-deep tiles,
+// times the enc_w tile of a chunk [128 (j)][64 (channels)] read MN-major
+// (wgmma's transposed-B form: the tile as the ring holds it). Every
+// product is exact; the forward and the backward's relu mask both come
+// from here: the same bits.
+constexpr int P_BYTES = RT * KVP * 2;
+// d[64 x 64] (+)= a[64 x 16] * b[16 x 64], a K-major, b MN-major
+__device__ __forceinline__ void wg_mma_conv(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// descriptor of a 128-byte-swizzled bf16 tile with its leading and stride
+// byte offsets (MN-major: the stride steps from one group of 8 k to the next)
+__device__ __forceinline__ uint64_t wgmma_desc2(uint32_t addr, int leading,
+                                                int stride) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)(leading >> 4) << 16) | ((uint64_t)(stride >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+// this warpgroup's 64 rows of conv(chunk) = P @ enc_w tile, K*V deep
+__device__ __forceinline__ void conv_mma(float (&d)[32], uint32_t p_u,
+                                         uint32_t e_u, int wg, int KV) {
+#pragma unroll
+  for (int q = 0; q < KVP / 16; ++q)
+    if (q * 16 < KV)
+      wg_mma_conv(d,
+                  wgmma_desc(p_u + (q / 4) * (RT * 128) + wg * 64 * 128) +
+                      2 * (q % 4),
+                  wgmma_desc2(e_u + q * 2048, 8192, 1024), q > 0);
+}
+// P of the row tile from t0: every thread clears its share, then a thread
+// a (row, tap) writes the tap's letters. Ends with a barrier of the block.
+__device__ __forceinline__ void build_patches(const Args& a, const int2* st,
+                                              const float* xt, int t0,
+                                              int n_t, unsigned char* p) {
+  for (int i = threadIdx.x; i < P_BYTES / 16; i += THREADS)
+    reinterpret_cast<uint4*>(p)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  auto put = [&](int r, int j, float v) {
+    *reinterpret_cast<__nv_bfloat16*>(
+        p + (j / 64) * (RT * 128) + sw(r, (j % 64) / 8) + (j % 8) * 2) =
+        __float2bfloat16(v);
+  };
+  for (int e = threadIdx.x; e < RT * a.K; e += THREADS) {
+    const int r = e / a.K, k = e - r * a.K;
+    if (t0 + r >= n_t) continue;
+    const int2 tv = st[r + k];
     if (tv.x >= 0) {
-      acc = fmaf(__int_as_float(tv.y),
-                 __ldg(encw + (size_t)(k * V + tv.x) * Cp + c), acc);
+      put(r, k * a.V + tv.x, __int_as_float(tv.y));
     } else {
-      for (int v = 0; v < V; ++v) {
-        const float x = xb[(t + k) * V + v];
-        if (x != 0.f)
-          acc = fmaf(x, __ldg(encw + (size_t)(k * V + v) * Cp + c), acc);
+      for (int v = 0; v < a.V; ++v) {
+        const float xv = xt[(r + k) * a.V + v];
+        if (xv != 0.f) put(r, k * a.V + v, xv);
       }
     }
   }
-  return acc + encb[c];
+  fence_async_proxy();
+  __syncthreads();
+}
+// rnd(relu(conv + b)) of the accumulators into a swizzled bf16 tile [128
+// rows][64] (this warpgroup's rows); channels from c0
+__device__ __forceinline__ void conv_store(const float (&d)[32],
+                                           const float* encb, int c0,
+                                           int rbase, unsigned char* t) {
+  const int tig = threadIdx.x & 3;
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni) {
+    const float b0 = encb[c0 + ni * 8 + tig * 2],
+                b1 = encb[c0 + ni * 8 + tig * 2 + 1];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const __nv_bfloat162 r2 = __floats2bfloat162_rn(
+          fmaxf(d[ni * 4 + hf * 2] + b0, 0.f),
+          fmaxf(d[ni * 4 + hf * 2 + 1] + b1, 0.f));
+      *reinterpret_cast<__nv_bfloat162*>(t + sw(rbase + hf * 8, ni) +
+                                         tig * 4) = r2;
+    }
+  }
 }
 
-constexpr int KFAST = 5;  // taps of the one-hot conv's fast path
+// One or two bulk copies global -> shared completing on mbarrier `bar`,
+// started when `on` (predicated: no branch next to the wgmmas)
+__device__ __forceinline__ void bulk(uint32_t bar, uint32_t d0,
+                                     const void* s0, int n0, uint32_t d1,
+                                     const void* s1, int n1, bool on) {
+  asm volatile(
+      "{\n.reg .pred p, q;\nsetp.ne.b32 p, %7, 0;\n"
+      "setp.ne.and.b32 q, %6, 0, p;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %8;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%1], [%2], %3, [%0];\n"
+      "@q cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%4], [%5], %6, [%0];\n}\n" ::"r"(bar),
+      "r"(d0), "l"(s0), "r"(n0), "r"(d1), "l"(s1), "r"(n1), "r"((int)on),
+      "r"(n0 + n1)
+      : "memory");
+}
 
-// conv + b before the relu at rows t .. t+3 of channel c (rows from n_t on:
-// 0): conv_pre's sums in its order, but for a sample whose every position
-// is one-hot (and K <= KFAST) with the 20 row loads of enc_w issued
-// before the first is used, so that their latencies overlap.
-__device__ __forceinline__ void conv4(const Args& a, const int2* tok,
-                                      const float* xb, const float* encw,
-                                      const float* encb, bool onehot, int t,
-                                      int n_t, int c, float (&pre)[4]) {
-  if (!onehot || a.K > KFAST) {
+// A ring of S shared-memory slots of weight tiles: tile i lives in slot
+// i % S; fill(i, on) starts the copies of tile i when `on`. A slot is
+// refilled with tile i + S once every warp is done with tile i: by the
+// warp whose release completes the slot's count (release; counts only
+// grow, no warp waits), or by thread 0 after a barrier of the block
+// (refill).
+template <int S>
+struct Ring {
+  uint32_t full0, count0;
+  __device__ void init(uint32_t bars) {  // the caller syncs the block
+    full0 = bars;
+    count0 = bars + S * 8;
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < S; ++s) {
+        mbar_init(full0 + s * 8, 1);
+        asm volatile("st.shared.u32 [%0], 0;\n" ::"r"(count0 + s * 4)
+                     : "memory");
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
+  __device__ uint32_t full(uint32_t i) const { return full0 + (i % S) * 8; }
+  __device__ void wait(uint32_t i) const { mbar_wait(full(i), (i / S) & 1); }
+  template <class Fill>
+  __device__ void start(Fill fill) const {  // the first S tiles
+    for (uint32_t i = 0; i < S; ++i) fill(i, threadIdx.x == 0);
+  }
+  template <class Fill>
+  __device__ void refill(uint32_t i, Fill fill) const {
+    fill(i + S, threadIdx.x == 0);
+  }
+  template <class Fill>
+  __device__ void release(uint32_t i, Fill fill) const {
+    __syncwarp();
+    const int lane0 = (threadIdx.x & 31) == 0;
+    unsigned old = 0u;
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"
+        "@p atom.acq_rel.cta.shared::cta.add.u32 %0, [%1], 1;\n}\n"
+        : "+r"(old)
+        : "r"(count0 + (i % S) * 4), "r"(lane0)
+        : "memory");
+    fill(i + S, lane0 && old == (unsigned)WARPS * (i / S + 1) - 1);
+  }
+};
+
+// The tokens of the positions a row tile's patches cover (t0 .. t0 + RT +
+// K - 2, within L) into st; true if every one is one-hot. Ends with a
+// barrier of the block.
+__device__ __forceinline__ bool tile_tokens(const Args& a, const int2* tok,
+                                            int t0, int2* st) {
+  const int np = min(RT + a.K - 1, a.L - t0);
+  int oh = 1;
+  for (int p = threadIdx.x; p < np; p += blockDim.x) {
+    const int2 tv = tok[t0 + p];
+    st[p] = tv;
+    oh &= tv.x >= 0;
+  }
+  return __syncthreads_and(oh) != 0;
+}
+
+// conv before the bias at local row tl of a tile, W channels: for each tap
+// the weights of the position's letter (one-hot) or of every nonzero letter
+// in x (xt: x from the tile's first position); row(j, v, s) adds v times
+// row j of enc_w (W channels) to s. The forward pass and the backward's
+// relu mask both come from here: the same bits.
+template <int W, class Row>
+__device__ __forceinline__ void conv(const Args& a, const int2* st,
+                                     bool onehot, const float* xt, int tl,
+                                     float (&s)[W], Row row) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pre[i] = t + i < n_t ? conv_pre(a, tok, xb, encw, encb, t + i, c)
-                           : 0.f;
+  for (int q = 0; q < W; ++q) s[q] = 0.f;
+  if (onehot) {
+#pragma unroll 5
+    for (int k = 0; k < a.K; ++k) {
+      const int2 tv = st[tl + k];
+      row(k * a.V + tv.x, __int_as_float(tv.y), s);
+    }
     return;
   }
-  float w[4][KFAST], xv[4][KFAST];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int k = 0; k < KFAST; ++k) {
-      const bool in = t + i < n_t && k < a.K;
-      const int2 tv = in ? tok[t + i + k] : make_int2(0, 0);
-      xv[i][k] = __int_as_float(tv.y);
-      w[i][k] = in ? __ldg(encw + (size_t)(k * a.V + tv.x) * a.Cp + c) : 0.f;
+  for (int k = 0; k < a.K; ++k) {
+    const int2 tv = st[tl + k];
+    if (tv.x >= 0) {
+      row(k * a.V + tv.x, __int_as_float(tv.y), s);
+      continue;
     }
-  const float b = encb[c];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < KFAST; ++k)
-      if (k < a.K) acc = fmaf(xv[i][k], w[i][k], acc);
-    pre[i] = t + i < n_t ? acc + b : 0.f;
+    for (int v = 0; v < a.V; ++v) {
+      const float xv = xt[(tl + k) * a.V + v];
+      if (xv != 0.f) row(k * a.V + v, xv, s);
+    }
   }
 }
 
-// acc[i][j] += sum over a stage's 16 k of H1^T[k][row_i] * Bs[k][col_j]:
-// rows ty*4 + i (i < 4) and 16 + ty*4 + i - 4, columns tx*4 + j (j < 4) and
-// 256 + tx*4 + j - 4. A warp's lanes share ty: its A loads are broadcasts,
-// its B loads 512 contiguous bytes.
-__device__ __forceinline__ void stage_product(float (&acc)[8][8],
-                                              const float* A,
-                                              const float* Bs, int tx,
-                                              int ty) {
-#pragma unroll 4
-  for (int kk = 0; kk < KS; ++kk) {
-    const float4 a0 = *reinterpret_cast<const float4*>(A + kk * RS + ty * 4);
-    const float4 a1 =
-        *reinterpret_cast<const float4*>(A + kk * RS + 16 + ty * 4);
-    const float4 b0 =
-        *reinterpret_cast<const float4*>(Bs + kk * NC + tx * 4);
-    const float4 b1 =
-        *reinterpret_cast<const float4*>(Bs + kk * NC + 256 + tx * 4);
-    const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+template <bool BF>
+__device__ __forceinline__ float act(float v) {  // rnd(relu(v))
+  v = fmaxf(v, 0.f);
+  return BF ? rb(v) : v;
+}
+
+// The column statistics of a forward block (N <= THREADS columns), in
+// shared memory: the running max, rows at it and first such row; per row
+// tile the tile's max (-1: none), the max its rows are compared with (-1:
+// not compared) and a bit a column for those compared, the rows that reach
+// it (four words) and the biases.
+struct ColStats {
+  float* rmax;
+  int* rcnt;
+  int* rfirst;
+  float* tmax;
+  float* want;
+  unsigned* tmark;
+  float* bias;
+  unsigned* flag;
+  static constexpr int BYTES = 256 * 40 + 32;
+  __device__ ColStats(unsigned char* p)
+      : rmax(reinterpret_cast<float*>(p)),
+        rcnt(reinterpret_cast<int*>(p + 1024)),
+        rfirst(reinterpret_cast<int*>(p + 2048)),
+        tmax(reinterpret_cast<float*>(p + 3072)),
+        want(reinterpret_cast<float*>(p + 4096)),
+        tmark(reinterpret_cast<unsigned*>(p + 5120)),
+        bias(reinterpret_cast<float*>(p + 9216)),
+        flag(reinterpret_cast<unsigned*>(p + 10240)) {}
+  __device__ void init(const float* embb, int N) {
+    for (int c = threadIdx.x; c < N; c += blockDim.x) {
+      rmax[c] = -1.f;
+      rcnt[c] = 0;
+      rfirst[c] = 0;
+      for (int w = 0; w < 4; ++w) tmark[c * 4 + w] = 0u;
+      bias[c] = embb[c];
+    }
+  }
+  // After each warp's column maxima of the tile's sums in pmax [WARPS][N]
+  // (-inf: no rows) and a barrier: the tile's max of each column (the
+  // bias, relu and rounding are monotone, so they act on the maximum
+  // alone) and the columns whose rows are compared with it (a tile max
+  // > 0 that reaches the running max: a dead channel routes nothing).
+  template <bool BF>
+  __device__ void choose(const float* pmax, int N, int nwarps) {
+    const int c = threadIdx.x;
+    bool on = false;
+    if (c < N) {
+      float raw = -INFINITY;
+      for (int w = 0; w < nwarps; ++w) raw = fmaxf(raw, pmax[w * N + c]);
+      const float tm = raw > -INFINITY ? act<BF>(raw + bias[c]) : -1.f;
+      tmax[c] = tm;
+      on = tm > 0.f && tm >= rmax[c];
+      want[c] = on ? tm : -1.f;
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, on);
+    if ((c & 31) == 0 && c < 256) flag[c >> 5] = bal;
+  }
+  __device__ bool flagged(int c) const { return (flag[c >> 5] >> (c & 31)) & 1u; }
+  // row r (of the tile) reaches the max of column c
+  __device__ void mark(int c, int r) {
+    atomicOr(&tmark[c * 4 + (r >> 5)], 1u << (r & 31));
+  }
+  // after the marks (and a barrier): fold the tile into the running
+  // statistics (a larger max restarts them, an equal one adds rows), write
+  // the tile's mark words of columns c0 + c < C2 and clear the tile
+  __device__ void fold(int N, int c0, int C2, int t0, uint4* marks) {
+    for (int c = threadIdx.x; c < N; c += blockDim.x) {
+      const float tm = tmax[c];
+      const uint4 w = make_uint4(tmark[c * 4], tmark[c * 4 + 1],
+                                 tmark[c * 4 + 2], tmark[c * 4 + 3]);
+      const int pc = __popc(w.x) + __popc(w.y) + __popc(w.z) + __popc(w.w);
+      uint4 out = make_uint4(0u, 0u, 0u, 0u);
+      if (tm > rmax[c]) {
+        rmax[c] = tm;
+        rcnt[c] = pc;
+        const int f = w.x ? __ffs(w.x) - 1
+                    : w.y ? 32 + __ffs(w.y) - 1
+                    : w.z ? 64 + __ffs(w.z) - 1
+                    : w.w ? 96 + __ffs(w.w) - 1
+                          : 0;
+        rfirst[c] = t0 + f;
+        out = w;
+      } else if (tm == rmax[c] && tm > 0.f) {
+        rcnt[c] += pc;
+        out = w;
+      }
+      if (c0 + c < C2) marks[c0 + c] = out;
+      for (int k = 0; k < 4; ++k) tmark[c * 4 + k] = 0u;
+    }
+  }
+  __device__ void store(int N, int c0, int C2, float* st_max) {
+    int* st_cnt = reinterpret_cast<int*>(st_max + C2);
+    int* st_first = st_cnt + C2;
+    for (int c = threadIdx.x; c < N && c0 + c < C2; c += blockDim.x) {
+      st_max[c0 + c] = rmax[c];
+      st_cnt[c0 + c] = rcnt[c];
+      st_first[c0 + c] = rfirst[c];
+    }
+  }
+};
+
+// Shared-memory offsets of the kernels (bytes from the block's
+// 1024-aligned dynamic shared memory).
+template <int N>
+struct FwdTcLay {
+  static constexpr int EMB = N * KB * 2, ENC = KVP * KB * 2;  // a slot's tiles
+  static constexpr int SLOT = EMB + ENC, SLOTS = N > 200 ? 3 : 4;
+  static constexpr int H1 = RT * KB * 2;
+  static constexpr int h1 = 0;                      // an H1 chunk,
+  static constexpr int p = h1 + H1;                 // the tile's patches
+  static constexpr int ring = p + P_BYTES;          // SLOTS x (emb, enc)
+  static constexpr int st = ring + SLOTS * SLOT;    // tokens of a tile
+  static constexpr int cs = st + MAX_POS * 8;       // column statistics
+  static constexpr int bars = cs + ColStats::BYTES;
+  static constexpr int total = (bars + 2 * SLOTS * 8 + 1023) / 1024 * 1024;
+  static_assert(EMB % 1024 == 0 && SLOT % 1024 == 0, "tile alignment");
+  static_assert(total <= 232448, "more than a block's shared memory");
+};
+struct FwdSimtLay {
+  static constexpr int EMB = KS * NF * 4, ENC = KVP * KS * 4;
+  static constexpr int SLOT = EMB + ENC, SLOTS = 4;
+  static constexpr int A = RT * LDA * 4;
+  static constexpr int ring = 0;
+  static constexpr int a = ring + SLOTS * SLOT;     // two H1 stages
+  static constexpr int st = a + 2 * A;
+  static constexpr int cs = st + MAX_POS * 8;
+  static constexpr int bars = cs + ColStats::BYTES;
+  static constexpr int total = (bars + 2 * SLOTS * 8 + 1023) / 1024 * 1024;
+  static_assert(total <= 232448 && NF * FTHREADS / 32 * 4 <= 2 * A,
+                "shared memory; the pool's maxima fit over H1");
+};
+// the backward: B operand tiles, two G1 chunks, dP, the routed lists
+template <bool BF>
+struct BwdLay {
+  static constexpr int SLOT = BF ? KVP * KB * 2 : KS * KVP * 4 + KVP * KS * 4;
+  static constexpr int SLOTS = 4;
+  static constexpr int G1 = BF ? RT * KB * 2 : RT * LDA * 4;
+  static constexpr int g1 = 0;  // bf16: H1, then G1, and the patches;
+  static constexpr int p = g1 + G1;  // float32: two G1 stages
+  static constexpr int ring = (p + (BF ? P_BYTES : G1) + 1023) / 1024 * 1024;
+  static constexpr int dps = ring + SLOTS * SLOT;   // dP [RT][DPS] float32;
+  static constexpr int pairs = dps;                 // before it, the routed
+  static constexpr int start = pairs + PCAP * 4;    // channels of each row
+  static constexpr int cur = start + (RT + 4) * 4;  // (CSR), per channel its
+  static constexpr int wrow = cur + RT * 4;         // words (WCAP at most)
+  static constexpr int st = dps + RT * DPS * 4;
+  static constexpr int red = st + MAX_POS * 8;
+  static constexpr int bars = red + WARPS * 4;
+  static constexpr int total = (bars + 2 * SLOTS * 8 + 1023) / 1024 * 1024;
+  static constexpr int WCAP = (st - wrow) / 16;
+  static_assert(SLOT % 1024 == 0 && total <= 232448, "shared memory");
+};
+
+// -- forward, bf16: a block per (sample b, column tile, member m); the two
+// warpgroups hold 64 rows each of a 128-row tile. Per depth chunk of 64
+// channels each warpgroup builds its rows of H1 (the conv, 8 channels a
+// lane, from the enc_w tile in the ring) while its wgmma of the chunk
+// before runs --
+template <int N>
+__global__ void __launch_bounds__(THREADS, 1) fwd_tc(const Args a) {
+#ifdef CNN_PHASE_CLOCKS
+  long long phase_t0 = clock64();
+#endif
+  using Lay = FwdTcLay<N>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  if (smem_u32(smem_raw) & 1023u) __trap();  // the swizzle needs this base
+  int2* st = reinterpret_cast<int2*>(smem + Lay::st);
+  ColStats cs(smem + Lay::cs);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // warp-uniform to the compiler (a shuffle), or the wgmmas serialise
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  const int wq = warp & 3, g = lane >> 2, tig = lane & 3;
+  const int b = blockIdx.x, ct = blockIdx.y, m = blockIdx.z;
+  const int n_t = a.L - a.K + 1, nkb = a.Cp / KB, ksteps = (a.C + 15) / 16;
+  const size_t mb = (size_t)m * a.B + b;
+  const float* encb = a.encb + (size_t)m * a.Cp;
+  const float* xb = a.x + (size_t)b * a.L * a.V;
+  const uint32_t n_tiles = (uint32_t)(a.nrt * nkb);
+  const uint32_t ring_u = smem_u32(smem + Lay::ring);
+  Ring<Lay::SLOTS> ring;
+  // tile i: the emb_w^T tile (this column tile, chunk i % nkb) and the
+  // K*V rows of the enc_w tile of the chunk, in one slot
+  auto fill = [&](uint32_t i, bool on) {
+    const int kc = (int)(i % nkb);
+    const uint32_t dst = ring_u + (i % Lay::SLOTS) * Lay::SLOT;
+    bulk(ring.full(i), dst,
+         static_cast<const char*>(a.emb) +
+             (((size_t)m * a.ncol + ct) * nkb + kc) * Lay::EMB,
+         Lay::EMB, dst + Lay::EMB,
+         static_cast<const char*>(a.enc) + ((size_t)m * nkb + kc) * Lay::ENC,
+         (a.K * a.V + 15) / 16 * 16 * KB * 2,  // the rows the conv reads
+         on && i < n_tiles);
+  };
+  ring.init(smem_u32(smem + Lay::bars));
+  cs.init(a.embb + ((size_t)m * a.ncol + ct) * N, N);
+  __syncthreads();
+  ring.start(fill);
+
+  float acc[N / 2], acc2[32];  // the embed product's sums, the conv's
+#pragma unroll
+  for (int q = 0; q < N / 2; ++q) acc[q] = 0.f;
+#pragma unroll
+  for (int q = 0; q < 32; ++q) acc2[q] = 0.f;
+  const int rbase = wg * 64 + wq * 16 + g;  // this thread's rows: + 0, 8
+  uint32_t n = 0;
+  for (int rt = 0; rt < a.nrt; ++rt) {
+    const int t0 = rt * RT;
+    tile_tokens(a, a.tok + (size_t)b * a.L, t0, st);
+    build_patches(a, st, xb + (size_t)t0 * a.V, t0, n_t, smem + Lay::p);
+    const bool active = t0 + wg * 64 < n_t;  // warpgroup-uniform
+    unsigned char* h1 = smem + Lay::h1;
+    const uint32_t p_u = smem_u32(smem + Lay::p);
+    auto slot_of = [&](uint32_t i) {
+      return smem + Lay::ring + (i % Lay::SLOTS) * Lay::SLOT;
+    };
+    // -- this warpgroup's rows of H1 = rnd(relu(P @ enc_w + b)) of a chunk
+    // on the tensor cores, each chunk's conv issued behind the product of
+    // the chunk before --
+    ring.wait(n);
+    wgmma_fence();
+    if (active) conv_mma(acc2, p_u, smem_u32(slot_of(n) + Lay::EMB), wg,
+                         a.K * a.V);
+    wgmma_commit();
+    for (int kc = 0; kc < nkb; ++kc) {
+      const uint32_t i = n + kc;
+      const unsigned char* slot = slot_of(i);
+      wgmma_wait<0>();  // the conv, and the chunk before: its slot is free
+      if (kc > 0) ring.release(i - 1, fill);
+      if (active) conv_store(acc2, encb, kc * KB, rbase, h1);
+      fence_async_proxy();
+      wg_bar(wg);
+      PHASE_TICK(1)  // conv (H1)
+      // -- H2's sums: acc += H1 chunk @ emb_w chunk, 64 rows a warpgroup --
+      wgmma_fence();
+      if (active) {
+        const uint64_t da = wgmma_desc(smem_u32(h1) + wg * 64 * 128);
+        const uint64_t db = wgmma_desc(smem_u32(slot));
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          if (kc * 4 + ks < ksteps)
+            wg_mma<N>(acc, da + 2 * ks, db + 2 * ks, kc + ks > 0);
+      }
+      if (kc + 1 < nkb) {
+        ring.wait(i + 1);
+        if (active) conv_mma(acc2, p_u, smem_u32(slot_of(i + 1) + Lay::EMB),
+                             wg, a.K * a.V);
+      }
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    ring.release(n + nkb - 1, fill);
+    n += nkb;
+    PHASE_TICK(2)  // embed product
+    // -- max-pool of the tile, from the accumulators: each warp's column
+    // maxima (shuffles over its 16 rows, several columns at once), the
+    // tile's, then the rows that reach them, folded into the running
+    // statistics --
+    __syncthreads();  // every wgmma of the tile is done: H1 is free
+    float* pmax = reinterpret_cast<float*>(smem + Lay::h1);
+    const bool ok0 = t0 + rbase < n_t, ok1 = t0 + rbase + 8 < n_t;
+    constexpr int NG = N / 8, G = NG % 8 == 0 ? 8 : 5;
+#pragma unroll
+    for (int n0 = 0; n0 < NG; n0 += G) {
+      float v[G][2];
+#pragma unroll
+      for (int q = 0; q < G; ++q)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          v[q][j] = fmaxf(ok0 ? acc[(n0 + q) * 4 + j] : -INFINITY,
+                          ok1 ? acc[(n0 + q) * 4 + 2 + j] : -INFINITY);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            v[q][j] = fmaxf(v[q][j],
+                            __shfl_xor_sync(0xffffffffu, v[q][j], off));
+      if (g == 0)
+#pragma unroll
+        for (int q = 0; q < G; ++q)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            pmax[warp * N + (n0 + q) * 8 + tig * 2 + j] = v[q][j];
+    }
+    __syncthreads();
+    cs.choose<true>(pmax, N, WARPS);
+    __syncthreads();
+    unsigned fl[(N + 31) / 32];
+#pragma unroll
+    for (int w = 0; w < (N + 31) / 32; ++w) fl[w] = cs.flag[w];
+#pragma unroll
+    for (int ni = 0; ni < NG; ++ni)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int c = ni * 8 + tig * 2 + j;  // c / 32 = ni / 4
+        if (!((fl[ni >> 2] >> (c & 31)) & 1u)) continue;
+        const float want = cs.want[c], bias = cs.bias[c];
+        if (ok0 && act<true>(acc[ni * 4 + j] + bias) == want)
+          cs.mark(c, rbase);
+        if (ok1 && act<true>(acc[ni * 4 + 2 + j] + bias) == want)
+          cs.mark(c, rbase + 8);
+      }
+    __syncthreads();
+    cs.fold(N, ct * N, a.C2, t0, a.marks + (mb * a.nrt + rt) * a.C2);
+    PHASE_TICK(3)  // pool
+  }
+  __syncthreads();
+  cs.store(N, ct * N, a.C2, a.stat + mb * 3 * a.C2);
+}
+
+// acc[i][j] += sum over a stage's KS k of A[row_i][k] * Bs[k][col_j] (Bs
+// rows of NB columns): row_i = ty*4 + i (i < 4), 64 + ty*4 + i - 4; col_j =
+// tx*4 + j (j < 4), NB/2 + tx*4 + j - 4. RI, CJ = 4 leave out the second
+// half of the rows, columns (a tile's ragged edge). A warp's lanes read one
+// or two addresses of A (broadcasts), and 16-byte pieces of a row of Bs.
+template <int RI, int CJ, int NB>
+__device__ __forceinline__ void product(float (&acc)[8][8], const float* A,
+                                        const float* Bs, int tx, int ty) {
+  const float* a0 = A + ty * 4 * LDA;
+  const float* a1 = a0 + 64 * LDA;
+#pragma unroll
+  for (int kk = 0; kk < KS; kk += 4) {
+    float4 av[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      av[i] = *reinterpret_cast<const float4*>(a0 + i * LDA + kk);
+      if (RI == 8)
+        av[4 + i] = *reinterpret_cast<const float4*>(a1 + i * LDA + kk);
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(Bs + (kk + s) * NB + tx * 4);
+      float4 b1 = b0;
+      if (CJ == 8)
+        b1 = *reinterpret_cast<const float4*>(Bs + (kk + s) * NB + NB / 2 +
+                                              tx * 4);
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+        const float x = s == 0 ? av[i].x
+                        : s == 1 ? av[i].y
+                        : s == 2 ? av[i].z
+                                 : av[i].w;
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) acc[i][j] = fmaf(x, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// the product of a stage over the rows and columns of T and C2 (or K*V):
+// halves past them left out
+template <int NB>
+__device__ __forceinline__ void product_edge(float (&acc)[8][8],
+                                             const float* A, const float* Bs,
+                                             int tx, int ty, bool rows2,
+                                             bool cols2) {
+  if (rows2 && cols2) product<8, 8, NB>(acc, A, Bs, tx, ty);
+  else if (rows2) product<8, 4, NB>(acc, A, Bs, tx, ty);
+  else if (cols2) product<4, 8, NB>(acc, A, Bs, tx, ty);
+  else product<4, 4, NB>(acc, A, Bs, tx, ty);
+}
+
+// -- forward, float32: a block per (sample b, column tile of 256, member m),
+// 8 x 8 sums a thread on FMAs (no TF32); per depth stage of 16 channels
+// the block builds H1 of the stage (the conv, 4 channels a thread, from the
+// enc_w stage in the ring) into one of two buffers --
+__global__ void __launch_bounds__(FTHREADS, 1) fwd_simt(const Args a) {
+#ifdef CNN_PHASE_CLOCKS
+  long long phase_t0 = clock64();
+#endif
+  using Lay = FwdSimtLay;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  int2* st = reinterpret_cast<int2*>(smem + Lay::st);
+  ColStats cs(smem + Lay::cs);
+  const int tid = threadIdx.x, tx = tid & 31, ty = tid >> 5;  // ty: the warp
+  const int b = blockIdx.x, ct = blockIdx.y, m = blockIdx.z;
+  const int n_t = a.L - a.K + 1, nks = a.Cp / KS, KV = a.K * a.V;
+  const size_t mb = (size_t)m * a.B + b;
+  const float* encb = a.encb + (size_t)m * a.Cp;
+  const float* xb = a.x + (size_t)b * a.L * a.V;
+  const uint32_t n_tiles = (uint32_t)(a.nrt * nks);
+  const uint32_t ring_u = smem_u32(smem + Lay::ring);
+  Ring<Lay::SLOTS> ring;
+  // stage i: rows ks*16 .. +15 of this column tile of emb_w and the
+  // columns ks*16 .. +15 of enc_w (ks = i % nks)
+  auto fill = [&](uint32_t i, bool on) {
+    const int ks = (int)(i % nks);
+    const uint32_t dst = ring_u + (i % Lay::SLOTS) * Lay::SLOT;
+    bulk(ring.full(i), dst,
+         static_cast<const float*>(a.emb) +
+             (((size_t)m * a.ncol + ct) * a.Cp + ks * KS) * NF,
+         Lay::EMB, dst + Lay::EMB,
+         static_cast<const float*>(a.enc) + ((size_t)m * nks + ks) * KV * KS,
+         KV * KS * 4, on && i < n_tiles);
+  };
+  ring.init(smem_u32(smem + Lay::bars));
+  cs.init(a.embb + ((size_t)m * a.ncol + ct) * NF, NF);
+  __syncthreads();
+  ring.start(fill);
+
+  auto row_of = [&](int i) { return (i < 4 ? 0 : 64) + ty * 4 + (i & 3); };
+  auto col_of = [&](int j) { return (j < 4 ? 0 : NF / 2) + tx * 4 + (j & 3); };
+  const bool cols2 = ct * NF + NF / 2 < a.C2;
+  const int q4 = tid & 3, r = tid >> 2;  // H1: a row, 4 channels
+  float acc[8][8];
+  uint32_t n = 0;
+  for (int rt = 0; rt < a.nrt; ++rt) {
+    const int t0 = rt * RT;
+    const bool onehot = tile_tokens(a, a.tok + (size_t)b * a.L, t0, st);
+    const float* xt = xb + (size_t)t0 * a.V;
+    const bool rows2 = t0 + 64 < n_t;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int ks = 0; ks < nks; ++ks) {
+      const uint32_t i = n + ks;
+      ring.wait(i);
+      const float* slot = reinterpret_cast<const float*>(
+          smem + Lay::ring + (i % Lay::SLOTS) * Lay::SLOT);
+      float* A = reinterpret_cast<float*>(smem + Lay::a + (ks & 1) * Lay::A);
+      // -- H1 = relu(conv + b) of the stage's 16 channels (0 past T), into
+      // the buffer the product before last read --
+      {
+        const float* est = slot + Lay::EMB / 4;  // enc_w [K*V][16]
+        const float4 bias =
+            *reinterpret_cast<const float4*>(encb + ks * KS + q4 * 4);
+        auto row = [&](int j, float xv, float (&s)[4]) {
+          const float4 w =
+              *reinterpret_cast<const float4*>(est + j * KS + q4 * 4);
+          s[0] = fmaf(xv, w.x, s[0]);
+          s[1] = fmaf(xv, w.y, s[1]);
+          s[2] = fmaf(xv, w.z, s[2]);
+          s[3] = fmaf(xv, w.w, s[3]);
+        };
+        float s[4];
+        const bool in = t0 + r < n_t;
+        if (in) conv<4>(a, st, onehot, xt, r, s, row);
+        *reinterpret_cast<float4*>(A + r * LDA + q4 * 4) =
+            in ? make_float4(act<false>(s[0] + bias.x),
+                             act<false>(s[1] + bias.y),
+                             act<false>(s[2] + bias.z),
+                             act<false>(s[3] + bias.w))
+               : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();  // and every warp is done with stage i - 1
+      if (i > 0) ring.refill(i - 1, fill);
+      PHASE_TICK(1)  // conv (H1)
+      product_edge<NF>(acc, A, slot, tx, ty, rows2, cols2);
+      PHASE_TICK(2)  // embed product
+    }
+    n += nks;
+    // -- max-pool of the tile, as the bf16 kernel's --
+    __syncthreads();  // every product of the tile is done: A is free
+    float* pmax = reinterpret_cast<float*>(smem + Lay::a);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // a warp holds one ty: its 8 rows
+      float v = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (t0 + row_of(i) < n_t) v = fmaxf(v, acc[i][j]);
+      pmax[ty * NF + col_of(j)] = v;
+    }
+    __syncthreads();
+    cs.choose<false>(pmax, NF, FTHREADS / 32);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = col_of(j);
+      if (!cs.flagged(c)) continue;
+      const float want = cs.want[c], bias = cs.bias[c];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (t0 + row_of(i) < n_t && act<false>(acc[i][j] + bias) == want)
+          cs.mark(c, row_of(i));
+    }
+    __syncthreads();
+    cs.fold(NF, ct * NF, a.C2, t0, a.marks + (mb * a.nrt + rt) * a.C2);
+    PHASE_TICK(3)  // pool
+  }
+  __syncthreads();
+  cs.store(NF, ct * NF, a.C2, a.stat + mb * 3 * a.C2);
+}
+
+// -- backward, both types: a block per (sample b, member m) --
+
+// pred_m (a fixed-order sum) and per channel the routed gradient rnd(mx > 0
+// ? dec_w / (split ? count : 1) : 0) over the max, the first row over the
+// count (-1: no gradient). Ends with a barrier of the block.
+template <bool BF>
+__device__ __forceinline__ void scales(const Args& a, int m, size_t mb,
+                                       float* red) {
+  const int C2 = a.C2, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* st_max = a.stat + mb * 3 * C2;
+  int* st_cnt = reinterpret_cast<int*>(st_max + C2);
+  const int* st_first = st_cnt + C2;
+  const float* decw = a.decw + (size_t)m * C2;
+  float sum = 0.f;
+  for (int c = threadIdx.x; c < C2; c += THREADS) {
+    const float best = st_max[c], d = decw[c];
+    sum += best * d;
+    float sc = best > 0.f ? d / (float)(a.pool_first ? 1 : st_cnt[c]) : 0.f;
+    if (BF) sc = rb(sc);
+    st_max[c] = sc;
+    st_cnt[c] = sc != 0.f ? st_first[c] : -1;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (lane == 0) red[warp] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    for (int w = 0; w < WARPS; ++w) s += red[w];
+    a.pred[mb] = s + a.decb[m];
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 1) fit_grad_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* h1t = reinterpret_cast<float*>(smem + lay::h1t);
-  float* stg = reinterpret_cast<float*>(smem + lay::stg);
-  int* smax = reinterpret_cast<int*>(smem + lay::smax);
-  int* scnt = reinterpret_cast<int*>(smem + lay::scnt);
-  int* sfirst = reinterpret_cast<int*>(smem + lay::sfirst);
-  unsigned* smark = reinterpret_cast<unsigned*>(smem + lay::smark);
-  float* red = reinterpret_cast<float*>(smem + lay::red);
+// The rows of tile rt that channel c2 routes its gradient to ("split":
+// the tile's mark words from the tile of the first row on; "first": the
+// first row alone); first[c2] < 0: none.
+__device__ __forceinline__ uint4 routed(const Args& a, const uint4* marks,
+                                        const int* first, int rt, int c2) {
+  const int f = first[c2];
+  uint4 w = make_uint4(0u, 0u, 0u, 0u);
+  if (f < 0 || f / RT > rt) return w;
+  if (!a.pool_first) return marks[(size_t)rt * a.C2 + c2];
+  if (f / RT == rt) {
+    const unsigned bit = 1u << (f % 32);
+    const int q = (f % RT) / 32;
+    w = make_uint4(q == 0 ? bit : 0u, q == 1 ? bit : 0u, q == 2 ? bit : 0u,
+                   q == 3 ? bit : 0u);
+  }
+  return w;
+}
+
+__device__ __forceinline__ bool routed_row(const Args& a, const uint4* marks,
+                                           const int* first, int rt, int c2,
+                                           int r) {
+  const uint4 w = routed(a, marks, first, rt, c2);
+  const unsigned q = r < 64 ? (r < 32 ? w.x : w.y) : (r < 96 ? w.z : w.w);
+  return (q >> (r & 31)) & 1u;
+}
+
+// Where a backward block keeps the routed channels of a row tile: per
+// row a run of pairs (CSR: start[r] .. start[r + 1], ascending), and per
+// channel its four words of routed rows when C2 <= wcap. Rows past PCAP
+// pairs scan the channels instead.
+struct Routes {
+  int* pairs;
+  int* start;
+  int* cur;
+  unsigned* wrow;
+  const uint4* marks;  // this (sample, member)'s mark words
+  const int* first;    // per channel its first row (-1: no gradient)
+  int wcap;
+  __device__ bool cached(const Args& a) const { return a.C2 <= wcap; }
+  __device__ int count(int r) const { return start[r + 1] - start[r]; }
+  __device__ bool listed(int r) const { return start[r + 1] <= PCAP; }
+  // does channel c2 route to row r of tile rt
+  __device__ bool routes(const Args& a, int rt, int c2, int r) const {
+    if (cached(a)) return (wrow[c2 * 4 + (r >> 5)] >> (r & 31)) & 1u;
+    return routed_row(a, marks, first, rt, c2, r);
+  }
+};
+
+// The routes of tile rt: counts by integer atomics, a prefix sum over the
+// rows, the pairs placed by atomics and each row's run sorted (the set is
+// fixed, so the order is). Ends with a barrier of the block.
+__device__ __forceinline__ void tile_routes(const Args& a, const Routes& R,
+                                            int rt) {
+  const int tid = threadIdx.x, lane = tid & 31;
+  for (int r = tid; r < RT; r += THREADS) R.cur[r] = 0;
+  __syncthreads();
+  const bool cached = R.cached(a);
+  for (int c0 = tid; c0 < a.C2; c0 += 4 * THREADS) {  // four loads in flight
+    uint4 w[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c2 = c0 + u * THREADS;
+      w[u] = c2 < a.C2 ? routed(a, R.marks, R.first, rt, c2)
+                       : make_uint4(0u, 0u, 0u, 0u);
+      if (cached && c2 < a.C2)
+        *reinterpret_cast<uint4*>(R.wrow + c2 * 4) = w[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const unsigned ws[4] = {w[u].x, w[u].y, w[u].z, w[u].w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        for (unsigned bits = ws[q]; bits; bits &= bits - 1)
+          atomicAdd(&R.cur[q * 32 + __ffs(bits) - 1], 1);
+    }
+  }
+  __syncthreads();
+  if (tid < 32) {  // start[r] = pairs of the rows before r
+    int c[RT / 32], sum = 0;
+#pragma unroll
+    for (int k = 0; k < RT / 32; ++k) {
+      c[k] = R.cur[lane * (RT / 32) + k];
+      sum += c[k];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    int run = incl - sum;
+#pragma unroll
+    for (int k = 0; k < RT / 32; ++k) {
+      R.start[lane * (RT / 32) + k] = run;
+      R.cur[lane * (RT / 32) + k] = 0;
+      run += c[k];
+    }
+    if (lane == 31) R.start[RT] = incl;
+  }
+  __syncthreads();
+  for (int c2 = tid; c2 < a.C2; c2 += THREADS) {
+    const uint4 w = cached ? *reinterpret_cast<const uint4*>(R.wrow + c2 * 4)
+                           : routed(a, R.marks, R.first, rt, c2);
+    const unsigned ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      for (unsigned bits = ws[q]; bits; bits &= bits - 1) {
+        const int r = q * 32 + __ffs(bits) - 1;
+        if (R.listed(r)) R.pairs[R.start[r] + atomicAdd(&R.cur[r], 1)] = c2;
+      }
+  }
+  __syncthreads();
+  for (int r = tid; r < RT; r += THREADS) {
+    if (!R.listed(r)) continue;
+    int* l = R.pairs + R.start[r];
+    const int nc = R.count(r);
+    for (int i = 1; i < nc; ++i) {
+      const int v = l[i];
+      int j = i - 1;
+      while (j >= 0 && l[j] > v) {
+        l[j + 1] = l[j];
+        --j;
+      }
+      l[j + 1] = v;
+    }
+  }
+  __syncthreads();
+}
+
+// col2im of a tile: dx[pos, v] = sum_k dP[pos - k, k*V + v] over the
+// tile's rows, k ascending, added to what the tiles before wrote (one
+// thread per entry: every sum has one order)
+__device__ __forceinline__ void col2im(const Args& a, float* out,
+                                       const float* dps, int t0, int n_t) {
+  const int V = a.V, KV = a.K * V;
+  const int t_end = min(t0 + RT, n_t);
+  const int f_hi = (t_end - 1) * V + KV;
+  const int f_old = t0 > 0 ? (t0 - 1) * V + KV : 0;
+  for (int f = t0 * V + threadIdx.x; f < f_hi; f += THREADS) {
+    const int pos = f / V, v = f - pos * V;
+    float s = f < f_old ? out[f] : 0.f;
+    for (int k = 0; k < a.K; ++k) {
+      const int t = pos - k;
+      if (t >= t0 && t < t_end) s += dps[(t - t0) * DPS + k * V + v];
+    }
+    out[f] = s;
+  }
+}
+
+// G1 of row r of tile rt at this thread's P pieces of its channels (two
+// threads a row): the sum over the row's routed channels, ascending, of
+// their gradients times their rows of emb_w^T (load(c2, k) loads piece k,
+// gather(piece, sc, g) adds it). A listed row takes 8 / P entries at a
+// time, all their loads issued before the first is used; others scan every
+// channel, the row's two lanes (converged) testing one channel each.
+template <int P, int WP, class Load, class Gather>
+__device__ __forceinline__ void g1_row(const Args& a, const Routes& R,
+                                       const float* scale, int rt, int r,
+                                       float (&g)[P][WP], Load load,
+                                       Gather gather) {
+  constexpr int EB = 8 / P;
+  using Piece = decltype(load(0, 0));
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+#pragma unroll
+    for (int q = 0; q < WP; ++q) g[k][q] = 0.f;
+  if (R.listed(r)) {
+    const int* l = R.pairs + R.start[r];
+    const int nc = R.count(r);
+    for (int e0 = 0; e0 < nc; e0 += EB) {
+      Piece rows[EB][P];
+      float sc[EB];
+#pragma unroll
+      for (int e = 0; e < EB; ++e) {
+        const int c2 = l[min(e0 + e, nc - 1)];
+        sc[e] = e0 + e < nc ? scale[c2] : 0.f;
+#pragma unroll
+        for (int k = 0; k < P; ++k) rows[e][k] = load(c2, k);
+      }
+#pragma unroll
+      for (int e = 0; e < EB; ++e)
+        if (e0 + e < nc)
+#pragma unroll
+          for (int k = 0; k < P; ++k) gather(rows[e][k], sc[e], g[k]);
+    }
+    return;
+  }
+  const int lane = threadIdx.x & 31, base = lane & ~1;
+  const unsigned gmask = 3u << base;
+  for (int c0 = 0; c0 < a.C2; c0 += 2) {
+    const int c2 = c0 + (lane & 1);
+    const bool on = c2 < a.C2 && R.routes(a, rt, c2, r);
+    unsigned bal = (__ballot_sync(gmask, on) & gmask) >> base;
+    while (bal) {
+      const int cc = c0 + __ffs(bal) - 1;
+      bal &= bal - 1;
+#pragma unroll
+      for (int k = 0; k < P; ++k) gather(load(cc, k), scale[cc], g[k]);
+    }
+  }
+}
+
+// -- backward, bf16: per row tile of 128 and depth chunk of 64 channels
+// each warpgroup builds its rows of G1 (routed gather, relu mask from the
+// conv, rounded) over the chunk while its dP wgmma of the chunk before runs;
+// dP = G1 @ enc_w^T on wgmma m64n128k16 (K*V padded to 128) --
+__global__ void __launch_bounds__(THREADS, 1) bwd_tc(const Args a) {
+#ifdef CNN_PHASE_CLOCKS
+  long long phase_t0 = clock64();
+#endif
+  using Lay = BwdLay<true>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  if (smem_u32(smem_raw) & 1023u) __trap();
+  int2* st = reinterpret_cast<int2*>(smem + Lay::st);
+  float* dps = reinterpret_cast<float*>(smem + Lay::dps);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 63, ty = tid >> 6;
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);  // (as fwd_tc)
+  const int wq = warp & 3, g = lane >> 2, tig = lane & 3;
   const int b = blockIdx.x, m = blockIdx.y;
-  const int V = a.V, K = a.K, C2 = a.C2, Cp = a.Cp, C2p = a.C2p;
-  const int n_t = a.L - K + 1, LV = a.L * V;
+  const int n_t = a.L - a.K + 1, nkb = a.Cp / KB, ksteps = (a.C + 15) / 16;
   const size_t mb = (size_t)m * a.B + b;
-  const float* encw = a.encw + (size_t)m * K * V * Cp;
-  const float* encT = a.encT + (size_t)m * Cp * KVP;
-  const float* emb = a.emb + (size_t)m * Cp * C2p;
-  const float* embwT = a.embwT + (size_t)m * C2 * Cp;
-  const float* encb = a.encb + (size_t)m * Cp;
-  const float* embb = a.embb + (size_t)m * C2p;
-  const float* decw = a.decw + (size_t)m * C2;
-  const int2* tok = a.tok + (size_t)b * a.L;
-  const float* xb = a.x + (size_t)b * LV;
-  // per channel: running max (from -1: H2 >= 0), rows at it, first such row;
-  // after the forward: the routed gradient and the first row (-1: none)
-  float* st_max = a.stat + mb * 3 * C2;
-  int* st_cnt = reinterpret_cast<int*>(st_max + C2);
-  int* st_first = st_cnt + C2;
-  unsigned* marks = a.marks + mb * a.nstrip * C2;
-  auto row_of = [&](int i) { return (i < 4 ? 0 : 16) + ty * 4 + (i & 3); };
-  auto col_of = [&](int j) { return (j < 4 ? 0 : 256) + tx * 4 + (j & 3); };
+  const float* encb = a.encb + (size_t)m * a.Cp;
+  const float* xb = a.x + (size_t)b * a.L * a.V;
+  const bf16* embwT = static_cast<const bf16*>(a.embwT) + (size_t)m * a.C2 * a.Cp;
+  const uint4* marks = a.marks + mb * a.nrt * a.C2;
+  const float* scale = a.stat + mb * 3 * a.C2;
+  const int* first = reinterpret_cast<const int*>(scale + a.C2);
+  float* out = a.dxm + mb * a.L * a.V;
+  const Routes R{reinterpret_cast<int*>(smem + Lay::pairs),
+                 reinterpret_cast<int*>(smem + Lay::start),
+                 reinterpret_cast<int*>(smem + Lay::cur),
+                 reinterpret_cast<unsigned*>(smem + Lay::wrow),
+                 marks, first, Lay::WCAP};
+  const uint32_t n_tiles = (uint32_t)(a.nrt * nkb);
+  const uint32_t ring_u = smem_u32(smem + Lay::ring);
+  Ring<Lay::SLOTS> ring;
+  auto fill = [&](uint32_t i, bool on) {  // tile i: enc_w, chunk i % nkb
+    bulk(ring.full(i), ring_u + (i % Lay::SLOTS) * Lay::SLOT,
+         static_cast<const char*>(a.enc) +
+             ((size_t)m * nkb + (int)(i % nkb)) * Lay::SLOT,
+         Lay::SLOT, 0u, nullptr, 0, on && i < n_tiles);
+  };
+  ring.init(smem_u32(smem + Lay::bars));
+  __syncthreads();
+  ring.start(fill);
+  scales<true>(a, m, mb, reinterpret_cast<float*>(smem + Lay::red));
+  __syncthreads();  // the gradients and first rows are read from here on
+  PHASE_TICK(4)  // pred and routed gradients
 
-  for (int c = tid; c < C2; c += THREADS) {
-    st_max[c] = -1.f;
-    st_cnt[c] = 0;
-    st_first[c] = 0;
-  }
-  for (int c = tid; c < NC; c += THREADS) {
-    smax[c] = -1;
-    scnt[c] = 0;
-    sfirst[c] = INT_MAX;
-    smark[c] = 0u;
-  }
-  int all_onehot = 1;  // every position of the sample one-hot
-  for (int l = tid; l < a.L; l += THREADS) all_onehot &= tok[l].x >= 0;
-  const bool onehot = __syncthreads_and(all_onehot) != 0;
-  const int ndc = (Cp + DC - 1) / DC, nch = C2p / NC;
-
-  for (int s = 0; s < a.nstrip; ++s) {
-    const int t0 = s * R;
-    for (int ch = 0; ch < nch; ++ch) {
-      float acc[8][8];
+  float acc[KVP / 2], acc2[32];  // dP's sums, the conv's
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+  for (int q = 0; q < KVP / 2; ++q) acc[q] = 0.f;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int dc = 0; dc < ndc; ++dc) {
-        const int c0 = dc * DC, nc = min(DC, Cp - c0);
-        if (ch == 0 || ndc > 1) {
-          // -- H1^T = rnd(relu(conv + b)) of this strip's rows (0 past T)
-          // and channels c0 .. c0 + nc - 1; a lane a channel --
-          __syncthreads();  // every warp is done with the last H1^T
-          for (int c = tid; c < nc; c += THREADS)
-            for (int r = 0; r < R; r += 4) {
-              float h[4];
-              conv4(a, tok, xb, encw, encb, onehot, t0 + r, n_t, c0 + c, h);
+  for (int q = 0; q < 32; ++q) acc2[q] = 0.f;
+  const int wt = tid & 127;
+  const int rbase = wg * 64 + wq * 16 + g;  // this thread's rows: + 0, 8
+  unsigned char* g1 = smem + Lay::g1;
+  uint32_t n = 0;
+  for (int rt = 0; rt < a.nrt; ++rt) {
+    const int t0 = rt * RT;
+    tile_tokens(a, a.tok + (size_t)b * a.L, t0, st);
+    build_patches(a, st, xb + (size_t)t0 * a.V, t0, n_t, smem + Lay::p);
+    tile_routes(a, R, rt);
+    PHASE_TICK(0)  // tokens, patches and routed lists
+    const bool active = t0 + wg * 64 < n_t;
+    const uint32_t p_u = smem_u32(smem + Lay::p);
+    auto slot_of = [&](uint32_t i) {
+      return smem + Lay::ring + (i % Lay::SLOTS) * Lay::SLOT;
+    };
+    // -- H1 of a chunk (the forward's conv, the same bits) over the G1
+    // tile, each chunk's conv issued behind the dP of the chunk before --
+    ring.wait(n);
+    wgmma_fence();
+    if (active) conv_mma(acc2, p_u, smem_u32(slot_of(n)), wg, a.K * a.V);
+    wgmma_commit();
+    for (int kc = 0; kc < nkb; ++kc) {
+      const uint32_t i = n + kc;
+      const unsigned char* etile = slot_of(i);
+      wgmma_wait<0>();
+      if (kc > 0) ring.release(i - 1, fill);
+      if (active) conv_store(acc2, encb, kc * KB, rbase, g1);
+      wg_bar(wg);
+      // -- G1 = rnd([H1 > 0] * routed gather) over H1, this warpgroup's
+      // rows: two threads a row, 32 channels (four 16-byte pieces) each --
+      if (active) {
+        const int rr = wg * 64 + (wt >> 1), hf = wt & 1;
+        const int c = kc * KB + hf * 32;
+        auto load = [&](int c2, int k) {
+          return __ldg(reinterpret_cast<const uint4*>(
+              embwT + (size_t)c2 * a.Cp + c + k * 8));
+        };
+        auto gather = [&](uint4 w, float sc, float (&gg)[8]) {
+          const unsigned ww[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-              for (int i = 0; i < 4; ++i) {
-                h[i] = h[i] > 0.f ? h[i] : 0.f;
-                if (a.rnd) h[i] = rb(h[i]);
-              }
-              *reinterpret_cast<float4*>(h1t + c * RS + r) =
-                  make_float4(h[0], h[1], h[2], h[3]);
-            }
-        }
-        // -- the embed product over these channels, emb_w rows staged KS
-        // at a time (two buffers, cp.async) --
-        const int nks = nc / KS;
-        auto stage = [&](int ks, int buf) {
-          const float* src = emb + (size_t)(c0 + ks * KS) * C2p + ch * NC;
-          const uint32_t dst = smem_u32(stg + buf * KS * NC);
-          for (int i = tid; i < KS * NC / 4; i += THREADS) {
-            const int r = i / (NC / 4), c4 = i % (NC / 4);
-            cp_async16(dst + (r * NC + c4 * 4) * 4, src + (size_t)r * C2p +
-                                                        c4 * 4);
+          for (int q = 0; q < 4; ++q) {
+            gg[2 * q] = fmaf(sc, bf_lo(ww[q]), gg[2 * q]);
+            gg[2 * q + 1] = fmaf(sc, bf_hi(ww[q]), gg[2 * q + 1]);
           }
         };
-        for (int p = 0; p < NSTG - 1; ++p) {
-          if (p < nks) stage(p, p);
-          cp_async_commit();
-        }
-        for (int ks = 0; ks < nks; ++ks) {
-          const int ahead = ks + NSTG - 1;
-          if (ahead < nks) stage(ahead, ahead % NSTG);
-          cp_async_commit();
-          cp_async_wait<NSTG - 1>();  // stage ks has landed
-          __syncthreads();
-          stage_product(acc, h1t + ks * KS * RS,
-                        stg + (ks % NSTG) * KS * NC, tx, ty);
-          __syncthreads();
-        }
-      }
-      // -- H2 = rnd(relu(acc + b)) (rows past T: -1, out of the pool);
-      // the strip's column maxima, the rows that reach them and the first
-      // of those, by integer atomics (they commute: the same result in any
-      // order; H2 >= 0, so its bits order as its values) --
-      const int cb = ch * NC;
+        uint4 o[4] = {};
+        if (t0 + rr < n_t) {  // uniform in the row's two lanes
+          float gv[4][8];
+          g1_row<4, 8>(a, R, scale, rt, rr, gv, load, gather);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float bias = embb[cb + col_of(j)];
-        float best = -1.f;
+          for (int k = 0; k < 4; ++k) {
+            const uint4 hv =
+                *reinterpret_cast<const uint4*>(g1 + sw(rr, hf * 4 + k));
+            const unsigned hw[4] = {hv.x, hv.y, hv.z, hv.w};
+            unsigned ov[4];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          float v = acc[i][j] + bias;
-          v = v > 0.f ? v : 0.f;
-          if (a.rnd) v = rb(v);
-          if (t0 + row_of(i) >= n_t) v = -1.f;
-          acc[i][j] = v;
-          best = fmaxf(best, v);
-        }
-        if (best >= 0.f) atomicMax(&smax[col_of(j)], __float_as_int(best));
-      }
-      __syncthreads();
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int want = smax[col_of(j)];
-        unsigned bits = 0u;
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-          if (want >= 0 && __float_as_int(acc[i][j]) == want)
-            bits |= 1u << row_of(i);
-        if (bits) {
-          atomicAdd(&scnt[col_of(j)], __popc(bits));
-          atomicMin(&sfirst[col_of(j)], __ffs(bits) - 1);
-          atomicOr(&smark[col_of(j)], bits);
-        }
-      }
-      __syncthreads();
-      // -- fold into the running statistics, a thread a column: a larger
-      // max restarts them, an equal one adds rows; the strip's mark word
-      // (rows at the running max) goes to device memory --
-      for (int c = tid; c < NC; c += THREADS) {
-        const int c2 = cb + c;
-        if (c2 < C2) {
-          unsigned word = 0u;
-          if (smax[c] >= 0) {
-            const float v = __int_as_float(smax[c]), old = st_max[c2];
-            if (v > old) {
-              st_max[c2] = v;
-              st_cnt[c2] = scnt[c];
-              st_first[c2] = t0 + sfirst[c];
-              word = smark[c];
-            } else if (v == old) {
-              st_cnt[c2] += scnt[c];
-              word = smark[c];
+            for (int q = 0; q < 4; ++q) {
+              const __nv_bfloat162 r2 = __floats2bfloat162_rn(
+                  bf_lo(hw[q]) > 0.f ? gv[k][2 * q] : 0.f,
+                  bf_hi(hw[q]) > 0.f ? gv[k][2 * q + 1] : 0.f);
+              ov[q] = (unsigned)__bfloat16_as_ushort(r2.x) |
+                      ((unsigned)__bfloat16_as_ushort(r2.y) << 16);
             }
-          }
-          marks[(size_t)s * C2 + c2] = word;
-        }
-        smax[c] = -1;
-        scnt[c] = 0;
-        sfirst[c] = INT_MAX;
-        smark[c] = 0u;
-      }
-    }
-  }
-  __syncthreads();
-
-  // -- pred_m (fixed-order reduction); per channel the routed gradient
-  // rnd(mx > 0 ? dec_w / (split ? count : 1) : 0) over the max, and the
-  // first row over the count (-1: no gradient) --
-  {
-    float sum = 0.f;
-    for (int c = tid; c < C2; c += THREADS) {
-      const float best = st_max[c], d = decw[c];
-      sum += best * d;
-      float sc = best > 0.f ? d / (float)(a.pool_first ? 1 : st_cnt[c]) : 0.f;
-      if (a.rnd) sc = rb(sc);
-      st_max[c] = sc;
-      st_cnt[c] = sc != 0.f ? st_first[c] : -1;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) red[warp] = sum;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float sum = 0.f;
-    for (int w = 0; w < WARPS; ++w) sum += red[w];
-    a.pred[mb] = sum + a.decb[m];
-  }
-
-  // -- backward, strip by strip. (1) Each channel's routed rows of the
-  // strip as a word of bits ("split": the strip's mark word, from the
-  // strip of the first row on; "first": the first row alone), in device
-  // memory. Then for each DC channels: (2) the bits of conv + b > 0
-  // (recomputed, a thread a channel); (3) G1^T = rnd(sum over a row's
-  // routed channels, ascending, of their gradients times the rows of
-  // emb_w^T) * [conv + b > 0], a warp a row; (4) dP += G1 enc_w^T, a
-  // product over the channels ascending with enc_w^T staged KS rows at a
-  // time. Then col2im of the strip, one thread per entry of dx, added to
-  // what the strips before wrote --
-  float* g1t = reinterpret_cast<float*>(smem + lay::h1t);  // [DC][RS]
-  float* estg = reinterpret_cast<float*>(smem + lay::stg);  // 2 [KS][KVP]
-  float* dps = estg + 2 * KS * KVP;                         // [R][KVP]
-  unsigned* hpos = reinterpret_cast<unsigned*>(smem + lay::smax);  // [DC]
-  float* out = a.dxm + mb * LV;
-  const float* sc_of = st_max;
-  const int* first_of = st_cnt;
-  unsigned* wrow = reinterpret_cast<unsigned*>(st_first);  // [C2]
-  const int KV = K * V;
-  const int ry = tid >> 5;  // dP: rows ry*4 .. +3, columns lane*4 .. +3
-  for (int s = 0; s < a.nstrip; ++s) {
-    const int t0 = s * R;
-    for (int c2 = tid; c2 < C2; c2 += THREADS) {
-      const int f = first_of[c2];
-      unsigned w = 0u;
-      if (f >= 0)
-        w = a.pool_first ? (f / R == s ? 1u << (f % R) : 0u)
-                         : (s >= f / R ? marks[(size_t)s * C2 + c2] : 0u);
-      wrow[c2] = w;
-    }
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int dc = 0; dc < ndc; ++dc) {
-      const int c0 = dc * DC, nc = min(DC, Cp - c0);
-      __syncthreads();  // wrow written; G1^T and hpos read
-      for (int c = tid; c < nc; c += THREADS) {
-        unsigned bits = 0u;
-        for (int r = 0; r < R; r += 4) {
-          float h[4];
-          conv4(a, tok, xb, encw, encb, onehot, t0 + r, n_t, c0 + c, h);
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            bits |= (unsigned)(h[i] > 0.f) << (r + i);
-        }
-        hpos[c] = bits;
-      }
-      __syncthreads();
-      for (int r = warp; r < R; r += WARPS) {
-        float g[GQ];
-#pragma unroll
-        for (int q = 0; q < GQ; ++q) g[q] = 0.f;
-        for (int cb = 0; t0 + r < n_t && cb < C2; cb += 128) {
-          unsigned w4[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int c2 = cb + 32 * u + lane;
-            w4[u] = c2 < C2 ? wrow[c2] : 0u;
-          }
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            unsigned bal = __ballot_sync(0xffffffffu, (w4[u] >> r) & 1u);
-            while (bal) {  // warp-uniform; two channels' rows in flight
-              int cs[2];
-#pragma unroll
-              for (int v = 0; v < 2; ++v) {
-                cs[v] = bal ? cb + 32 * u + __ffs(bal) - 1 : -1;
-                bal &= bal - 1u;
-              }
-              float w[2][GQ];
-#pragma unroll
-              for (int v = 0; v < 2; ++v)
-#pragma unroll
-                for (int q = 0; q < GQ; ++q) {
-                  const int c = lane + 32 * q;
-                  w[v][q] = cs[v] >= 0 && c < nc
-                                ? __ldg(embwT + (size_t)cs[v] * Cp + c0 + c)
-                                : 0.f;
-                }
-#pragma unroll
-              for (int v = 0; v < 2; ++v)
-                if (cs[v] >= 0) {
-                  const float sc = sc_of[cs[v]];
-#pragma unroll
-                  for (int q = 0; q < GQ; ++q)
-                    g[q] = fmaf(sc, w[v][q], g[q]);
-                }
-            }
+            o[k] = make_uint4(ov[0], ov[1], ov[2], ov[3]);
           }
         }
 #pragma unroll
-        for (int q = 0; q < GQ; ++q) {
-          const int c = lane + 32 * q;
-          g1t[c * RS + r] = c < nc && ((hpos[c] >> r) & 1u)
-                                ? (a.rnd ? rb(g[q]) : g[q])
-                                : 0.f;
-        }
+        for (int k = 0; k < 4; ++k)  // over the pieces of H1 it read
+          *reinterpret_cast<uint4*>(g1 + sw(rr, hf * 4 + k)) = o[k];
       }
-      const int nks = nc / KS;
-      auto stage = [&](int ks, int buf) {
-        const float* src = encT + (size_t)(c0 + ks * KS) * KVP;
-        const uint32_t dst = smem_u32(estg + buf * KS * KVP);
-        for (int i = tid; i < KS * KVP / 4; i += THREADS)
-          cp_async16(dst + i * 16, src + i * 4);
-      };
-      stage(0, 0);
-      cp_async_commit();
-      for (int ks = 0; ks < nks; ++ks) {
-        if (ks + 1 < nks) stage(ks + 1, (ks + 1) & 1);
-        cp_async_commit();
-        cp_async_wait<1>();
-        __syncthreads();  // (and, the first time, G1^T written)
-        const float* A = g1t + ks * KS * RS;
-        const float* Bs = estg + (ks & 1) * KS * KVP;
-#pragma unroll 4
-        for (int kk = 0; kk < KS; ++kk) {
-          const float4 av =
-              *reinterpret_cast<const float4*>(A + kk * RS + ry * 4);
-          const float4 bv =
-              *reinterpret_cast<const float4*>(Bs + kk * KVP + lane * 4);
-          const float x[4] = {av.x, av.y, av.z, av.w};
-          const float y[4] = {bv.x, bv.y, bv.z, bv.w};
+      fence_async_proxy();
+      wg_bar(wg);
+      PHASE_TICK(5)  // gather of G1
+      // -- dP += G1 chunk @ enc_w chunk^T --
+      wgmma_fence();
+      if (active) {
+        const uint64_t da = wgmma_desc(smem_u32(g1) + wg * 64 * 128);
+        const uint64_t db = wgmma_desc(smem_u32(etile));
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
-        }
-        __syncthreads();
+        for (int ks = 0; ks < 4; ++ks)
+          if (kc * 4 + ks < ksteps)
+            wg_mma<KVP>(acc, da + 2 * ks, db + 2 * ks, kc + ks > 0);
       }
+      if (kc + 1 < nkb) {
+        ring.wait(i + 1);
+        if (active)
+          conv_mma(acc2, p_u, smem_u32(slot_of(i + 1)), wg, a.K * a.V);
+      }
+      wgmma_commit();
     }
+    wgmma_wait<0>();
+    ring.release(n + nkb - 1, fill);
+    n += nkb;
+    __syncthreads();  // both warpgroups are done with the routes
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<float4*>(dps + (ry * 4 + i) * KVP + lane * 4) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int ni = 0; ni < KVP / 8; ++ni)
+        *reinterpret_cast<float2*>(dps + (rbase + hf * 8) * DPS + ni * 8 +
+                                   tig * 2) =
+            make_float2(acc[ni * 4 + hf * 2], acc[ni * 4 + hf * 2 + 1]);
     __syncthreads();
-    const int t_end = min(t0 + R, n_t);
-    const int f_hi = (t_end - 1) * V + KV;
-    const int f_old = s > 0 ? (t0 - 1) * V + KV : 0;
-    for (int f = t0 * V + tid; f < f_hi; f += THREADS) {
-      const int pos = f / V, v = f - pos * V;
-      float acc = f < f_old ? out[f] : 0.f;
-      for (int k = 0; k < K; ++k) {
-        const int t = pos - k;
-        if (t >= t0 && t < t_end) acc += dps[(t - t0) * KVP + k * V + v];
+    PHASE_TICK(6)  // dP product and staging
+    col2im(a, out, dps, t0, n_t);
+    __syncthreads();  // dP and dx are read before the next tile
+    PHASE_TICK(7)     // col2im and store
+  }
+}
+
+// -- backward, float32: per row tile of 128 and depth stage of 16 channels
+// the block builds G1 of the stage (4 channels a thread) into one of two
+// buffers; dP = G1 @ enc_w^T on FMAs, 8 x 8 a thread (K*V padded to 128) --
+__global__ void __launch_bounds__(THREADS, 1) bwd_simt(const Args a) {
+#ifdef CNN_PHASE_CLOCKS
+  long long phase_t0 = clock64();
+#endif
+  using Lay = BwdLay<false>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;
+  int2* st = reinterpret_cast<int2*>(smem + Lay::st);
+  float* dps = reinterpret_cast<float*>(smem + Lay::dps);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int b = blockIdx.x, m = blockIdx.y;
+  const int n_t = a.L - a.K + 1, nks = a.Cp / KS, KV = a.K * a.V;
+  const size_t mb = (size_t)m * a.B + b;
+  const float* encb = a.encb + (size_t)m * a.Cp;
+  const float* xb = a.x + (size_t)b * a.L * a.V;
+  const float* embwT = static_cast<const float*>(a.embwT) + (size_t)m * a.C2 * a.Cp;
+  const uint4* marks = a.marks + mb * a.nrt * a.C2;
+  const float* scale = a.stat + mb * 3 * a.C2;
+  const int* first = reinterpret_cast<const int*>(scale + a.C2);
+  float* out = a.dxm + mb * a.L * a.V;
+  const Routes R{reinterpret_cast<int*>(smem + Lay::pairs),
+                 reinterpret_cast<int*>(smem + Lay::start),
+                 reinterpret_cast<int*>(smem + Lay::cur),
+                 reinterpret_cast<unsigned*>(smem + Lay::wrow),
+                 marks, first, Lay::WCAP};
+  const uint32_t n_tiles = (uint32_t)(a.nrt * nks);
+  const uint32_t ring_u = smem_u32(smem + Lay::ring);
+  constexpr int ET = KS * KVP * 4;  // enc_w^T's stage, then enc_w's
+  Ring<Lay::SLOTS> ring;
+  auto fill = [&](uint32_t i, bool on) {
+    const int ks = (int)(i % nks);
+    const uint32_t dst = ring_u + (i % Lay::SLOTS) * Lay::SLOT;
+    bulk(ring.full(i), dst, a.encT + ((size_t)m * a.Cp + ks * KS) * KVP, ET,
+         dst + ET,
+         static_cast<const float*>(a.enc) + ((size_t)m * nks + ks) * KV * KS,
+         KV * KS * 4, on && i < n_tiles);
+  };
+  ring.init(smem_u32(smem + Lay::bars));
+  __syncthreads();
+  ring.start(fill);
+  scales<false>(a, m, mb, reinterpret_cast<float*>(smem + Lay::red));
+  __syncthreads();
+  PHASE_TICK(4)  // pred and routed gradients
+
+  const bool cols2 = 64 < KV;
+  float acc[8][8];
+  uint32_t n = 0;
+  for (int rt = 0; rt < a.nrt; ++rt) {
+    const int t0 = rt * RT;
+    const bool onehot = tile_tokens(a, a.tok + (size_t)b * a.L, t0, st);
+    tile_routes(a, R, rt);
+    PHASE_TICK(0)  // tokens and routed lists
+    const float* xt = xb + (size_t)t0 * a.V;
+    const bool rows2 = t0 + 64 < n_t;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int ks = 0; ks < nks; ++ks) {
+      const uint32_t i = n + ks;
+      ring.wait(i);
+      const float* slot = reinterpret_cast<const float*>(
+          smem + Lay::ring + (i % Lay::SLOTS) * Lay::SLOT);
+      float* A = reinterpret_cast<float*>(smem + Lay::g1 + (ks & 1) * Lay::G1);
+      {  // G1 of the stage: two threads a row, 8 channels each
+        const int rr = tid >> 1, hf = tid & 1;
+        const int c = ks * KS + hf * 8;
+        const float* est = slot + ET / 4;  // enc_w [K*V][16]
+        auto load = [&](int c2, int k) {
+          return __ldg(reinterpret_cast<const float4*>(
+              embwT + (size_t)c2 * a.Cp + c + k * 4));
+        };
+        auto gather = [&](float4 w, float sc, float (&gg)[4]) {
+          gg[0] = fmaf(sc, w.x, gg[0]);
+          gg[1] = fmaf(sc, w.y, gg[1]);
+          gg[2] = fmaf(sc, w.z, gg[2]);
+          gg[3] = fmaf(sc, w.w, gg[3]);
+        };
+        float4 o[2] = {};
+        if (t0 + rr < n_t) {  // uniform in the row's two lanes
+          float gv[2][4];
+          g1_row<2, 4>(a, R, scale, rt, rr, gv, load, gather);
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            auto row = [&](int j, float xv, float (&s)[4]) {
+              const float4 w = *reinterpret_cast<const float4*>(
+                  est + j * KS + hf * 8 + k * 4);
+              s[0] = fmaf(xv, w.x, s[0]);
+              s[1] = fmaf(xv, w.y, s[1]);
+              s[2] = fmaf(xv, w.z, s[2]);
+              s[3] = fmaf(xv, w.w, s[3]);
+            };
+            float s[4];
+            conv<4>(a, st, onehot, xt, rr, s, row);
+            const float4 bias =
+                *reinterpret_cast<const float4*>(encb + c + k * 4);
+            o[k] = make_float4(s[0] + bias.x > 0.f ? gv[k][0] : 0.f,
+                               s[1] + bias.y > 0.f ? gv[k][1] : 0.f,
+                               s[2] + bias.z > 0.f ? gv[k][2] : 0.f,
+                               s[3] + bias.w > 0.f ? gv[k][3] : 0.f);
+          }
+        }
+        *reinterpret_cast<float4*>(A + rr * LDA + hf * 8) = o[0];
+        *reinterpret_cast<float4*>(A + rr * LDA + hf * 8 + 4) = o[1];
       }
-      out[f] = acc;
+      __syncthreads();  // and every warp is done with stage i - 1
+      if (i > 0) ring.refill(i - 1, fill);
+      PHASE_TICK(5)  // gather of G1
+      product_edge<KVP>(acc, A, slot, tx, ty, rows2, cols2);
+      PHASE_TICK(6)  // dP product
     }
+    n += nks;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float* p = dps + ((i < 4 ? 0 : 64) + ty * 4 + (i & 3)) * DPS + tx * 4;
+      *reinterpret_cast<float4*>(p) =
+          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      *reinterpret_cast<float4*>(p + 64) =
+          make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    }
+    __syncthreads();
+    col2im(a, out, dps, t0, n_t);
+    __syncthreads();
+    PHASE_TICK(7)  // col2im and store
   }
 }
 
@@ -2051,6 +2884,13 @@ __global__ void tokens_kernel(const float* __restrict__ x, int2* tok, long n,
     }
   }
   tok[i] = make_int2(cnt == 1 ? first : -1, __float_as_int(val));
+}
+
+// the bf16 kernel's column tile for C2 embed channels: wgmma n of 256 or
+// 200, whichever pads C2 less (ties: 256)
+int bf16_cols(int C2) {
+  const int p256 = (C2 + 255) / 256 * 256, p200 = (C2 + 199) / 200 * 200;
+  return p200 < p256 ? 200 : 256;
 }
 
 }  // namespace wide
@@ -2244,34 +3084,41 @@ int cnn_kernel_for(int L, int V, int K, int C, int C2, int dtype) {
   return kernel_for(L, V, K, C, C2, dtype);
 }
 
-// Columns of an embed chunk of the wide kernel's emb layout (C2 is padded
-// to a multiple), the depth C is padded to, and its K*V limit.
-int cnn_wide_chunk() { return wide::NC; }
-int cnn_wide_depth() { return wide::KS; }
+// The wide kernels' layout: rows of a row tile (the mark words' unit), the
+// depth C is padded to in dtype (0 = float32, 1 = bfloat16), the columns
+// of a column tile for C2 embed channels in dtype, the K*V limit.
+int cnn_wide_rows() { return wide::RT; }
+int cnn_wide_depth(int dtype) { return dtype == 1 ? wide::KB : wide::KS; }
+int cnn_wide_cols(int C2, int dtype) {
+  return dtype == 1 ? wide::bf16_cols(C2) : wide::NF;
+}
 int cnn_wide_max_kv() { return wide::KVP; }
 
-// Either type, from the float32 tensors prepare_ensemble's wide layout
-// holds (the bf16 ensemble's values in float32 for bf16: x [B, L*V], encw
-// [M, K*V, Cp], encT [M, Cp, 128], emb [M, Cp, C2p], embwT [M, C2, Cp],
-// encb [M, Cp], embb [M, C2p], decw [M, C2], decb [M]; Cp = C rounded up to
-// 16, C2p = C2 rounded up to 512, zero-padded); rnd = 1 rounds the
-// activations and the routed gradient to bf16. Scratch: tok [B, L] int2,
-// stat [M, B, 3, C2], marks [M, B, ceil(T / 32), C2]. Returns a cudaError_t.
+// Either type (rnd = 1: bfloat16), from the tensors prepare_ensemble's wide
+// layout holds (x [B, L*V] float32 of the type's values; enc, encT, emb,
+// embwT as cnn_fused.wide_layout makes them for the type; encb [M, Cp],
+// embb [M, ncol * N], decw [M, C2] float32, decb [M]; Cp = C rounded up to
+// cnn_wide_depth, N = cnn_wide_cols, zero-padded). Scratch: tok [B, L]
+// int2, stat [M, B, 3, C2], marks [M, B, ceil(T / 128), C2] of four words.
+// Launches the tokens, the forward (B x column tiles x M blocks), the
+// backward (B x M) and the member reduction. Returns a cudaError_t.
 int cnn_ensemble_fit_and_grad_wide(
-    const void* x, void* tok, const void* encw, const void* encT,
+    const void* x, void* tok, const void* enc, const void* encT,
     const void* emb, const void* embwT, const void* encb, const void* embb,
     const void* decw, const void* decb, void* pred, void* dxm, void* stat,
     void* marks, void* fit, void* dx, int B, int L, int V, int K, int C,
-    int C2, int M, int pool_first, int rnd, void* stream) {
-  if (B <= 0 || M <= 0 || L < K || K * V > wide::KVP)
+    int C2, int M, int pool_first, int rnd, int N, void* stream) {
+  if (B <= 0 || M <= 0 || L < K || K < 1 || V < 1 || C < 1 || C2 < 1 ||
+      K * V > wide::KVP || N != cnn_wide_cols(C2, rnd))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_t = L - K + 1;
+  const int Cp = round_up(C, cnn_wide_depth(rnd));
   wide::Args a{static_cast<const float*>(x),
                static_cast<const int2*>(tok),
-               static_cast<const float*>(encw),
+               enc,
                static_cast<const float*>(encT),
-               static_cast<const float*>(emb),
-               static_cast<const float*>(embwT),
+               emb,
+               embwT,
                static_cast<const float*>(encb),
                static_cast<const float*>(embb),
                static_cast<const float*>(decw),
@@ -2279,23 +3126,34 @@ int cnn_ensemble_fit_and_grad_wide(
                static_cast<float*>(pred),
                static_cast<float*>(dxm),
                static_cast<float*>(stat),
-               static_cast<unsigned*>(marks),
-               B, L, V, K, C, C2, M, pool_first, rnd,
-               round_up(C, wide::KS), round_up(C2, wide::NC),
-               (n_t + wide::R - 1) / wide::R};
+               static_cast<uint4*>(marks),
+               B, L, V, K, C, C2, M, pool_first, N, Cp,
+               (C2 + N - 1) / N, (n_t + wide::RT - 1) / wide::RT};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long n_pos = (long)B * L;
   wide::tokens_kernel<<<(unsigned)((n_pos + 255) / 256), 256, 0, s>>>(
       a.x, static_cast<int2*>(tok), n_pos, V);
   cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(wide::fit_grad_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             wide::lay::total);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  wide::fit_grad_kernel<<<dim3(B, M), wide::THREADS, wide::lay::total, s>>>(
-      a);
-  err = cudaGetLastError();
+  auto launch = [&](auto kernel, dim3 grid, int bytes,
+                    int threads = wide::THREADS) {
+    if (err != cudaSuccess) return;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return;
+    kernel<<<grid, threads, bytes, s>>>(a);
+    err = cudaGetLastError();
+  };
+  const dim3 fwd(B, a.ncol, M), bwd(B, M);
+  if (rnd) {
+    if (N == 256)
+      launch(wide::fwd_tc<256>, fwd, wide::FwdTcLay<256>::total);
+    else
+      launch(wide::fwd_tc<200>, fwd, wide::FwdTcLay<200>::total);
+    launch(wide::bwd_tc, bwd, wide::BwdLay<true>::total);
+  } else {
+    launch(wide::fwd_simt, fwd, wide::FwdSimtLay::total, wide::FTHREADS);
+    launch(wide::bwd_simt, bwd, wide::BwdLay<false>::total);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return member_reduce(a.pred, a.dxm, static_cast<float*>(fit),
                        static_cast<float*>(dx), M, B, (long)B * L * V, s);

@@ -26,14 +26,19 @@ and keeps a bitmask of H1 > 0 for the backward pass (see the .cu source).
 
 Shapes that neither takes (T = L-K+1 > 256, C > 256, 2C > 512, or bf16's
 L*V > 5248 and L > 320: wild types longer than 256 residues, whose
-reference-width CNN has C = L) go to a third kernel, in either type
-(namespace wide): a block per (sample, member) walks T in strips of 32 rows
-and 2C in chunks of 512 columns, with emb_w staged from L2 and products on
-FMAs in float32 (bf16 as its rounded values), the column maxima folded
-strip by strip (max, first row, count) and the rows at each strip's
-maximum kept as one word of bits a channel in device memory; the backward
-pass recomputes a strip's relu' bits from the conv, gathers G1 at the
-routed rows and runs dP = G1 enc_w^T as a product. No length or channel
+reference-width CNN has C = L) go to the wide kernels, in either type
+(namespace wide): a forward kernel per (sample, column tile, member) walks
+the sample's rows in tiles of 128, rebuilding H1 from the conv chunk by
+chunk of depth and streaming the member's emb_w column tile from L2 through
+a ring of cp.async.bulk stages; it folds each tile's column maxima, counts
+and first rows in row order and keeps the rows at a tile's maximum as four
+words of bits a channel. bf16 runs the embed product on wgmma (column tiles
+of 256 or 200, the conv a tensor-core product too, H1 in the swizzled
+layout wgmma reads); float32 on FMAs from 8 x 8 register tiles (tiles of
+128 x 256). A backward kernel per (sample,
+member) lists each row's routed channels, gathers G1 from the rows of
+emb_w^T under the conv's relu mask and runs dP = G1 enc_w^T (bf16 on
+wgmma, float32 on FMAs) and col2im tile by tile. No length or channel
 limit: only K*V > 128 raises.
 
 Weights are prepared once: ``prepare_ensemble(stacked, dtype)`` returns a
@@ -75,9 +80,12 @@ KV_PAD = 104     # K*V padded
 # the float32 kernel's layout (namespace simt)
 F32_CHUNK = 128  # columns of a product: an embed chunk; dP (K*V padded)
 F32_DEPTH = 16   # depth of a weight stage: C is padded to a multiple
-# the wide kernel's layout (namespace wide): C padded to WIDE_DEPTH, C2 to
-# WIDE_CHUNK; K*V at most WIDE_KV
-WIDE_CHUNK, WIDE_DEPTH, WIDE_KV = 512, 16, 128
+# the wide kernels' layout (namespace wide): rows in tiles of WIDE_ROWS, C
+# padded to WIDE_DEPTH[type], C2 to a multiple of the column tile
+# (``wide_cols``); K*V at most WIDE_KV (enc_w padded to it)
+WIDE_ROWS, WIDE_KV = 128, 128
+WIDE_DEPTH = {torch.float32: 16, torch.bfloat16: TILE_K}
+WIDE_COLS_F32, WIDE_COLS_BF16 = 256, (256, 200)
 
 
 # the kernels, as the library's cnn_kernel_for names them
@@ -113,15 +121,21 @@ def swizzle_tiles(wt: torch.Tensor) -> torch.Tensor:
     128-byte rows whose 16-byte chunks are XORed with the row's low three
     bits, the layout wgmma reads from shared memory (128-byte swizzle). The
     kernel copies a tile as it lies."""
+    if wt.shape[-1] != MAX_C:
+        raise ValueError(f"expected a depth of {MAX_C}, got {wt.shape[-1]}")
+    return _swizzle(wt)
+
+
+def _swizzle(wt: torch.Tensor) -> torch.Tensor:
+    """``swizzle_tiles`` at any depth D that is a multiple of 64: [..., N,
+    D] -> [..., D / 64, N, 64]."""
     *lead, N, kd = wt.shape
-    if kd != MAX_C:
-        raise ValueError(f"expected a depth of {MAX_C}, got {kd}")
-    t = wt.reshape(*lead, N, MAX_C // TILE_K, 8, 8).transpose(-4, -3)
+    t = wt.reshape(*lead, N, kd // TILE_K, 8, 8).transpose(-4, -3)
     rows = torch.arange(N, device=wt.device)
     idx = torch.arange(8, device=wt.device)[None, :] ^ (rows[:, None] & 7)
     idx = idx[:, :, None].expand(N, 8, 8).expand(t.shape)
     return torch.gather(t, -2, idx).reshape(
-        *lead, MAX_C // TILE_K, N, TILE_K).contiguous()
+        *lead, kd // TILE_K, N, TILE_K).contiguous()
 
 
 def _pad_to(t: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
@@ -197,34 +211,53 @@ def tc_layout(stacked, compute_dtype=torch.bfloat16) -> dict:
                         n_chunk * CHUNK).reshape(M, -1).contiguous()}
 
 
+def wide_cols(C2: int, compute_dtype) -> int:
+    """The wide kernels' column tile for C2 embed channels: float32 256;
+    bf16 a wgmma n of 256 or 200, whichever pads C2 less (ties: 256)."""
+    if compute_dtype != torch.bfloat16:
+        return WIDE_COLS_F32
+    return min(WIDE_COLS_BF16, key=lambda n: -(-C2 // n) * n)
+
+
 def wide_layout(stacked, compute_dtype) -> dict:
-    """The wide kernel's float32 tensors (for bf16: the bf16-rounded
-    weights' values): enc_w's rows [j][c] and its transpose [c][j] (128
-    columns), emb_w [c][c2] with C2 padded to WIDE_CHUNK, emb_w^T's rows
-    [c2][c], the biases and the decoder; C padded to WIDE_DEPTH."""
+    """The wide kernels' tensors, C padded to Cp = WIDE_DEPTH[type], C2 to
+    ncol column tiles of N = ``wide_cols``, zero-padded. bf16: enc_w [j][c]
+    (j padded to WIDE_KV) and emb_w^T [c2][c] as swizzled tiles of depth 64
+    ("enc" [M, Cp/64, 128, 64], "emb" [M, ncol, Cp/64, N, 64]), emb_w^T's
+    rows "embwT" [M, C2, Cp] in bf16. float32: enc_w in stages of 16
+    channels ("enc" [M, Cp/16, K*V, 16]), its transpose "encT" [M, Cp,
+    WIDE_KV] (dP), emb_w in column tiles ("emb" [M, ncol, Cp, 256]),
+    "embwT" [M, C2, Cp]. Both: the float32 biases ("encb" [M, Cp], "embb"
+    [M, ncol * N]) and the decoder in float32 of the type's values."""
     enc, emb, dec = stacked["encoder"], stacked["embed"], stacked["decoder"]
     M, K, V, C = enc["w"].shape
     C2 = emb["w"].shape[-1]
-    f32 = torch.float32
-    Cp = -(-C // WIDE_DEPTH) * WIDE_DEPTH
-    C2p = -(-C2 // WIDE_CHUNK) * WIDE_CHUNK
-
-    def rnd(t):
-        return t.to(compute_dtype).to(f32)
-
-    encw = rnd(enc["w"]).reshape(M, K * V, C)
-    embw = rnd(emb["w"])
-    return {
-        "encw": _pad_to(encw, K * V, Cp).contiguous(),
-        "encT": _pad_to(encw.transpose(1, 2), Cp, WIDE_KV).contiguous(),
-        "emb": _pad_to(embw, Cp, C2p).contiguous(),
-        "embwT": _pad_to(embw.transpose(1, 2), C2, Cp).contiguous(),
+    f32, KV = torch.float32, K * V
+    depth, N = WIDE_DEPTH[compute_dtype], wide_cols(C2, compute_dtype)
+    Cp, ncol = -(-C // depth) * depth, -(-C2 // N)
+    encw = enc["w"].reshape(M, KV, C).to(compute_dtype)
+    embw = emb["w"].to(compute_dtype)
+    embwT = _pad_to(embw.transpose(1, 2), C2, Cp).contiguous()
+    out = {
+        "embwT": embwT,
         "encb": _pad_to(enc["b"].to(f32).reshape(M, 1, C), 1,
                         Cp).reshape(M, Cp).contiguous(),
         "embb": _pad_to(emb["b"].to(f32).reshape(M, 1, C2), 1,
-                        C2p).reshape(M, C2p).contiguous(),
-        "decw": rnd(dec["w"]).reshape(M, C2).contiguous(),
+                        ncol * N).reshape(M, ncol * N).contiguous(),
+        "decw": dec["w"].to(compute_dtype).to(f32).reshape(M, C2)
+        .contiguous(),
         "decb": dec["b"].to(f32).reshape(M).contiguous()}
+    if compute_dtype == torch.bfloat16:
+        out["enc"] = _swizzle(_pad_to(encw, WIDE_KV, Cp))
+        out["emb"] = _swizzle(_pad_to(embwT, ncol * N, Cp).reshape(
+            M, ncol, N, Cp))
+    else:
+        out["enc"] = _pad_to(encw, KV, Cp).reshape(
+            M, KV, Cp // depth, depth).transpose(1, 2).contiguous()
+        out["encT"] = _pad_to(encw.transpose(1, 2), Cp, WIDE_KV).contiguous()
+        out["emb"] = _pad_to(embw, Cp, ncol * N).reshape(
+            M, Cp, ncol, N).transpose(1, 2).contiguous()
+    return out
 
 
 _LAYOUTS = {SIMT: simt_layout, TC: tc_layout, WIDE: wide_layout}
@@ -236,16 +269,18 @@ def _lib():
     if fn.argtypes is None:  # declare once: ints would cut the pointers
         for f, n_ptr, n_int in (
                 (fn, 13, 8), (lib.cnn_ensemble_fit_and_grad_bf16, 12, 8),
-                (lib.cnn_ensemble_fit_and_grad_wide, 16, 9)):
+                (lib.cnn_ensemble_fit_and_grad_wide, 16, 10)):
             f.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
                 + [ctypes.c_void_p]
             f.restype = ctypes.c_int
         lib.cnn_smem_bytes.argtypes = [ctypes.c_int]
         lib.cnn_smem_bytes.restype = ctypes.c_long
-        lib.cnn_kernel_for.argtypes = [ctypes.c_int] * 6
-        lib.cnn_kernel_for.restype = ctypes.c_int
+        for name, n_int in (("cnn_kernel_for", 6), ("cnn_wide_depth", 1),
+                            ("cnn_wide_cols", 2)):
+            getattr(lib, name).argtypes = [ctypes.c_int] * n_int
+            getattr(lib, name).restype = ctypes.c_int
         for name in ("cnn_max_kv", "cnn_f32_depth", "cnn_bf16_chunk",
-                     "cnn_wide_chunk", "cnn_wide_depth", "cnn_wide_max_kv"):
+                     "cnn_wide_rows", "cnn_wide_max_kv"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = ctypes.c_int
     return lib
@@ -289,10 +324,12 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
     if kind < 0:
         raise ValueError(f"kernel B takes K*V <= {lib.cnn_wide_max_kv()}; "
                          f"got K={K}, V={V}")
+    dt = _DTYPES[cdt]
     if ((lib.cnn_max_kv(), lib.cnn_f32_depth(), lib.cnn_bf16_chunk(),
-         lib.cnn_wide_chunk(), lib.cnn_wide_depth(), lib.cnn_wide_max_kv())
-            != (F32_CHUNK, F32_DEPTH, CHUNK, WIDE_CHUNK, WIDE_DEPTH,
-                WIDE_KV)):
+         lib.cnn_wide_rows(), lib.cnn_wide_max_kv(), lib.cnn_wide_depth(dt),
+         lib.cnn_wide_cols(C2, dt))
+            != (F32_CHUNK, F32_DEPTH, CHUNK, WIDE_ROWS, WIDE_KV,
+                WIDE_DEPTH[cdt], wide_cols(C2, cdt))):
         raise RuntimeError("kernel B's library and cnn_fused.py disagree on "
                            "the weight layouts")
     f32 = torch.float32
@@ -304,21 +341,22 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
     stream = torch.cuda.current_stream(dev).cuda_stream
     w = prep.layout(kind)
     if kind == WIDE:
-        n_strip = -(-(L - K + 1) // 32)
+        n_rt = -(-(L - K + 1) // WIDE_ROWS)
         xc = x.to(cdt).to(f32).contiguous()
         tok = torch.empty((B, L, 2), dtype=torch.int32, device=dev)
         stat = torch.empty((M, B, 3, C2), dtype=f32, device=dev)
-        marks = torch.empty((M, B, n_strip, C2), dtype=torch.int32,
+        marks = torch.empty((M, B, n_rt, C2, 4), dtype=torch.int32,
                             device=dev)
         with torch.cuda.device(dev):
             err = lib.cnn_ensemble_fit_and_grad_wide(
                 xc.data_ptr(), tok.data_ptr(),
-                *(w[k].data_ptr() for k in ("encw", "encT", "emb", "embwT",
+                *(w[k].data_ptr() for k in ("enc", "encT" if "encT" in w
+                                            else "enc", "emb", "embwT",
                                             "encb", "embb", "decw", "decb")),
                 pred.data_ptr(), dxm.data_ptr(), stat.data_ptr(),
                 marks.data_ptr(), fit.data_ptr(), dx.data_ptr(), B, L, V, K,
                 C, C2, M, int(pool_bwd == "first"),
-                int(cdt == torch.bfloat16), stream)
+                int(cdt == torch.bfloat16), wide_cols(C2, cdt), stream)
     else:
         smem = lib.cnn_smem_bytes(_DTYPES[cdt])
         if smem > SMEM_LIMIT:

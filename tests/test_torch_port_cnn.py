@@ -311,32 +311,42 @@ def test_long_sequences_match_jax(width, pool):
 
 
 def test_wide_layout_holds_the_weights():
-    """The wide kernel's layout: float32 tensors of the compute type's
-    values, C padded to WIDE_DEPTH, C2 to WIDE_CHUNK, zero-padded."""
+    """The wide kernels' float32 layout: enc_w in stages of WIDE_DEPTH
+    channels, its transpose (WIDE_KV columns), emb_w in column tiles of
+    256, emb_w^T's rows, C padded to WIDE_DEPTH, zero-padded; the biases and
+    the decoder in float32 of the type's values (bf16's tiles: the test
+    after this one)."""
     width = 300
     j = jcnn.init_ensemble(jax.random.PRNGKey(1), M, input_size=width)
     t = convert.cnn_ensemble_from_numpy(jax.tree.map(np.asarray, j), "cpu")
-    Cp, C2p = 304, 1024
-    for cdt in (torch.float32, torch.bfloat16):
-        w = cnn_fused.wide_layout(t, cdt)
-        enc = t["encoder"]["w"].to(cdt).float().reshape(M, 5 * V, width)
-        emb = t["embed"]["w"].to(cdt).float()
-        assert w["encw"].shape == (M, 5 * V, Cp)
-        assert torch.equal(w["encw"][:, :, :width], enc)
-        assert not w["encw"][:, :, width:].any()
-        assert w["encT"].shape == (M, Cp, cnn_fused.WIDE_KV)
-        assert torch.equal(w["encT"][:, :width, :5 * V], enc.transpose(1, 2))
-        assert w["emb"].shape == (M, Cp, C2p)
-        assert torch.equal(w["emb"][:, :width, :2 * width], emb)
-        assert not w["emb"][:, width:].any()
-        assert not w["emb"][:, :, 2 * width:].any()
-        assert torch.equal(w["embwT"], torch.nn.functional.pad(
-            emb.transpose(1, 2), (0, Cp - width)))
-        assert w["embb"].shape == (M, C2p) and w["encb"].shape == (M, Cp)
-        assert torch.equal(w["decw"], t["decoder"]["w"].to(cdt).float()
-                           .reshape(M, -1))
-        assert all(v.dtype == torch.float32 and v.is_contiguous()
-                   for v in w.values())
+    f32, KV = torch.float32, 5 * V
+    Cp, ncol = 304, 3
+    w = cnn_fused.wide_layout(t, f32)
+    enc = t["encoder"]["w"].reshape(M, KV, width)
+    emb = t["embed"]["w"]
+    assert w["enc"].shape == (M, Cp // 16, KV, 16)
+    enc_rows = w["enc"].transpose(1, 2).reshape(M, KV, Cp)
+    assert torch.equal(enc_rows[:, :, :width], enc)
+    assert not enc_rows[:, :, width:].any()
+    assert w["encT"].shape == (M, Cp, cnn_fused.WIDE_KV)
+    assert torch.equal(w["encT"][:, :width, :KV], enc.transpose(1, 2))
+    assert not w["encT"][:, width:].any() and not w["encT"][:, :, KV:].any()
+    assert w["emb"].shape == (M, ncol, Cp, 256)
+    emb_all = w["emb"].transpose(1, 2).reshape(M, Cp, ncol * 256)
+    assert torch.equal(emb_all[:, :width, :2 * width], emb)
+    assert not emb_all[:, width:].any()
+    assert not emb_all[:, :, 2 * width:].any()
+    assert torch.equal(w["embwT"], torch.nn.functional.pad(
+        emb.transpose(1, 2), (0, Cp - width)))
+    assert w["embb"].shape == (M, ncol * 256) and w["encb"].shape == (M, Cp)
+    assert torch.equal(w["decw"], t["decoder"]["w"].reshape(M, -1))
+    assert all(v.dtype == f32 and v.is_contiguous() for v in w.values())
+    wb = cnn_fused.wide_layout(t, torch.bfloat16)  # column tiles of 200
+    assert wb["embb"].shape == (M, 3 * 200) and wb["encb"].shape == (M, 320)
+    assert torch.equal(wb["encb"][:, :width], t["encoder"]["b"].reshape(
+        M, width))
+    assert torch.equal(wb["decw"], t["decoder"]["w"].to(torch.bfloat16)
+                       .float().reshape(M, -1))
     # a kernel's layout is made at its first call, and kept
     prep = cnn_fused.prepare_ensemble(t)
     assert set(prep.tensors) == {"decw", "decb"} and not prep.layouts
@@ -345,3 +355,36 @@ def test_wide_layout_holds_the_weights():
     assert prep.layout(cnn_fused.WIDE) is w
     assert torch.equal(w["decw"], cnn_fused.wide_layout(t, torch.float32)[
         "decw"])
+
+
+@pytest.mark.parametrize("width,N", [(300, 200), (400, 200), (1022, 256),
+                                     (40, 200), (129, 200)])
+def test_wide_bf16_tiles_hold_the_weights(width, N):
+    """The wide kernels' bf16 tiles, their swizzle undone, are the
+    bf16-rounded weights, zero-padded: enc_w as [j, c] (j to WIDE_KV, c to a
+    multiple of 64), emb_w^T as [c2, c] in column tiles of N (256 or 200,
+    whichever pads 2C less); emb_w^T's rows in bf16."""
+    t = cnn.init_ensemble(torch.Generator().manual_seed(width), M,
+                          input_size=width)
+    bf16, KV, C2 = torch.bfloat16, 5 * V, 2 * width
+    assert cnn_fused.wide_cols(C2, bf16) == N
+    Cp, ncol = -(-width // 64) * 64, -(-C2 // N)
+    w = cnn_fused.wide_layout(t, bf16)
+    want_enc = t["encoder"]["w"].reshape(M, KV, width).to(bf16)
+    want_embT = t["embed"]["w"].to(bf16).transpose(1, 2)  # [M, C2, C]
+    assert w["enc"].shape == (M, Cp // 64, cnn_fused.WIDE_KV, 64)
+    enc = _unswizzle(w["enc"])                             # [M, 128, Cp]
+    assert torch.equal(enc[:, :KV, :width], want_enc)
+    assert not enc[:, KV:].any() and not enc[:, :, width:].any()
+    assert w["emb"].shape == (M, ncol, Cp // 64, N, 64)
+    emb = _unswizzle(w["emb"]).reshape(M, ncol * N, Cp)
+    assert torch.equal(emb[:, :C2, :width], want_embT)
+    assert not emb[:, C2:].any() and not emb[:, :, width:].any()
+    assert w["embwT"].dtype == bf16 and w["embwT"].shape == (M, C2, Cp)
+    assert torch.equal(w["embwT"][:, :, :width], want_embT)
+    assert not w["embwT"][:, :, width:].any()
+    # element (row n, depth k) of a tile: 16-byte chunk XOR the row's low bits
+    n, k = 11, min(width - 1, 77)
+    pos = (((k % 64) // 8) ^ (n & 7)) * 8 + k % 8
+    assert w["emb"][2, n // N, k // 64, n % N, pos] == want_embT[2, n, k]
+    assert all(v.is_contiguous() for v in w.values())

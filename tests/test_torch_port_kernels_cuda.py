@@ -350,6 +350,15 @@ def test_cnn_kernel_rejects_bad_input(dev):
     (40, 300, 4),     # C > 256 alone
     (9, 600, 3),      # a sequence of 5 rows, C over one depth chunk of 512
     (1100, 1100, 1),  # C over the 1,024 channels of H1 held at once
+    # the edges of the tiling: row tiles of 128 (T = L - 4: 255, 256, 128,
+    # 129), column tiles (float32 128; bf16 256 or 200, whichever pads 2C
+    # less: 2C = 254, 256, 258 and 398, 400, 402), depth chunks (bf16 64,
+    # float32 16: C = 63, 64, 65), one sample
+    (259, 259, 2), (260, 260, 2), (132, 300, 2), (133, 300, 2),
+    (300, 127, 2), (300, 128, 2), (300, 129, 2),
+    (300, 199, 2), (300, 200, 2), (300, 201, 2),
+    (300, 63, 2), (300, 64, 2), (300, 65, 2),
+    (400, 400, 1),
 ])
 def test_cnn_wide_kernel_matches_plain(dev, dtype, L, C, B, pool, ties):
     """The wide kernel (T > 256, C > 256 or 2C > 512) against its plain
@@ -371,6 +380,26 @@ def test_cnn_wide_kernel_matches_plain(dev, dtype, L, C, B, pool, ties):
         _, dx_other = cnn_fused.ensemble_apply_and_grad(
             prep, x, None, "first" if pool == "split" else "split")
         assert not torch.allclose(dx, dx_other)
+
+
+@pytest.mark.parametrize("pool", ["split", "first"])
+@pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])
+def test_cnn_wide_kernel_on_a_member_block(dev, dtype, pool):
+    """Two of four members (the block an ep rank holds) at L = 400: the
+    wide kernel against its plain version on those members."""
+    g = torch.Generator(device=dev).manual_seed(400)
+    ens = cnn.init_ensemble(g, 4, input_size=400)
+
+    def block(tree):
+        return {k: block(v) if isinstance(v, dict) else v[:2].contiguous()
+                for k, v in tree.items()}
+    part = block(ens)
+    x = _onehot(np.random.default_rng(11), 3, 400, dev)
+    w0 = cnn_fused.launches_wide
+    fit, dx = cnn_fused.ensemble_apply_and_grad(part, x, dtype, pool)
+    assert cnn_fused.launches_wide == w0 + 1
+    fit0, dx0 = cnn_fused.ensemble_apply_and_grad_plain(part, x, dtype, pool)
+    _check_cnn(fit, dx, fit0, dx0, dtype)
 
 
 @pytest.mark.parametrize("dtype", [BF16, F32], ids=["bf16", "f32"])

@@ -1,7 +1,9 @@
-"""Kernels C and C' of several trees of the repository, timed in one call.
+"""Kernels C and C' (or kernel B) of several trees of the repository,
+timed in one call.
 
     python tools/ab_attention.py ROOT [ROOT ...] [--transformer] [--sass]
         [--cases Z,T,HD,DTYPE ...]
+    python tools/ab_attention.py ROOT [ROOT ...] --cnn
 
 Each ROOT is a checkout of the repository: this tree as ``.``, the parent
 commit unpacked by ``git archive`` into a git-ignored directory. For each
@@ -16,9 +18,14 @@ bf16), and adds each one's ``scaled_dot_product_attention`` forward and
 forward-plus-backward-less-forward times. ``--transformer`` adds ROOT's chip_smoke.py phase 6 (the potts +
 transformer-S sampler in both chunkings: steps/s). ``--sass`` adds, for each kernel of ROOT's bf16 hd = 24
 instances, its instruction count and its most frequent opcodes
-(``cuobjdump -sass`` of the built library). Give the roots as parent,
-change, change, parent to see the spread beside the difference. Needs a
-CUDA device.
+(``cuobjdump -sass`` of the built library). ``--cnn`` times kernel B
+instead: the wide kernel at CNN_LENGTHS residues (C = L, 128 random
+sequences, a seeded 3-member ensemble, split), float32 and bf16, by CUDA
+events; and the SHA-256 of GFP's outputs of the tc and simt kernels (128
+and 1024 chains, both types and pool modes), which the last line compares
+with the first root's (equal: the same bits). Give the
+roots as parent, change, change, parent to see the spread beside the
+difference. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -63,7 +70,52 @@ def parse_case(text: str) -> tuple:
     return int(z), int(t), int(hd), dtype
 
 
-def child(root: str, transformer: bool, sass: bool, cases=None) -> None:
+# kernel B's wide lengths (--cnn): both sides of the row tiles, GFP's
+# nearest wide length, phase 16's two, one past ESM2's longest
+CNN_LENGTHS = (261, 400, 1022, 1100)
+
+
+def cnn_child(torch, chip_smoke, dev, out) -> None:
+    """``--cnn``: kernel B's wide times and the hashes of GFP's tc / simt
+    outputs."""
+    import hashlib
+
+    from ppde_tpu_torch.models import cnn
+    from ppde_tpu_torch.ops import cnn_fused
+
+    out["cnn"] = []
+    for L in CNN_LENGTHS:
+        ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(L),
+                                3, input_size=L)
+        x = chip_smoke.random_onehot(
+            torch, torch.Generator(device=dev).manual_seed(L + 1), 128, L,
+            dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            prep = cnn_fused.prepare_ensemble(ens, dtype)
+            out["cnn"].append({"L": L, "dtype": str(dtype).split(".")[-1],
+                               "ms": chip_smoke.time_ms(
+                                   lambda: cnn_fused.ensemble_apply_and_grad(
+                                       prep, x), 5)})
+    out["cnn_bits"] = {}
+    L = len(chip_smoke.GFP_WT)
+    ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(0), 3,
+                            input_size=L)
+    for B in (128, 1024):
+        x = chip_smoke.random_onehot(
+            torch, torch.Generator(device=dev).manual_seed(B), B, L, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            prep = cnn_fused.prepare_ensemble(ens, dtype)
+            for pool in ("split", "first"):
+                fit, dx = cnn_fused.ensemble_apply_and_grad(prep, x, None,
+                                                            pool)
+                key = f"{str(dtype).split('.')[-1]}_{B}_{pool}"
+                for name, t in (("fit", fit), ("dx", dx)):
+                    out["cnn_bits"][f"{key}_{name}"] = hashlib.sha256(
+                        t.cpu().numpy().tobytes()).hexdigest()
+
+
+def child(root: str, transformer: bool, sass: bool, cases=None,
+          cnn=False) -> None:
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -80,6 +132,10 @@ def child(root: str, transformer: bool, sass: bool, cases=None) -> None:
     build_s = _build.build_all()
     dev = torch.device("cuda")
     out = {"root": root, "card": card, "build_s": build_s, "shapes": []}
+    if cnn:
+        cnn_child(torch, chip_smoke, dev, out)
+        print("AB " + json.dumps(out), flush=True)
+        return
     for Z, T, hd, dtype in cases or [(*s, "bf16") for s in SHAPES]:
         gen = torch.Generator(device=dev).manual_seed(Z + T + hd)
         tdt = torch.bfloat16 if dtype == "bf16" else torch.float32
@@ -137,16 +193,19 @@ def main() -> int:
     ap.add_argument("--sass", action="store_true")
     ap.add_argument("--cases", nargs="+", type=parse_case, default=None,
                     metavar="Z,T,HD,DTYPE")
+    ap.add_argument("--cnn", action="store_true")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.roots[0], args.transformer, args.sass, args.cases)
+        child(args.roots[0], args.transformer, args.sass, args.cases,
+              args.cnn)
         return 0
-    rc = 0
+    rc, bits = 0, []
     for root in args.roots:
         cmd = [sys.executable, os.path.abspath(__file__), "--child", root]
         cmd += [f for f, on in (("--transformer", args.transformer),
-                                ("--sass", args.sass)) if on]
+                                ("--sass", args.sass),
+                                ("--cnn", args.cnn)) if on]
         if args.cases:
             cmd += ["--cases", *(",".join(map(str, c)) for c in args.cases)]
         res = subprocess.run(cmd, capture_output=True, text=True)
@@ -157,6 +216,11 @@ def main() -> int:
             rc = 1
             continue
         print(lines[-1][3:], flush=True)
+        bits.append(json.loads(lines[-1][3:]).get("cnn_bits"))
+    if args.cnn and not rc:
+        print(json.dumps({"gfp_bits_equal_to_first_root": {
+            root: b == bits[0] for root, b in zip(args.roots[1:], bits[1:])}}),
+            flush=True)
     return rc
 
 

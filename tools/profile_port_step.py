@@ -29,8 +29,12 @@ kernels C and C' at the transformer path's calls (bf16, (Z, T, hd) =
 device microseconds per call by kernel name. ``--phases`` builds kernel B
 with -DCNN_PHASE_CLOCKS and prints the clocks and microseconds each phase of
 one (sample, member) takes in block (0, 0), bf16 and float32, at B = 128
-and 1024. ``--msat`` traces one batch of masked columns of the MSA
-Transformer as chip_smoke.py's phase 10 scores them (random-init msa-1b,
+and 1024; then for the wide kernels at L = 400 and 1022 (C = L, 128
+samples) the clocks of the forward's block (0, 0, 0) (one column tile of
+one (sample, member)) and of the backward's block (0, 0), and their
+microseconds at the card's maximum SM clock. ``--msat`` traces one batch
+of masked columns of the MSA Transformer as chip_smoke.py's phase 10
+scores them (random-init msa-1b,
 bf16, 500 rows of the GFP synthetic alignment, 4 columns a forward): the
 device time a column by class of kernel (matrix products, softmax, layer
 norm, GELU, the rest) and by name, and the busy share. ``--train`` traces
@@ -228,6 +232,59 @@ def trace_phases(torch, dev, card) -> None:
     for B, dtype in itertools.product((128, 1024),
                                       (torch.bfloat16, torch.float32)):
         phases_of(torch, dev, card, lib, B, dtype)
+    for L, dtype in itertools.product(WIDE_LENGTHS,
+                                      (torch.bfloat16, torch.float32)):
+        wide_phases_of(torch, dev, card, lib, L, dtype)
+
+
+# the wide kernels' lengths (C = L): chip_smoke.py's phase 3 and 16
+WIDE_LENGTHS = (400, 1022)
+WIDE_FORWARD = {"conv": 1, "embed_product": 2, "pool": 3}
+WIDE_BACKWARD = {"tokens_and_routes": 0, "pred_and_scales": 4,
+                 "gather_g1": 5, "dp_product": 6, "col2im_store": 7}
+
+
+def wide_phases_of(torch, dev, card, lib, L, dtype) -> None:
+    """One line of ``trace_phases`` for the wide kernels: 128 random
+    sequences of L residues, a seeded 3-member ensemble of width C = L."""
+    import ctypes
+    from chip_smoke import random_onehot
+    from ppde_tpu_torch.models import cnn
+    from ppde_tpu_torch.ops import cnn_fused
+
+    ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(L), 3,
+                            input_size=L)
+    x = random_onehot(torch, torch.Generator(device=dev).manual_seed(L + 1),
+                      128, L, dev)
+    prep = cnn_fused.prepare_ensemble(ens, dtype)
+    w0 = cnn_fused.launches_wide
+    cnn_fused.ensemble_apply_and_grad(prep, x)
+    if cnn_fused.launches_wide != w0 + 1:
+        raise RuntimeError(f"L={L}: not the wide kernel")
+    torch.cuda.synchronize()
+    if lib.cnn_phase_clocks(None, 1):
+        raise RuntimeError("cnn_phase_clocks: reset failed")
+    cnn_fused.ensemble_apply_and_grad(prep, x)
+    torch.cuda.synchronize()
+    clocks = (ctypes.c_longlong * 8)()
+    if lib.cnn_phase_clocks(clocks, 0):
+        raise RuntimeError("cnn_phase_clocks: read failed")
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    M, K, V, C, C2 = prep.dims
+    ncol = -(-C2 // cnn_fused.wide_cols(C2, dtype))
+    out = {"L": L, "C": C, "B": 128, "dtype": str(dtype),
+           "column_tiles": ncol, "row_tiles": -(-(L - K + 1)
+                                               // cnn_fused.WIDE_ROWS),
+           "max_sm_clock_mhz": mhz, "card": card}
+    for part, names in (("forward_block", WIDE_FORWARD),
+                        ("backward_block", WIDE_BACKWARD)):
+        out[f"clocks_{part}"] = {n: clocks[i] for n, i in names.items()}
+        out[f"us_{part}_at_max_clock"] = {n: clocks[i] / mhz
+                                          for n, i in names.items()}
+    print(json.dumps(out), flush=True)
 
 
 def phases_of(torch, dev, card, lib, B, dtype) -> None:
