@@ -57,7 +57,7 @@ no result line):
      best_energy, final population, energy, fitness and oracle
      histories); each save's time and size, at 128 chains and for PPDE at
      1024; one warm PPDE segment inside ``profiling.trace``, whose trace
-     must name kernels A and B;
+     must hold kernels under the spans ``kernel.a`` and ``kernel.b``;
   9. the MNIST-sum CLI (``ppde_tpu_torch.scripts.mnist_sum.main``) at the
      reference defaults (128 chains, 200 steps, lambda 10, log_every 50)
      on seeded stand-ins (``scripts/seeded_mnist.py``) and the tracked
@@ -763,13 +763,25 @@ def checked(en, res, cfg, wt_oh, steps, n_chains, chunk, dev):
                         n_chains, chunk, dev)}
 
 
+_COUNTS_BASE: dict = {}  # profiling.counters() at the last reset_counters
+
+
 def reset_counters(counters):
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    """Start counting the launches ``read_counters`` reads (``counters``:
+    names of ``profiling``'s registry)."""
+    from ppde_tpu_torch import profiling
+
+    _COUNTS_BASE.clear()
+    _COUNTS_BASE.update(profiling.counters())
 
 
 def read_counters(counters):
-    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    """Each named counter's launches since the last ``reset_counters``."""
+    from ppde_tpu_torch import profiling
+
+    now = profiling.counters()
+    return {name: now[name] - _COUNTS_BASE.get(name, 0)
+            for name in counters}
 
 
 def phase_sampler(torch, codec, utils, energy_mod, potts, cnn, ppde,
@@ -1206,12 +1218,13 @@ def phase_checkpoint(torch, counters, dev, card):
         trace_dir = os.path.join(tmp, "trace")
         with profiling.trace(trace_dir):
             segment()
-        with open(os.path.join(trace_dir, "trace.json")) as f:
-            text = f.read()
-        names = ("potts_grad_kernel_wgmma", "fit_grad_kernel")
-        check(all(n in text for n in names),
-              f"the trace of a PPDE segment does not name {names}")
-        r = {"run": "trace", "trace_bytes": len(text), "names": names,
+        by_span = profiling.device_by_span(trace_dir)
+        spans = ("kernel.a", "kernel.b")
+        check(all(by_span.get(n, {}).get("kernels", 0) > 0 for n in spans),
+              f"the trace of a PPDE segment has no kernel under {spans}: "
+              f"{by_span}")
+        r = {"run": "trace", "trace_bytes": os.path.getsize(
+            os.path.join(trace_dir, "trace.json")), "by_span": by_span,
              "card": card}
         results.append(r)
         print("checkpoint", json.dumps(r), flush=True)
@@ -2104,12 +2117,7 @@ def mesh_child(protein_root, out_path):
     check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
           f"mesh child: backend {dist.get_backend()}, world size "
           f"{dist.get_world_size()}; want nccl and 1")
-    counters = {"potts_energy": (potts_fused, "launches"),
-                "potts_energy_f32": (potts_fused, "launches_f32"),
-                "cnn_ensemble": (cnn_fused, "launches"),
-                "cnn_ensemble_f32": (cnn_fused, "launches_f32"),
-                "flash_attention_fwd": (attention_fused, "launches_fwd"),
-                "flash_attention_bwd": (attention_fused, "launches_bwd")}
+    counters = COUNTERS
     got = {"backend": dist.get_backend(),
            "world_size": dist.get_world_size()}
     args = de.build_parser().parse_args(mesh_cli_argv(protein_root,
@@ -2719,11 +2727,11 @@ def timing(torch, times):
 
 def device_us(torch, fn):
     """Device microseconds of one call of fn by the port's kernels (A, B,
-    C, C') and the rest, their kernel counts, and the call's wall
-    microseconds: torch.profiler after a warm-up call, read from the
-    exported Chrome trace's kernel events. The trace can lose kernels
-    launched through ctypes (A's and B's in a whole run of this script on
-    the H100): phase 16 also times A and B alone by CUDA events."""
+    C, C'), each the device work launched inside its wrapper's span
+    (``kernel.a``, ``kernel.b``, ``kernel.c``, ``kernel.c_bwd``), and the
+    rest; their kernel counts, the activities whose launch call the trace
+    lost, and the call's wall microseconds: torch.profiler after a warm-up
+    call (``profiling.trace``, read by ``profiling.device_by_span``)."""
     from ppde_tpu_torch import profiling
 
     fn()
@@ -2734,22 +2742,19 @@ def device_us(torch, fn):
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e6
-        with open(os.path.join(tmp, "trace.json")) as f:
-            events = json.load(f)["traceEvents"]
-    kinds = (("A", ("potts_",)), ("B", ("fit_grad_kernel", "tokens_kernel",
-                                        "cnn_member_reduce")),
-             ("C", ("attn_fwd",)), ("C'", ("attn_bwd",)))
-    out = dict.fromkeys([k for k, _ in kinds] + ["other"], 0.0)
+        by_span = profiling.device_by_span(tmp)
+    kinds = {"kernel.a": "A", "kernel.b": "B", "kernel.c": "C",
+             "kernel.c_bwd": "C'"}
+    out = dict.fromkeys(list(kinds.values()) + ["other"], 0.0)
     n = dict.fromkeys(out, 0)
-    for e in events:
-        if e.get("cat") != "kernel":
-            continue
-        kind = next((k for k, frags in kinds
-                     if any(f in e["name"] for f in frags)), "other")
-        out[kind] += e["dur"]
-        n[kind] += 1
+    unmatched = by_span.pop("unmatched")
+    for span, row in by_span.items():
+        kind = kinds.get(span, "other")
+        out[kind] += row["us"]
+        n[kind] += row["kernels"]
     out["wall"] = wall
     out["kernels"] = n
+    out["unmatched_launches"] = unmatched
     return out
 
 
@@ -3464,7 +3469,7 @@ def main() -> int:
         for line in _build.ptxas_report(log):
             print(f"ptxas {name}: {line}", flush=True)
 
-    counters = COUNTERS  # every kernel's (wrapper module, attribute)
+    counters = COUNTERS  # every kernel's counter in profiling's registry
     phases = {
         "potts": lambda: phase_potts(torch, potts, potts_fused, dev),
         "cnn": lambda: phase_cnn(torch, cnn, cnn_fused, dev),

@@ -35,6 +35,7 @@ from typing import Any, Callable
 
 import torch
 
+from ppde_tpu_torch import profiling
 from ppde_tpu_torch.models import cnn, mnist_nets
 from ppde_tpu_torch.models import potts as potts_mod
 from ppde_tpu_torch.ops import cnn_fused, potts_fused
@@ -176,12 +177,16 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
 
     def transformer_score_and_grad(p, x):
         """(score [N], d sum(score) / dx), detached; the samplers call
-        energy_and_grad under no_grad, so autograd is switched on here."""
+        energy_and_grad under no_grad, so autograd is switched on here.
+        The backward runs in ``esm2.backward``, its kinds' work in
+        ``esm2.bwd.<kind>`` (``profiling.grad_spans``)."""
         def one_chunk(xc):
-            with torch.enable_grad():
-                xg = xc.detach().requires_grad_(True)
+            with torch.enable_grad(), profiling.grad_spans():
+                xg = profiling.grad_span(xc.detach().requires_grad_(True),
+                                         None)
                 y = t_apply(p["tr"], xg)
-                (g,) = torch.autograd.grad(y.sum(), xg)
+                with profiling.span("esm2.backward"):
+                    (g,) = torch.autograd.grad(y.sum(), xg)
             return y.detach(), g
 
         n = x.shape[0]
@@ -192,20 +197,25 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
         return (torch.cat([e for e, _ in outs]),
                 torch.cat([g for _, g in outs]))
 
+    @profiling.spanned("energy")
     def energy_and_grad(p, x):
-        fit, fit_grad = _sup_fit_and_grad(p["sup"], prepared, x,
-                                          compute_dtype, cnn_chunk, pool_bwd)
+        with profiling.span("energy.cnn"):
+            fit, fit_grad = _sup_fit_and_grad(p["sup"], prepared, x,
+                                              compute_dtype, cnn_chunk,
+                                              pool_bwd)
         e = lam * fit
         grad = lam * fit_grad
         if "potts" in p:
-            prep = potts_once.get(p["potts"], x)
-            pe, pg = potts_mod.score_and_grad(
-                p["potts"], x, delta=True,
-                prepared=None if prep is p["potts"] else prep)
+            with profiling.span("energy.potts"):
+                prep = potts_once.get(p["potts"], x)
+                pe, pg = potts_mod.score_and_grad(
+                    p["potts"], x, delta=True,
+                    prepared=None if prep is p["potts"] else prep)
             e = e + pe
             grad = grad + pg
         if t_apply is not None:
-            te, tg = transformer_score_and_grad(p, x)
+            with profiling.span("energy.esm2"):
+                te, tg = transformer_score_and_grad(p, x)
             e = e + te
             grad = grad + tg
         return e, fit, grad
@@ -234,9 +244,11 @@ def protein_supervised(sup_ensemble, wt_onehot, compute_dtype=None,
         fit = fit_fn(p, x)
         return fit, fit
 
+    @profiling.spanned("energy")
     def energy_and_grad(p, x):
-        fit, g = _sup_fit_and_grad(p["sup"], prepared, x, compute_dtype,
-                                   cnn_chunk, pool_bwd)
+        with profiling.span("energy.cnn"):
+            fit, g = _sup_fit_and_grad(p["sup"], prepared, x, compute_dtype,
+                                       cnn_chunk, pool_bwd)
         return fit, fit, g
 
     def with_params(q):

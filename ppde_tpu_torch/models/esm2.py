@@ -29,6 +29,12 @@ rank's heads and hidden units (Megatron tensor parallelism over tp: kernels
 C and C' run on the rank's heads, the partial products of o and fc2 are
 summed over tp), and ``forward_logits(constrain=)`` / ``SP_CONSTRAIN``
 splits the residual stream's sequence axis over sp.
+
+Spans (``profiling``): the forward runs in ``esm2.<kind>`` by block kind
+(embed, norm, qkv, rotary, attn_out, ffn, head; kernel C in ``kernel.c``);
+inside ``profiling.grad_spans()`` the boundary tensors of each kind are
+hooked, so that the backward of its work runs in ``esm2.bwd.<kind>``
+(kernel C' in ``kernel.c_bwd``, outside the kinds).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ppde_tpu_torch import codec, utils
+from ppde_tpu_torch import codec, profiling, utils
 from ppde_tpu_torch.ops import attention_fused
 from ppde_tpu_torch.parallel import mesh as pmesh
 
@@ -207,41 +213,50 @@ def _linear(p, x):
         *x.shape[:-1], -1)
 
 
-def _attention(p, x, heads, tp=None, rows=None):
-    """Rotary self-attention of x [B, T, D]. ``tp``: the rank holds heads /
-    tp of the heads (q, k, v by columns, o by rows) and the partial
-    products of o are summed over tp. ``rows``: keeps the rows of the
-    merged heads' output that this rank goes on with (sequence
-    parallelism) before the o projection."""
-    B, T, D = x.shape
-    hd = D // heads
-    if tp is not None:
-        if heads % tp.size:
-            raise ValueError(f"tp={tp.size} does not divide the {heads} "
-                             "attention heads")
-        heads //= tp.size
-        x = pmesh.copy_to(x, tp)
+def _attention(p, h, x, heads, tp=None, gather=None, rows=None):
+    """h plus the rotary self-attention of x [B, T, D]. ``tp``: the rank
+    holds heads / tp of the heads (q, k, v by columns, o by rows) and the
+    partial products of o are summed over tp. ``gather`` / ``rows``
+    (sequence parallelism): x, the rank's positions, is gathered to the
+    whole sequence before the projections, and the rank keeps its own rows
+    of the merged heads' output before the o projection."""
+    with profiling.span("esm2.qkv"):
+        if gather is not None:
+            x = gather(x)
+        B, T, D = x.shape
+        hd = D // heads
+        if tp is not None:
+            if heads % tp.size:
+                raise ValueError(f"tp={tp.size} does not divide the {heads} "
+                                 "attention heads")
+            heads //= tp.size
+            x = pmesh.copy_to(x, tp)
 
-    def proj(pp, v):
-        # contiguous [B, heads, T, hd]: the rotary passes then run on dense
-        # memory and the merge of (B, heads) below is a view
-        return _linear(pp, v).reshape(B, T, heads, hd).permute(
-            0, 2, 1, 3).contiguous()
+        def proj(pp, v):
+            # contiguous [B, heads, T, hd]: the rotary passes then run on
+            # dense memory and the merge of (B, heads) below is a view
+            return _linear(pp, v).reshape(B, T, heads, hd).permute(
+                0, 2, 1, 3).contiguous()
 
-    q = proj(p["q"], x) * (1.0 / math.sqrt(hd))
-    k = proj(p["k"], x)
-    v = proj(p["v"], x)
-    q, k = _rotary(q, k)
-    # (B, heads) merge into one batch dimension Z, in that order
-    q = q.reshape(B * heads, T, hd)
-    k = k.reshape(B * heads, T, hd)
-    v = v.reshape(B * heads, T, hd)
-    out = attention_fused.flash_attention(q, k, v)
-    out = out.reshape(B, heads, T, hd).permute(0, 2, 1, 3).reshape(
-        B, T, heads * hd)
-    if rows is not None:
-        out = rows(out)
-    return _row_linear(p["o"], out, tp)
+        q = proj(p["q"], x) * (1.0 / math.sqrt(hd))
+        k = proj(p["k"], x)
+        v = proj(p["v"], x)
+    q, k, v = (profiling.grad_span(t, "esm2.bwd.qkv") for t in (q, k, v))
+    with profiling.span("esm2.rotary"):
+        q, k = _rotary(q, k)
+    q, k = (profiling.grad_span(t, "esm2.bwd.rotary") for t in (q, k))
+    # (B, heads) merge into one batch dimension Z, in that order; kernel C'
+    # runs outside the backward kinds
+    out = profiling.grad_span(attention_fused.flash_attention(
+        q.reshape(B * heads, T, hd), k.reshape(B * heads, T, hd),
+        v.reshape(B * heads, T, hd)), None)
+    with profiling.span("esm2.attn_out"):
+        out = out.reshape(B, heads, T, hd).permute(0, 2, 1, 3).reshape(
+            B, T, heads * hd)
+        if rows is not None:
+            out = rows(out)
+        h = h + _row_linear(p["o"], out, tp)
+    return profiling.grad_span(h, "esm2.bwd.attn_out")
 
 
 def _row_linear(p, x, tp):
@@ -261,14 +276,16 @@ def embed_tokens(params, x_onehot: torch.Tensor) -> torch.Tensor:
     weight x[..., MASK_IDX] (exact for one-hot inputs): zero masked
     embeddings, scale by (1 - mask_ratio_train) / (1 - observed ratio).
     """
-    dtype = params["embed"].dtype
-    x = x_onehot.to(dtype)
-    h = x @ params["embed"]
-    mask_w = x_onehot[..., MASK_IDX].float()                  # [B, T]
-    h = h * (1.0 - mask_w[..., None]).to(dtype)
-    ratio = mask_w.mean(-1, keepdim=True)                     # [B, 1]
-    scale = (1.0 - MASK_RATIO_TRAIN) / (1.0 - ratio)
-    return h * scale[..., None].to(dtype)
+    with profiling.span("esm2.embed"):
+        dtype = params["embed"].dtype
+        x = x_onehot.to(dtype)
+        h = x @ params["embed"]
+        mask_w = x_onehot[..., MASK_IDX].float()              # [B, T]
+        h = h * (1.0 - mask_w[..., None]).to(dtype)
+        ratio = mask_w.mean(-1, keepdim=True)                 # [B, 1]
+        scale = (1.0 - MASK_RATIO_TRAIN) / (1.0 - ratio)
+        h = h * scale[..., None].to(dtype)
+    return profiling.grad_span(h, "esm2.bwd.embed")
 
 
 def _gelu(x, approx_gelu: bool):
@@ -283,24 +300,32 @@ def transformer_layer(layer, h, heads: int, approx_gelu: bool, tp=None,
     (an ``SPConstraint``): h holds this rank's positions of the padded
     sequence; the layer-normed stream is gathered to the whole sequence of
     length ``T`` for attention, and the rank keeps its own rows."""
-    y = _layer_norm(layer["attn_ln"], h)
+    with profiling.span("esm2.norm"):
+        y = _layer_norm(layer["attn_ln"], h)
+    y = profiling.grad_span(y, "esm2.bwd.norm")
     if sp is None:
-        h = h + _attention(layer, y, heads, tp)
+        h = _attention(layer, h, y, heads, tp)
     else:
-        h = h + _attention(layer, sp.gather(y, T), heads, tp, sp.split)
-    y = pmesh.copy_to(_layer_norm(layer["ffn_ln"], h), tp)
-    y = _gelu(_linear(layer["fc1"], y), approx_gelu)
-    return h + _row_linear(layer["fc2"], y, tp)
+        h = _attention(layer, h, y, heads, tp,
+                       functools.partial(sp.gather, T=T), sp.split)
+    with profiling.span("esm2.norm"):
+        y = _layer_norm(layer["ffn_ln"], h)
+    y = profiling.grad_span(y, "esm2.bwd.norm")
+    with profiling.span("esm2.ffn"):
+        y = _gelu(_linear(layer["fc1"], pmesh.copy_to(y, tp)), approx_gelu)
+        h = h + _row_linear(layer["fc2"], y, tp)
+    return profiling.grad_span(h, "esm2.bwd.ffn")
 
 
 def lm_head(params, h: torch.Tensor, approx_gelu: bool) -> torch.Tensor:
     """Residual stream [B, T, D] -> tied-embedding LM logits [B, T, 33],
     in float32 against the float32 copy of ``embed``."""
-    h = _layer_norm(params["final_ln"], h)
-    y = _gelu(_linear(params["lm_dense"], h), approx_gelu)
-    y = _layer_norm(params["lm_ln"], y)
-    logits = y.float() @ params["embed"].float().T
-    return logits + params["lm_bias"]
+    with profiling.span("esm2.head"):
+        h = _layer_norm(params["final_ln"], h)
+        y = _gelu(_linear(params["lm_dense"], h), approx_gelu)
+        y = _layer_norm(params["lm_ln"], y)
+        logits = y.float() @ params["embed"].float().T
+        return logits + params["lm_bias"]
 
 
 def _use_approx_gelu(params) -> bool:
@@ -338,7 +363,8 @@ def forward_logits(params, x_onehot: torch.Tensor, heads: int = 20,
         x_onehot = pmesh.copy_to(x_onehot, sp.axis)
     h = embed_tokens(params, x_onehot)
     if sp is not None:
-        h = sp.split(h)
+        with profiling.span("esm2.embed"):
+            h = sp.split(h)
     approx_gelu = _use_approx_gelu(params)
     remat = remat and torch.is_grad_enabled()
     for layer in params["layers"]:
@@ -348,7 +374,10 @@ def forward_logits(params, x_onehot: torch.Tensor, heads: int = 20,
         else:
             h = transformer_layer(layer, h, heads, approx_gelu, tp, sp, T)
     logits = lm_head(params, h, approx_gelu)
-    return logits if sp is None else sp.gather_keep(logits, T)
+    if sp is None:
+        return logits
+    with profiling.span("esm2.head"):
+        return sp.gather_keep(logits, T)
 
 
 def pseudo_log_likelihood(params, x_onehot: torch.Tensor, heads: int = 20,
@@ -356,8 +385,9 @@ def pseudo_log_likelihood(params, x_onehot: torch.Tensor, heads: int = 20,
                           constrain=None) -> torch.Tensor:
     """sum_i x_i . log_softmax(logits_i) per sequence."""
     logits = forward_logits(params, x_onehot, heads, remat, constrain)
-    lp = torch.log_softmax(logits, -1)
-    return (x_onehot.float() * lp).sum((1, 2))
+    with profiling.span("esm2.head"):
+        lp = torch.log_softmax(logits, -1)
+        return (x_onehot.float() * lp).sum((1, 2))
 
 
 def load_expert(name: str, wt_seq: str, weights_path: str | None = None,
@@ -393,9 +423,12 @@ def load_expert(name: str, wt_seq: str, weights_path: str | None = None,
     params = dict(params, wt_score=wt_score, perm=perm)
 
     def apply_fn(params, x):
-        x_esm = x.to(params["perm"].dtype) @ params["perm"]
-        return (pseudo_log_likelihood(params, x_esm, heads, remat)
-                - params["wt_score"])
+        with profiling.span("esm2.embed"):
+            x_esm = x.to(params["perm"].dtype) @ params["perm"]
+        score = pseudo_log_likelihood(params, x_esm, heads, remat)
+        with profiling.span("esm2.head"):
+            score = score - params["wt_score"]
+        return profiling.grad_span(score, "esm2.bwd.head")
 
     return params, apply_fn
 

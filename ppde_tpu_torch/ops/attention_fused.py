@@ -30,9 +30,12 @@ T >= 1 and hd a multiple of 8 up to 64 (``HD_MAX``); the wrapper raises
 beyond that. No atomics: outputs repeat bit for bit (see the .cu source).
 
 ``flash_attention`` and ``flash_attention_bwd`` run the plain versions for
-CPU tensors and the kernels for CUDA tensors; ``launches_fwd`` and
-``launches_bwd`` count kernel launches, ``launches_fwd_kt`` and
-``launches_bwd_kt`` those of them by the key-tiled kernels.
+CPU tensors and the kernels for CUDA tensors, in the spans ``kernel.c`` and
+``kernel.c_bwd``; the counters of ``profiling`` ``flash_attention_fwd`` and
+``flash_attention_bwd`` count kernel launches, ``flash_attention_fwd_kt``
+and ``flash_attention_bwd_kt`` those of them by the key-tiled kernels (the
+module's ``launches_fwd``, ``launches_bwd``, ``launches_fwd_kt`` and
+``launches_bwd_kt`` read them).
 """
 from __future__ import annotations
 
@@ -40,13 +43,16 @@ import ctypes
 
 import torch
 
+from ppde_tpu_torch import profiling
 from ppde_tpu_torch.ops import _build
 
-launches_fwd = 0  # launches of kernel C
-launches_bwd = 0  # launches of kernel C' (its two halves count as one)
-# those of them by the key-tiled kernels (the library's choice)
-launches_fwd_kt = 0
-launches_bwd_kt = 0
+# launches of kernel C and C' (its two halves count as one), and those of
+# them by the key-tiled kernels (the library's choice)
+__getattr__ = profiling.counter_attributes(
+    {"launches_fwd": "flash_attention_fwd",
+     "launches_bwd": "flash_attention_bwd",
+     "launches_fwd_kt": "flash_attention_fwd_kt",
+     "launches_bwd_kt": "flash_attention_bwd_kt"})
 HD_MAX = 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -123,41 +129,44 @@ def _check(q, *others):
 
 
 def _fwd_cuda(q, k, v):
-    global launches_fwd, launches_fwd_kt
     Z, T, hd = _check(q, k, v)
     lib = _lib()
-    o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), Z, T, hd,
-            _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
+    with profiling.span("kernel.c"):
+        o = torch.empty_like(q)
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), Z, T,
+                hd, _DTYPES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"kernel C (flash_attention_fwd) launch failed: "
                            f"cudaError {err}")
-    launches_fwd += 1
-    launches_fwd_kt += lib.flash_attention_key_tiled(T, _DTYPES[q.dtype])
+    profiling.count("flash_attention_fwd")
+    profiling.count("flash_attention_fwd_kt",
+                    lib.flash_attention_key_tiled(T, _DTYPES[q.dtype]))
     return o
 
 
 def _bwd_cuda(q, k, v, dout):
-    global launches_bwd, launches_bwd_kt
     Z, T, hd = _check(q, k, v, dout)
     lib = _lib()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(q), torch.empty_like(q)
-    # per query row: max, sum and delta, handed from the dq half to the
-    # dk/dv half
-    stats = torch.empty((Z, 3, T), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-            Z, T, hd, _DTYPES[q.dtype],
-            torch.cuda.current_stream().cuda_stream)
+    with profiling.span("kernel.c_bwd"):
+        dq, dk, dv = (torch.empty_like(q), torch.empty_like(q),
+                      torch.empty_like(q))
+        # per query row: max, sum and delta, handed from the dq half to the
+        # dk/dv half
+        stats = torch.empty((Z, 3, T), dtype=torch.float32, device=q.device)
+        with torch.cuda.device(q.device):
+            err = lib.flash_attention_bwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                Z, T, hd, _DTYPES[q.dtype],
+                torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"kernel C' (flash_attention_bwd) launch failed: "
                            f"cudaError {err}")
-    launches_bwd += 1
-    launches_bwd_kt += lib.flash_attention_key_tiled(T, _DTYPES[q.dtype])
+    profiling.count("flash_attention_bwd")
+    profiling.count("flash_attention_bwd_kt",
+                    lib.flash_attention_key_tiled(T, _DTYPES[q.dtype]))
     return dq, dk, dv
 
 

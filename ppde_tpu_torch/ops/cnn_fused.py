@@ -50,8 +50,11 @@ its first call and kept on the ``Prepared``.
 
 The plain version is ``models.cnn.ensemble_apply_and_grad_plain``.
 ``ensemble_apply_and_grad`` runs it for a CPU tensor and the kernel for a
-CUDA tensor; ``launches`` counts kernel launches, ``launches_f32`` those in
-float32.
+CUDA tensor, in the span ``kernel.b``; the counters of ``profiling``
+``cnn_ensemble`` (kernel launches), ``cnn_ensemble_f32`` (those in
+float32), ``cnn_ensemble_wide`` and ``cnn_ensemble_wide_f32`` (those by the
+wide kernels) count them, also read as the module's ``launches``,
+``launches_f32``, ``launches_wide`` and ``launches_wide_f32``.
 """
 from __future__ import annotations
 
@@ -60,16 +63,17 @@ import dataclasses
 
 import torch
 
+from ppde_tpu_torch import profiling
 from ppde_tpu_torch.models.cnn import ensemble_apply_and_grad_plain
 from ppde_tpu_torch.ops import _build
 
 __all__ = ["ensemble_apply_and_grad", "ensemble_apply_and_grad_plain",
            "prepare_ensemble", "Prepared"]
 
-launches = 0       # kernel launches made by ensemble_apply_and_grad
-launches_f32 = 0   # those of them in float32
-launches_wide = 0  # those of them by the wide kernel (either type)
-launches_wide_f32 = 0  # those in float32
+__getattr__ = profiling.counter_attributes(
+    {"launches": "cnn_ensemble", "launches_f32": "cnn_ensemble_f32",
+     "launches_wide": "cnn_ensemble_wide",
+     "launches_wide_f32": "cnn_ensemble_wide_f32"})
 SMEM_LIMIT = 232448  # bytes of shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the bf16 kernel's tiles (csrc/cnn_ensemble.cu, namespace tc)
@@ -306,7 +310,6 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
         return ensemble_apply_and_grad_plain(
             prep.stacked if prep is not None else stacked, x, compute_dtype,
             pool_bwd)
-    global launches, launches_f32, launches_wide, launches_wide_f32
     if pool_bwd not in ("split", "first"):
         raise ValueError(f"pool_bwd must be 'split' or 'first': {pool_bwd}")
     if prep is None:
@@ -332,54 +335,56 @@ def ensemble_apply_and_grad(stacked, x: torch.Tensor, compute_dtype=None,
                 WIDE_DEPTH[cdt], wide_cols(C2, cdt))):
         raise RuntimeError("kernel B's library and cnn_fused.py disagree on "
                            "the weight layouts")
-    f32 = torch.float32
-    dev = x.device
-    pred = torch.empty((M, B), dtype=f32, device=dev)
-    dxm = torch.empty((M, B, L * V), dtype=f32, device=dev)
-    fit = torch.empty((B,), dtype=f32, device=dev)
-    dx = torch.empty((B, L, V), dtype=f32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    w = prep.layout(kind)
-    if kind == WIDE:
-        n_rt = -(-(L - K + 1) // WIDE_ROWS)
-        xc = x.to(cdt).to(f32).contiguous()
-        tok = torch.empty((B, L, 2), dtype=torch.int32, device=dev)
-        stat = torch.empty((M, B, 3, C2), dtype=f32, device=dev)
-        marks = torch.empty((M, B, n_rt, C2, 4), dtype=torch.int32,
-                            device=dev)
-        with torch.cuda.device(dev):
-            err = lib.cnn_ensemble_fit_and_grad_wide(
-                xc.data_ptr(), tok.data_ptr(),
-                *(w[k].data_ptr() for k in ("enc", "encT" if "encT" in w
-                                            else "enc", "emb", "embwT",
-                                            "encb", "embb", "decw", "decb")),
-                pred.data_ptr(), dxm.data_ptr(), stat.data_ptr(),
-                marks.data_ptr(), fit.data_ptr(), dx.data_ptr(), B, L, V, K,
-                C, C2, M, int(pool_bwd == "first"),
-                int(cdt == torch.bfloat16), wide_cols(C2, cdt), stream)
-    else:
-        smem = lib.cnn_smem_bytes(_DTYPES[cdt])
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"kernel B needs {smem} bytes of shared memory "
-                             f"(limit {SMEM_LIMIT})")
-        xc = x.to(cdt).contiguous()
-        if kind == SIMT:
-            fn, names = lib.cnn_ensemble_fit_and_grad, (
-                "encw", "encT", "emb", "embwT", "encb", "embb")
+    with profiling.span("kernel.b"):
+        f32 = torch.float32
+        dev = x.device
+        pred = torch.empty((M, B), dtype=f32, device=dev)
+        dxm = torch.empty((M, B, L * V), dtype=f32, device=dev)
+        fit = torch.empty((B,), dtype=f32, device=dev)
+        dx = torch.empty((B, L, V), dtype=f32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        w = prep.layout(kind)
+        if kind == WIDE:
+            n_rt = -(-(L - K + 1) // WIDE_ROWS)
+            xc = x.to(cdt).to(f32).contiguous()
+            tok = torch.empty((B, L, 2), dtype=torch.int32, device=dev)
+            stat = torch.empty((M, B, 3, C2), dtype=f32, device=dev)
+            marks = torch.empty((M, B, n_rt, C2, 4), dtype=torch.int32,
+                                device=dev)
+            with torch.cuda.device(dev):
+                err = lib.cnn_ensemble_fit_and_grad_wide(
+                    xc.data_ptr(), tok.data_ptr(),
+                    *(w[k].data_ptr() for k in (
+                        "enc", "encT" if "encT" in w else "enc", "emb",
+                        "embwT", "encb", "embb", "decw", "decb")),
+                    pred.data_ptr(), dxm.data_ptr(), stat.data_ptr(),
+                    marks.data_ptr(), fit.data_ptr(), dx.data_ptr(), B, L,
+                    V, K, C, C2, M, int(pool_bwd == "first"),
+                    int(cdt == torch.bfloat16), wide_cols(C2, cdt), stream)
         else:
-            fn, names = lib.cnn_ensemble_fit_and_grad_bf16, (
-                "enc_blob", "emb_blob", "embwT", "encb", "embb")
-        with torch.cuda.device(dev):
-            err = fn(xc.data_ptr(), *(w[k].data_ptr() for k in names),
-                     w["decw"].data_ptr(), w["decb"].data_ptr(),
-                     pred.data_ptr(), dxm.data_ptr(), fit.data_ptr(),
-                     dx.data_ptr(), B, L, V, K, C, C2, M,
-                     int(pool_bwd == "first"), stream)
-    if err:
-        raise RuntimeError(f"kernel B (cnn_ensemble) launch failed: "
-                           f"cudaError {err}")
-    launches += 1
-    launches_f32 += int(cdt == torch.float32)
-    launches_wide += int(kind == WIDE)
-    launches_wide_f32 += int(kind == WIDE and cdt == torch.float32)
+            smem = lib.cnn_smem_bytes(_DTYPES[cdt])
+            if smem > SMEM_LIMIT:
+                raise ValueError(f"kernel B needs {smem} bytes of shared "
+                                 f"memory (limit {SMEM_LIMIT})")
+            xc = x.to(cdt).contiguous()
+            if kind == SIMT:
+                fn, names = lib.cnn_ensemble_fit_and_grad, (
+                    "encw", "encT", "emb", "embwT", "encb", "embb")
+            else:
+                fn, names = lib.cnn_ensemble_fit_and_grad_bf16, (
+                    "enc_blob", "emb_blob", "embwT", "encb", "embb")
+            with torch.cuda.device(dev):
+                err = fn(xc.data_ptr(), *(w[k].data_ptr() for k in names),
+                         w["decw"].data_ptr(), w["decb"].data_ptr(),
+                         pred.data_ptr(), dxm.data_ptr(), fit.data_ptr(),
+                         dx.data_ptr(), B, L, V, K, C, C2, M,
+                         int(pool_bwd == "first"), stream)
+        if err:
+            raise RuntimeError(f"kernel B (cnn_ensemble) launch failed: "
+                               f"cudaError {err}")
+        is_f32, is_wide = int(cdt == torch.float32), int(kind == WIDE)
+        profiling.count("cnn_ensemble")
+        profiling.count("cnn_ensemble_f32", is_f32)
+        profiling.count("cnn_ensemble_wide", is_wide)
+        profiling.count("cnn_ensemble_wide_f32", is_wide * is_f32)
     return fit, dx

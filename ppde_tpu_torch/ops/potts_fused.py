@@ -37,8 +37,10 @@ all blocks sum to H; the whole call is the block (0, P).
 ``prepare(W, h)`` returns a ``Prepared`` that ``energy_and_grad`` takes in
 place of W (``energy.protein_poe`` keeps one per energy); handing in W and h
 prepares on every call. ``energy_and_grad`` runs the plain version for a
-CPU tensor and the kernel for a CUDA tensor; ``launches`` counts kernel
-launches, ``launches_f32`` those on a float32 W.
+CPU tensor and the kernel for a CUDA tensor, in the span ``kernel.a``; the
+counters ``potts_energy`` (kernel launches) and ``potts_energy_f32`` (those
+on a float32 W) of ``profiling`` count them, also read as the module's
+``launches`` and ``launches_f32``.
 """
 from __future__ import annotations
 
@@ -47,10 +49,11 @@ import dataclasses
 
 import torch
 
+from ppde_tpu_torch import profiling
 from ppde_tpu_torch.ops import _build
 
-launches = 0      # kernel launches made by energy_and_grad
-launches_f32 = 0  # those of them on a float32 W (three planes)
+__getattr__ = profiling.counter_attributes(
+    {"launches": "potts_energy", "launches_f32": "potts_energy_f32"})
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -148,7 +151,6 @@ def energy_and_grad(W, h, xf: torch.Tensor, col0: int = 0):
     if xf.device.type == "cpu":
         return (energy_and_grad_plain(prep.W, prep.h, xf, col0) if prep
                 else energy_and_grad_plain(W, h, xf, col0))
-    global launches, launches_f32
     if prep is None:
         prep = prepare(W, h)
     B, P = xf.shape
@@ -159,24 +161,26 @@ def energy_and_grad(W, h, xf: torch.Tensor, col0: int = 0):
     if planes.shape[-2] != P or col0 % 128 or col0 < 0 or col0 + N > P:
         raise ValueError(f"xf [B, {P}] does not fit W "
                          f"{tuple(prep.W.shape)} at column {col0}")
-    lib = _lib()
-    x = _aligned(xf.to(torch.bfloat16).contiguous())
-    grad = torch.empty((B, N), dtype=torch.float32, device=xf.device)
-    splits = lib.potts_splits(B, P, N)
-    partial = torch.empty((B, splits * (N // 128)),
-                          dtype=torch.float32, device=xf.device)
-    gpart = (torch.empty((splits, B, N), dtype=torch.float32,
-                         device=xf.device) if splits > 1 else grad)
-    H = torch.empty((B,), dtype=torch.float32, device=xf.device)
-    with torch.cuda.device(xf.device):
-        err = lib.potts_energy_and_grad(
-            x.data_ptr(), planes.data_ptr(), prep.h32.data_ptr(),
-            grad.data_ptr(), gpart.data_ptr(), partial.data_ptr(),
-            H.data_ptr(), B, P, N, col0, planes.shape[0], splits,
-            torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"kernel A (potts_energy) launch failed: "
-                           f"cudaError {err}")
-    launches += 1
-    launches_f32 += int(prep.W.dtype == torch.float32)
+    with profiling.span("kernel.a"):
+        lib = _lib()
+        x = _aligned(xf.to(torch.bfloat16).contiguous())
+        grad = torch.empty((B, N), dtype=torch.float32, device=xf.device)
+        splits = lib.potts_splits(B, P, N)
+        partial = torch.empty((B, splits * (N // 128)),
+                              dtype=torch.float32, device=xf.device)
+        gpart = (torch.empty((splits, B, N), dtype=torch.float32,
+                             device=xf.device) if splits > 1 else grad)
+        H = torch.empty((B,), dtype=torch.float32, device=xf.device)
+        with torch.cuda.device(xf.device):
+            err = lib.potts_energy_and_grad(
+                x.data_ptr(), planes.data_ptr(), prep.h32.data_ptr(),
+                grad.data_ptr(), gpart.data_ptr(), partial.data_ptr(),
+                H.data_ptr(), B, P, N, col0, planes.shape[0], splits,
+                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"kernel A (potts_energy) launch failed: "
+                               f"cudaError {err}")
+        profiling.count("potts_energy")
+        profiling.count("potts_energy_f32",
+                        int(prep.W.dtype == torch.float32))
     return H, grad

@@ -7,7 +7,11 @@ or ``.cpu()``): its work queues on the device. Each segment ends with one
 ``torch.cuda.synchronize()`` inside the timed window; then its records go to
 the host. With ``checkpoint_dir`` the run persists its state, its
 ``Draws``' generator state and its records every ``checkpoint_every``
-segments (``checkpoint.py``), and resumes from them.
+segments (``checkpoint.py``), and resumes from them. The run's spans
+(``profiling``): ``sampler.setup`` up to the first step, ``sampler.step``
+around each step, ``sampler.segment_end`` from a segment's last step to the
+next one's first (sync, records, oracle, log, checkpoint) and
+``sampler.finish`` around the records' assembly.
 """
 from __future__ import annotations
 
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from ppde_tpu_torch import checkpoint as ckpt
+from ppde_tpu_torch import profiling
 
 
 @dataclasses.dataclass
@@ -135,26 +140,29 @@ def run_segmented(*, step_fn: Callable, ctx: Any, init_state: Any,
     oracle_hist: list = []
     start_steps = 0
     resumed_with_records = False
-    if checkpoint_dir is not None and ckpt.exists(checkpoint_dir):
-        state, gen_state, start_steps, prior = ckpt.load(checkpoint_dir,
-                                                         init_state)
-        draws.set_state(gen_state)
-        if prior:
-            oracle_hist = list(prior.pop("oracle", []))
-            # persisted scalars (steps_per_sec etc.) are recomputed each
-            # run; only array histories are carried into the concat path
-            prior = {k: v for k, v in prior.items() if np.ndim(v) >= 1}
+    with profiling.span("sampler.setup"):
+        if checkpoint_dir is not None and ckpt.exists(checkpoint_dir):
+            state, gen_state, start_steps, prior = ckpt.load(checkpoint_dir,
+                                                             init_state)
+            draws.set_state(gen_state)
             if prior:
-                all_ys.append(prior)
-                resumed_with_records = True
-        if not quiet:
-            print(f"[resume] restored checkpoint at step {start_steps} from "
-                  f"{checkpoint_dir}", flush=True)
-    else:
-        if oracle_fn is not None:
-            oracle_hist.append(oracle_fn(ctx, state).cpu().numpy())
-        if log_fn is not None and not quiet:
-            log_fn(0, state, None, oracle_hist[-1] if oracle_hist else None)
+                oracle_hist = list(prior.pop("oracle", []))
+                # persisted scalars (steps_per_sec etc.) are recomputed
+                # each run; only array histories are carried into the
+                # concat path
+                prior = {k: v for k, v in prior.items() if np.ndim(v) >= 1}
+                if prior:
+                    all_ys.append(prior)
+                    resumed_with_records = True
+            if not quiet:
+                print(f"[resume] restored checkpoint at step {start_steps} "
+                      f"from {checkpoint_dir}", flush=True)
+        else:
+            if oracle_fn is not None:
+                oracle_hist.append(oracle_fn(ctx, state).cpu().numpy())
+            if log_fn is not None and not quiet:
+                log_fn(0, state, None,
+                       oracle_hist[-1] if oracle_hist else None)
 
     t0 = time.perf_counter()
     seg_times: list[tuple[int, float]] = []
@@ -164,31 +172,34 @@ def run_segmented(*, step_fn: Callable, ctx: Any, init_state: Any,
         ts = time.perf_counter()
         seg: list[dict] = []
         for _ in range(length):
-            state, ys = step_fn(ctx, state, draws)
+            with profiling.span("sampler.step"):
+                state, ys = step_fn(ctx, state, draws)
             seg.append(ys)
+        with profiling.span("sampler.segment_end"):
+            _sync(state)
+            seg_times.append((length, time.perf_counter() - ts))
+            done += length
+            ys_host = {k: torch.stack([y[k] for y in seg]).cpu().numpy()
+                       for k in seg[0]}
+            if resumed_with_records:
+                # fail with a named key if the resumed config's records
+                # can't concatenate onto the checkpointed histories
+                ckpt.validate_records(all_ys[0], ys_host)
+                resumed_with_records = False
+            all_ys.append(ys_host)
+            if oracle_fn is not None:
+                oracle_hist.append(oracle_fn(ctx, state).cpu().numpy())
+            if log_fn is not None and not quiet:
+                log_fn(done, state, all_ys[-1],
+                       oracle_hist[-1] if oracle_hist else None)
+            if checkpoint_dir is not None and seg_idx % checkpoint_every == 0:
+                ckpt.save(checkpoint_dir, state, draws.get_state(), done,
+                          _records(all_ys, oracle_hist))
+            seg.clear()  # the segment's device records are freed here
+    with profiling.span("sampler.finish"):
         _sync(state)
-        seg_times.append((length, time.perf_counter() - ts))
-        done += length
-        ys_host = {k: torch.stack([y[k] for y in seg]).cpu().numpy()
-                   for k in seg[0]}
-        if resumed_with_records:
-            # fail with a named key if the resumed config's records can't
-            # concatenate onto the checkpointed histories
-            ckpt.validate_records(all_ys[0], ys_host)
-            resumed_with_records = False
-        all_ys.append(ys_host)
-        if oracle_fn is not None:
-            oracle_hist.append(oracle_fn(ctx, state).cpu().numpy())
-        if log_fn is not None and not quiet:
-            log_fn(done, state, all_ys[-1],
-                   oracle_hist[-1] if oracle_hist else None)
-        if checkpoint_dir is not None and seg_idx % checkpoint_every == 0:
-            ckpt.save(checkpoint_dir, state, draws.get_state(), done,
-                      _records(all_ys, oracle_hist))
-    _sync(state)
-    elapsed = time.perf_counter() - t0
-
-    records = _records(all_ys, oracle_hist)
+        elapsed = time.perf_counter() - t0
+        records = _records(all_ys, oracle_hist)
     # the first segment pays the first launches (and, on a fresh checkout,
     # the kernels' build): drop it from the throughput window when warm
     # segments exist

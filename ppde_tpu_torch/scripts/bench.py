@@ -72,9 +72,12 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ppde_tpu_torch import codec, energy as energy_mod, runtime, utils
+from ppde_tpu_torch import (codec, energy as energy_mod, profiling, runtime,
+                            utils)
 from ppde_tpu_torch.models import cnn, esm2, potts
-from ppde_tpu_torch.ops import _build, attention_fused, cnn_fused, potts_fused
+# the three kernel wrappers declare their launch counters when imported
+from ppde_tpu_torch.ops import (_build, attention_fused,  # noqa: F401
+                                cnn_fused, potts_fused)
 from ppde_tpu_torch.samplers.base import Draws
 from ppde_tpu_torch.samplers.mnist import ppde as mnist_ppde
 from ppde_tpu_torch.samplers.protein import ppde
@@ -110,19 +113,11 @@ DIFFERENCES = {
                      "tracked mnist_ebm_ckpt_20000.npz",
 }
 
-# every kernel's launch counter: (wrapper module, attribute); the _f32
-# counters count the float32 launches among the others, _wide those of
-# kernel B's wide kernel, _kt those of the key-tiled kernels C and C'
-COUNTERS = {"potts_energy": (potts_fused, "launches"),
-            "potts_energy_f32": (potts_fused, "launches_f32"),
-            "cnn_ensemble": (cnn_fused, "launches"),
-            "cnn_ensemble_f32": (cnn_fused, "launches_f32"),
-            "cnn_ensemble_wide": (cnn_fused, "launches_wide"),
-            "cnn_ensemble_wide_f32": (cnn_fused, "launches_wide_f32"),
-            "flash_attention_fwd": (attention_fused, "launches_fwd"),
-            "flash_attention_bwd": (attention_fused, "launches_bwd"),
-            "flash_attention_fwd_kt": (attention_fused, "launches_fwd_kt"),
-            "flash_attention_bwd_kt": (attention_fused, "launches_bwd_kt")}
+# every kernel's launch counter, by its name in ``profiling``'s registry
+# (the three wrappers declare theirs): the _f32 counters count the float32
+# launches among the others, _wide those of kernel B's wide kernel, _kt
+# those of the key-tiled kernels C and C'
+COUNTERS = tuple(profiling.counters())
 
 
 class CheckFailed(AssertionError):
@@ -143,7 +138,8 @@ def _log(msg):
 
 
 def launch_counts() -> dict:
-    return {name: getattr(mod, attr) for name, (mod, attr) in COUNTERS.items()}
+    now = profiling.counters()
+    return {name: now[name] for name in COUNTERS}
 
 
 def card_name(device: torch.device) -> str:

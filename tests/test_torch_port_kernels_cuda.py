@@ -8,6 +8,7 @@ lacks). The cases are chip_smoke.py's at small sizes.
 """
 import contextlib
 import io
+import json
 import re
 
 import numpy as np
@@ -923,3 +924,86 @@ def test_potts_block_rejects_what_it_does_not_take(dev):
     with pytest.raises(ValueError):  # more columns than rows
         potts_fused.prepare(torch.zeros((128, 256), device=dev),
                             torch.zeros(256, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrappers' spans in a traced energy call
+# ---------------------------------------------------------------------------
+
+# the kernels each wrapper launches (csrc/*.cu), by name fragment
+WRAPPER_KERNELS = {
+    "kernel.a": ("potts_grad_kernel_wgmma", "potts_finish"),
+    "kernel.b": ("fit_grad_kernel", "cnn_member_reduce", "tokens_kernel",
+                 "wide::fwd_", "wide::bwd_"),
+    "kernel.c": ("attn_fwd_",),
+    "kernel.c_bwd": ("attn_bwd_",),
+}
+
+
+@pytest.mark.parametrize("L", [237, 400, 1022])
+def test_traced_energy_books_every_kernel_under_its_span(dev, tmp_path, L):
+    """potts + CNN (C = L, float32: ``simt`` at 237, ``wide`` past 256) +
+    a tiny bf16 ESM2 (C, C' ``rs`` at 237, ``kt`` past 256), 8 chains:
+    every kernel of A, B, C and C' in the traced call was launched inside
+    its wrapper's span (no launch call lost), the trace holds each one's
+    launches, and the untraced call launched the same kernels and gave the
+    same bits."""
+    from ppde_tpu_torch import codec, energy, profiling
+    from ppde_tpu_torch.models import potts
+
+    rng = np.random.default_rng(L)
+    wt = "".join(np.array(list(codec.ALPHABET))[rng.integers(0, 20, L)])
+    esm2.CONFIGS["tiny"] = dict(layers=2, dim=32, heads=4, ffn=64)
+    tr = esm2.load_expert("tiny", wt, allow_random=True, dtype=BF16,
+                          device=dev)
+    ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(L), 3,
+                            input_size=L)
+    wt_oh = torch.from_numpy(codec.seqs_to_onehot([wt])).to(dev)
+    en = energy.protein_poe(potts.synthetic(wt, seed=L, device=dev), ens,
+                            2.0, wt_oh, transformer=tr)
+    x = _onehot(rng, 8, L, dev)
+
+    def call():
+        before = profiling.counters()
+        with torch.no_grad():
+            out = en.energy_and_grad(en.params, x)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        return out, {k: after[k] - before[k] for k in after}
+
+    call()  # first launches, prepared weights
+    off, n_off = call()
+    with profiling.trace(str(tmp_path)):
+        on, n_on = call()
+    assert n_on == n_off
+    assert n_off["potts_energy"] == n_off["cnn_ensemble"] == 1
+    assert n_off["cnn_ensemble_wide"] == int(L > 256)
+    assert n_off["flash_attention_fwd"] == n_off["flash_attention_bwd"] == 2
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+
+    with open(tmp_path / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in (e.get("args") or {})}
+    spans = {name: [(e["ts"], e["ts"] + e["dur"]) for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e.get("name") == name] for name in WRAPPER_KERNELS}
+    found = dict.fromkeys(WRAPPER_KERNELS, 0)
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        span = next((s for s, frags in WRAPPER_KERNELS.items()
+                     if any(f in e["name"] for f in frags)), None)
+        if span is None:
+            continue
+        t = launch.get(e["args"]["correlation"])
+        assert t is not None, f"the trace lost the launch of {e['name']}"
+        assert any(a <= t <= b for a, b in spans[span]), (span, e["name"])
+        found[span] += 1
+    assert all(n > 0 for n in found.values()), found
+    by_span = profiling.device_by_span(str(tmp_path))
+    assert by_span["unmatched"] == 0
+    for span, n in found.items():
+        assert by_span[span]["kernels"] >= n

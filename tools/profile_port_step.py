@@ -13,8 +13,10 @@ seeded 3-member CNN ensemble, bf16, lambda=15, pas_length=2,
 nmut_threshold=10; ``--potts_dtype f32 --cnn_dtype f32`` gives the CLI's
 default types), runs a warm-up, then traces ``--steps`` sampler steps
 with torch.profiler and prints one JSON line per population: the step time,
-the device time by kernel name (top 12), the device time of the port's own
-kernels, the device busy share (the union of kernel intervals over the
+the device time by kernel name (top 12), the device time by the program's
+spans (``profiling.device_by_span``: the port's kernels by their wrappers'
+spans ``kernel.*``, ESM2 by block kind, the sampler's work), the device busy
+share (the union of kernel intervals over the
 traced window) and the card's name and power limit. ``--transformer
 [NAME]`` adds the random-init ESM2 expert NAME at full width and depth
 (default transformer-S; lambda=1, chip_smoke.py's phases 6 and 14) and
@@ -58,10 +60,9 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# name fragments of the port's hand-written kernels in the trace (kernel A:
-# potts_*; kernel B: fit_grad_kernel and cnn_member_reduce; C, C': attn_*)
-PORT_KERNELS = ("potts_", "fit_grad_kernel", "cnn_member_reduce", "attn_fwd",
-                "attn_bwd_dq", "attn_bwd_dkdv")
+# the spans of the port's kernel wrappers (profiling.py): a kernel's time
+# is the device work launched inside its wrapper's span
+PORT_KERNELS = ("kernel.a", "kernel.b", "kernel.c", "kernel.c_bwd")
 # kernels C and C' at the transformer path's calls: chunks of 16 chains and
 # one piece (ESM2-S: 20 heads, T = 237 for GFP, hd = 24)
 ATTN_SHAPES = ((320, 237, 24), (2560, 237, 24))
@@ -430,8 +431,9 @@ def main() -> int:
     steps = args.steps or (5 if args.transformer else 40)
     warmup = 2 if args.transformer else 10
 
+    import tempfile
+
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
@@ -439,7 +441,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from chip_smoke import (GFP_WT, LARGE_CHUNK, PEAK_OPS, TRANSFORMER_CHUNKS,
                             esm_forward_flops)
-    from ppde_tpu_torch import codec, energy as energy_mod
+    from ppde_tpu_torch import codec, energy as energy_mod, profiling
     from ppde_tpu_torch.models import cnn, esm2, potts
     from ppde_tpu_torch.ops import _build
     from ppde_tpu_torch.samplers.protein import ppde
@@ -497,21 +499,24 @@ def main() -> int:
             for _ in range(warmup):  # first launches, allocator
                 state, _ = step(ctx, state, draws)
             torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(steps):
-                    state, _ = step(ctx, state, draws)
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
+            with tempfile.TemporaryDirectory() as tmp:
+                with profiling.trace(tmp) as prof:
+                    t0 = time.perf_counter()
+                    for _ in range(steps):
+                        state, _ = step(ctx, state, draws)
+                    torch.cuda.synchronize()
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                by_span = profiling.device_by_span(tmp)
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         by_name: dict[str, float] = {}
         for e in kernels:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        own = {tag: sum(v for k, v in by_name.items() if tag in k)
-               / steps / 1e3 for tag in PORT_KERNELS}
+        unmatched = by_span.pop("unmatched")
+        spans = {str(k): v["us"] / steps / 1e3 for k, v in sorted(
+            by_span.items(), key=lambda kv: -kv[1]["us"])}
+        own = {k: spans.get(k, 0.0) for k in PORT_KERNELS}
         share = None
         if args.transformer:
             flops = 2 * esm_forward_flops(args.transformer, L) * n
@@ -525,6 +530,8 @@ def main() -> int:
             "device_busy_share": busy_share(kernels, wall_us),
             "kernel_launches_per_step": len(kernels) / steps,
             "port_kernels_device_ms_per_step": own,
+            "device_ms_per_step_by_span": spans,
+            "unmatched_launches": unmatched,
             "device_ms_per_step_by_kernel": {
                 k[:80]: v / steps / 1e3 for k, v in top},
             "card": card}), flush=True)
