@@ -30,7 +30,11 @@ no result line):
      (bit-for-bit repeatable), held elementwise and by the relative norm
      of the difference, timed beside the plain version and
      scaled_dot_product_attention, with the floor the special function
-     units set on exp beside the bound;
+     units set on exp beside the bound; then the qkv / rotary kernels
+     (the head-major layout, q scale and rotary between ESM2's
+     projections and kernel C, forward and backward) at ROTARY_CASES,
+     float32 and bfloat16, bit for bit against the plain composition,
+     timed beside it and against their bytes bound;
   6. the same sampler with the potts + transformer-S product of experts
      (random-init ESM2 at full width and depth, bf16, lambda=1): 128 chains
      with the transformer's gradient in chain chunks of 16 and in one
@@ -206,6 +210,9 @@ no result line):
      and C' in one traced energy_and_grad, and at 1022 the one-piece
      transformer gradient's peak memory against runtime.ESM_GRAD_MEMORY.
      Output: chiprun_out/chip_smoke_long.log.
+Wherever a phase holds kernels C and C' to a launch count, it holds the
+qkv / rotary kernels to the same count (ESM2 launches one of each a layer
+beside C and C'; ``with_rotary``).
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -281,6 +288,14 @@ ATTN_CASES += tuple(case for _, case in LARGE_ATTN_CASES
 LONG_ATTN_CASES = ((2560, 1024, 24), (2560, 1024, 64), (2560, 1022, 24),
                    (20, 513, 24))
 ATTN_CASES += LONG_ATTN_CASES
+# phase 5: (B, T, heads, hd) of the qkv / rotary kernels: ESM2-150M's call
+# at GFP in one piece of 128 chains (the benchmark's ESM cell; the kernels
+# line's headline), transformer-S's in one piece and in chunks of 16,
+# transformer-L's, M's at tp 2 (10 heads a rank), phase 16's 1022 residues
+# at S, the wild type alone, a small ragged case
+ROTARY_CASES = ((128, 237, 20, 32), (128, 237, 20, 24), (16, 237, 20, 24),
+                (128, 237, 20, 64), (128, 237, 10, 32), (128, 1022, 20, 24),
+                (1, 237, 20, 32), (7, 33, 4, 8))
 # phase 3: kernel B's wide kernel at the reference width (C = L) of
 # wild types of these lengths
 LONG_CNN_LENGTHS = (400, 1022)
@@ -784,6 +799,14 @@ def read_counters(counters):
             for name in counters}
 
 
+def with_rotary(want):
+    """``want`` with the qkv / rotary kernels' launches: ESM2 launches them
+    once a layer beside kernel C (forward) and C' (backward), and nothing
+    else launches C or C'."""
+    return dict(want, qkv_rotary_fwd=want["flash_attention_fwd"],
+                qkv_rotary_bwd=want["flash_attention_bwd"])
+
+
 def phase_sampler(torch, codec, utils, energy_mod, potts, cnn, ppde,
                   counters, dev, card):
     """The main path: GFP PPDE-PAS, 128 and 1024 chains, kernels only."""
@@ -925,6 +948,62 @@ def phase_attention(torch, attention_fused, dev, cases=ATTN_CASES):
     return out
 
 
+def phase_rotary(torch, esm2, rotary_fused, dev, cases=ROTARY_CASES):
+    """The qkv / rotary kernels against the plain composition, bit for bit
+    (forward and backward), timed beside it and against the bytes bound:
+    each input read once and each output written once (three tensors of B
+    T heads hd elements each way, and the two tables)."""
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        s = 2 if dtype == torch.bfloat16 else 4
+        for B, T, H, hd in cases:
+            gen = torch.Generator(device=dev).manual_seed(B + T + H + hd)
+            q, k, v, gq, gk, gv = (
+                (torch.randn((B, T, H * hd), generator=gen, device=dev)
+                 * 2.0).to(dtype) for _ in range(6))
+            gq, gk, gv = (g.reshape(B, H, T, hd) for g in (gq, gk, gv))
+            cos, sin = esm2._rotary_tables(T, hd, dtype, q.device)
+            scale = 1.0 / np.sqrt(hd)
+
+            def fwd():
+                return rotary_fused.qkv_rotary(q, k, v, cos, sin, H, scale)
+
+            def fwd_plain():
+                return rotary_fused.qkv_rotary_plain(q, k, v, cos, sin, H,
+                                                     scale)
+
+            def bwd():
+                return rotary_fused.qkv_rotary_bwd(gq, gk, gv, cos, sin,
+                                                   scale)
+
+            def bwd_plain():
+                return rotary_fused.qkv_rotary_bwd_plain(gq, gk, gv, cos, sin,
+                                                         scale)
+
+            for way, fn, plain in (("fwd", fwd, fwd_plain),
+                                   ("bwd", bwd, bwd_plain)):
+                got, want = fn(), plain()
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"qkv_rotary {way} B={B} T={T} heads={H} hd={hd} {dn}: "
+                      f"not the plain composition's bits")
+            del got, want
+            n = B * T * H * hd
+            r = {"B": B, "T": T, "heads": H, "hd": hd, "dtype": dn,
+                 "bit_equal": True,
+                 "fwd_ms": time_ms(fwd), "fwd_plain_ms": time_ms(fwd_plain),
+                 "bwd_ms": time_ms(bwd), "bwd_plain_ms": time_ms(bwd_plain)}
+            # forward: the scale (q), two products and a sum (q, k) an
+            # element; backward the same
+            for way in ("fwd", "bwd"):
+                r[f"{way}_bound_ms"], r[f"{way}_bound_by"] = bound_ms(
+                    (6 * n + 2 * T * hd) * s, 7 * n, dn)
+            out.append(r)
+            print("qkv / rotary", json.dumps(r), flush=True)
+    return out
+
+
 def phase_transformer(torch, codec, energy_mod, potts, cnn, esm2, ppde,
                       counters, dev, card):
     """The transformer path: GFP PPDE-PAS on potts + transformer-S + CNN,
@@ -962,8 +1041,10 @@ def phase_transformer(torch, codec, energy_mod, potts, cnn, esm2, ppde,
         n_chunks = -(-n_chains // chunk) if chunk else 1
         need = steps * n_layers * n_chunks
         check(got["flash_attention_fwd"] >= need
-              and got["flash_attention_bwd"] >= need,
-              f"chunk {chunk}: attention launches {got} < {need}")
+              and got["flash_attention_bwd"] >= need
+              and with_rotary(got) == got,
+              f"chunk {chunk}: attention launches {got} < {need}, or the "
+              f"qkv / rotary kernels' not C's and C''s")
         check(got["potts_energy"] >= steps and got["cnn_ensemble"] >= steps,
               f"chunk {chunk}: kernel launches {got} < {steps} steps")
         r = checked(en, res, cfg, wt_oh, steps, n_chains, chunk, dev)
@@ -1460,9 +1541,10 @@ def phase_eval(torch, counters, dev, card):
             files = sorted(os.listdir(run_dir))
             with open(os.path.join(run_dir, "summary.json")) as f:
                 summary = json.load(f)
-            want = {"potts_energy_f32": EVAL_STEPS + 1,
-                    "cnn_ensemble_f32": EVAL_STEPS + 1,
-                    "flash_attention_fwd": 0, "flash_attention_bwd": 0}
+            want = with_rotary({"potts_energy_f32": EVAL_STEPS + 1,
+                                "cnn_ensemble_f32": EVAL_STEPS + 1,
+                                "flash_attention_fwd": 0,
+                                "flash_attention_bwd": 0})
             check(all(got[k] == n for k, n in want.items()),
                   f"cli {label}: kernel launches {got}, not {want}")
             if label == "no-weights":
@@ -1562,8 +1644,9 @@ def phase_eval(torch, counters, dev, card):
                                       eval_expert_correlation.main, a)
         n_layers = esm2.CONFIGS["transformer-S"]["layers"]
         want_c = n_layers * (1 + -(-EVAL_MUTANTS // EVAL_ESM_CHUNK))
-        want = {"flash_attention_fwd": want_c, "flash_attention_bwd": 0,
-                "potts_energy": 0, "cnn_ensemble": 0}
+        want = with_rotary({"flash_attention_fwd": want_c,
+                            "flash_attention_bwd": 0,
+                            "potts_energy": 0, "cnn_ensemble": 0})
         check(all(got[k] == n for k, n in want.items()),
               f"eval_expert_correlation: kernel launches {got}, not {want}")
         rho = res["spearman_vs_oracle"]
@@ -1777,9 +1860,10 @@ def phase_training(torch, counters, dev, card):
         n_layers = esm2.CONFIGS["transformer-S"]["layers"]
         # every step one forward and one backward a layer; the held-out CE
         # before and after: 4 repeats of one forward a layer each
-        want = {"flash_attention_fwd": n_layers * (TRAIN_S_STEPS + 2 * 4),
-                "flash_attention_bwd": n_layers * TRAIN_S_STEPS,
-                "potts_energy": 0, "cnn_ensemble": 0}
+        want = with_rotary({
+            "flash_attention_fwd": n_layers * (TRAIN_S_STEPS + 2 * 4),
+            "flash_attention_bwd": n_layers * TRAIN_S_STEPS,
+            "potts_energy": 0, "cnn_ensemble": 0})
         check(all(got[k] == n for k, n in want.items()),
               f"finetune_esm S: kernel launches {got}, not {want}")
         before, after = logged(r"held-out masked CE \w+: (\S+)", out)
@@ -1810,7 +1894,8 @@ def phase_training(torch, counters, dev, card):
         e = np.load(os.path.join(run_dir, "energy_history.npy"))
         check(np.isfinite(e).all() and got["flash_attention_fwd"]
               >= n_layers * TRAIN_CLI_STEPS
-              and got["flash_attention_bwd"] >= n_layers * TRAIN_CLI_STEPS,
+              and got["flash_attention_bwd"] >= n_layers * TRAIN_CLI_STEPS
+              and with_rotary(got) == got,
               f"the CLI on the fine-tuned expert: launches {got}")
         r["cli_with_esm_weights"] = {"steps": TRAIN_CLI_STEPS, "n_chains": 32,
                                      "steps_per_sec": summary["steps_per_sec"],
@@ -1831,8 +1916,9 @@ def phase_training(torch, counters, dev, card):
                  "--ckpt_every", str(TRAIN_L_STEPS // 2), "--log_every",
                  str(TRAIN_L_STEPS // 2)], "train_esm_mlm")
             # remat: a forward, then the forward again and the backward
-            want = {"flash_attention_fwd": 2 * TRAIN_L_LAYERS * TRAIN_L_STEPS,
-                    "flash_attention_bwd": TRAIN_L_LAYERS * TRAIN_L_STEPS}
+            want = with_rotary({
+                "flash_attention_fwd": 2 * TRAIN_L_LAYERS * TRAIN_L_STEPS,
+                "flash_attention_bwd": TRAIN_L_LAYERS * TRAIN_L_STEPS})
             check(all(got[k] == n for k, n in want.items()),
                   f"finetune_esm L: kernel launches {got}, not {want}")
             files = sorted(os.path.basename(f) for f in os.listdir(tmp)
@@ -2237,8 +2323,9 @@ def phase_mesh(torch, counters, dev, card):
         for label in ("train_no_mesh", "train_mesh_dp1"):
             n = child[label]["launches"]
             check(n["flash_attention_fwd"] == 12 * MESH_TRAIN_STEPS
-                  and n["flash_attention_bwd"] == 12 * MESH_TRAIN_STEPS,
-                  f"{label}: kernel C / C' launches {n}")
+                  and n["flash_attention_bwd"] == 12 * MESH_TRAIN_STEPS
+                  and with_rotary(n) == n,
+                  f"{label}: kernel C / C' (and qkv / rotary) launches {n}")
         for name, n in child["cli_launches"].items():
             launches[name] += n
         for name, n in child["train_mesh_dp1"]["launches"].items():
@@ -2479,7 +2566,8 @@ def cell_launches(args, steps, pieces=1, L=len(GFP_WT)):
     energy (one piece each). ``--energy_function supervised`` has neither
     Potts nor transformer term. A wild type of L > 256 residues (the
     reference-width CNN, C = L; the bf16 expert at T = L) runs B's wide
-    kernel and the key-tiled kernels C and C'."""
+    kernel and the key-tiled kernels C and C'. The qkv / rotary kernels run
+    as often as C and C'."""
     from ppde_tpu_torch.models import esm2
 
     poe = args.energy_function == "product_of_experts"
@@ -2505,7 +2593,7 @@ def cell_launches(args, steps, pieces=1, L=len(GFP_WT)):
         for way in ("fwd", "bwd"):
             want[f"flash_attention_{way}_kt"] = (
                 want[f"flash_attention_{way}"] * (L > 256))
-    return want
+    return with_rotary(want)
 
 
 def phase_large(torch, counters, dev, card):
@@ -2615,6 +2703,7 @@ def phase_large(torch, counters, dev, card):
             want.update(flash_attention_fwd=layers * ((1 + remat) * ft_steps
                                                       + 2 * 4),
                         flash_attention_bwd=layers * ft_steps)
+            want = with_rotary(want)
             check(got == want, f"{label}: kernel launches {got}, not {want}")
             files = sorted(f for f in os.listdir(tmp) if f.startswith(name))
             ckpt = f"{out_prefix}_ckpt_{ft_steps}.npz"
@@ -3027,9 +3116,10 @@ def evidence_family(torch, counters, dev, card, run, log, launches, by_run,
                                 "train_esm_mlm")
     # a step: one forward and one backward a layer; the held-out CE
     # before and after: 4 forwards a layer each
-    want = dict(dict.fromkeys(COUNTERS, 0),
-                flash_attention_fwd=layers * (EVID_FT_STEPS + 2 * 4),
-                flash_attention_bwd=layers * EVID_FT_STEPS)
+    want = with_rotary(dict(
+        dict.fromkeys(COUNTERS, 0),
+        flash_attention_fwd=layers * (EVID_FT_STEPS + 2 * 4),
+        flash_attention_bwd=layers * EVID_FT_STEPS))
     check(got == want, f"{label}: kernel launches {got}, not {want}")
     n_held = int(re.search(r"\(\+(\d+) held out\)", out).group(1))
     ce = dict(re.findall(r"held-out masked CE (\w+): (\S+)", out))
@@ -3215,8 +3305,8 @@ def evidence_family(torch, counters, dev, card, run, log, launches, by_run,
     with patched(training, "esm_mlm_heldout_ce", timing(torch, ce_s)):
         res, out, got, secs, _ = run("eval_esm_heldout_ce", tool, tool_argv)
     name = os.path.basename(ckpt)
-    want = dict(dict.fromkeys(COUNTERS, 0),
-                flash_attention_fwd=2 * layers * 4)  # 4 forwards a CE
+    want = with_rotary(dict(dict.fromkeys(COUNTERS, 0),
+                            flash_attention_fwd=2 * layers * 4))  # 4 a CE
     check(got == want, f"eval_esm_heldout_ce: launches {got}, not {want}")
     check(res["n_heldout"] == n_held and res["length"] == T,
           f"eval_esm_heldout_ce: {res['n_heldout']} held out of length "
@@ -3419,10 +3509,32 @@ def attention_row(c, c1, way, launches, line):
             "one_piece": attention_numbers(c1, way)}
 
 
+def rotary_row(rows, way, launches):
+    """The kernels line's row of the qkv / rotary kernel (way "fwd" or
+    "bwd"): ESM2-150M's call at GFP in bf16 (ROTARY_CASES[0]) as the
+    headline, every other case of phase 5 beside it."""
+    def numbers(r):
+        return {"shape": [r["B"], r["T"], r["heads"], r["hd"]],
+                "dtype": r["dtype"], "ms": r[f"{way}_ms"],
+                "plain_ms": r[f"{way}_plain_ms"],
+                "bound_ms": r[f"{way}_bound_ms"],
+                "bound_by": r[f"{way}_bound_by"]}
+
+    head = next(r for r in rows if (r["B"], r["T"], r["heads"], r["hd"])
+                == ROTARY_CASES[0] and r["dtype"] == "bfloat16")
+    return {"name": f"qkv_rotary_{way}", "route": "cuda",
+            "source": "ppde_tpu_torch/csrc/qkv_rotary.cu",
+            "replaces": "no TPU kernel (ppde_tpu/models/esm2.py: jnp)",
+            "launches": launches, "max_abs_err": 0.0, **numbers(head),
+            "library_ms": None,
+            "cases": [numbers(r) for r in rows if r is not head]}
+
+
 def kernel_rows(counts):
     """The launches of each row of the kernels line from the counters: A's
     bf16 and float32 launches; B's tc (bf16), simt (float32) and wide (each
-    type) kernels; the register (rs) and key-tiled kernels of C and C'."""
+    type) kernels; the register (rs) and key-tiled kernels of C and C';
+    the qkv / rotary kernels."""
     wide32 = counts["cnn_ensemble_wide_f32"]
     wide16 = counts["cnn_ensemble_wide"] - wide32
     return {
@@ -3435,6 +3547,8 @@ def kernel_rows(counts):
         **{f"flash_attention_{w}": counts[f"flash_attention_{w}"]
            - counts[f"flash_attention_{w}_kt"] for w in ("fwd", "bwd")},
         **{f"flash_attention_{w}_kt": counts[f"flash_attention_{w}_kt"]
+           for w in ("fwd", "bwd")},
+        **{f"qkv_rotary_{w}": counts[f"qkv_rotary_{w}"]
            for w in ("fwd", "bwd")}}
 
 
@@ -3451,7 +3565,7 @@ def main() -> int:
     from ppde_tpu_torch import codec, energy as energy_mod, utils
     from ppde_tpu_torch.models import cnn, esm2, potts
     from ppde_tpu_torch.ops import (_build, attention_fused, cnn_fused,
-                                    potts_fused)
+                                    potts_fused, rotary_fused)
     from ppde_tpu_torch.samplers.protein import ppde
 
     card = subprocess.run(
@@ -3477,6 +3591,7 @@ def main() -> int:
                                          potts, cnn, ppde, counters, dev,
                                          card),
         "attention": lambda: phase_attention(torch, attention_fused, dev),
+        "rotary": lambda: phase_rotary(torch, esm2, rotary_fused, dev),
         "transformer": lambda: phase_transformer(
             torch, codec, energy_mod, potts, cnn, esm2, ppde, counters, dev,
             card),
@@ -3503,7 +3618,8 @@ def main() -> int:
         print(f"phase {name} {time.perf_counter() - t:.1f} s", flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    pa, pb, pc = got["potts"], got["cnn"], got["attention"]
+    pa, pb, pc, pr = got["potts"], got["cnn"], got["attention"], \
+        got["rotary"]
     runs, launches = got["sampler"]
     tr_runs, tr_launches = got["transformer"]
     cli_runs, cli_launches = got["cli"]
@@ -3587,6 +3703,8 @@ def main() -> int:
                            78), name="flash_attention_fwd_kt"),
         dict(attention_row(ckt, ckt, "bwd", by_row["flash_attention_bwd_kt"],
                            99), name="flash_attention_bwd_kt"),
+        *(rotary_row(pr, way, by_row[f"qkv_rotary_{way}"])
+          for way in ("fwd", "bwd")),
     ]}
     # the key-tiled kernels also run every float32 call: GFP's chunk-16 and
     # one-piece shapes beside the library call
@@ -3657,6 +3775,7 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernel_a": pa,
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,
+                   "qkv_rotary": pr,
                    "transformer_sampler": tr_runs, "cli": cli_runs,
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
                    "eval": eval_runs, "training": train_runs,

@@ -21,8 +21,11 @@ parameter layout: a plain dict of tensors, weights ``[in, out]``,
 
 The attention core goes through ``ops/attention_fused.flash_attention``:
 kernels C and C' on a CUDA tensor (always: there is no switch and no einsum
-path on the card), their plain version on a CPU tensor. The projections, the
-FFN, the embedding and the LM head are plain matrix products.
+path on the card), their plain version on a CPU tensor; the glue between
+the q, k, v projections and it (head-major layout, q scale, rotary) through
+``ops/rotary_fused.qkv_rotary``, one kernel in each direction on a CUDA
+tensor, the plain composition on a CPU tensor. The projections, the FFN,
+the embedding and the LM head are plain matrix products.
 
 Multi-device (``parallel/mesh.py``): parameters from ``shard_esm`` hold the
 rank's heads and hidden units (Megatron tensor parallelism over tp: kernels
@@ -47,7 +50,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ppde_tpu_torch import codec, profiling, utils
-from ppde_tpu_torch.ops import attention_fused
+from ppde_tpu_torch.ops import attention_fused, rotary_fused
 from ppde_tpu_torch.parallel import mesh as pmesh
 
 # Canonical ESM alphabet (fair-esm proteinseq_toks + specials), index order.
@@ -231,20 +234,15 @@ def _attention(p, h, x, heads, tp=None, gather=None, rows=None):
                                  "attention heads")
             heads //= tp.size
             x = pmesh.copy_to(x, tp)
-
-        def proj(pp, v):
-            # contiguous [B, heads, T, hd]: the rotary passes then run on
-            # dense memory and the merge of (B, heads) below is a view
-            return _linear(pp, v).reshape(B, T, heads, hd).permute(
-                0, 2, 1, 3).contiguous()
-
-        q = proj(p["q"], x) * (1.0 / math.sqrt(hd))
-        k = proj(p["k"], x)
-        v = proj(p["v"], x)
+        q, k, v = (_linear(p[name], x) for name in ("q", "k", "v"))
     q, k, v = (profiling.grad_span(t, "esm2.bwd.qkv") for t in (q, k, v))
+    # contiguous [B, heads, T, hd], q scaled, q and k rotated: the merge of
+    # (B, heads) below is a view
     with profiling.span("esm2.rotary"):
-        q, k = _rotary(q, k)
-    q, k = (profiling.grad_span(t, "esm2.bwd.rotary") for t in (q, k))
+        cos, sin = _rotary_tables(T, hd, q.dtype, q.device)
+        q, k, v = rotary_fused.qkv_rotary(q, k, v, cos, sin, heads,
+                                          1.0 / math.sqrt(hd))
+    q, k, v = (profiling.grad_span(t, "esm2.bwd.rotary") for t in (q, k, v))
     # (B, heads) merge into one batch dimension Z, in that order; kernel C'
     # runs outside the backward kinds
     out = profiling.grad_span(attention_fused.flash_attention(

@@ -32,11 +32,12 @@ The program's spans (``SPANS``), where the work happens:
                        energy.potts and energy.esm2 (the terms' sums stay in
                        ``energy`` itself)
   esm2.<kind>          ESM2's forward (``models/esm2.py``): embed, norm (a
-                       layer norm with its float32 casts), qkv (projections,
-                       scale, contiguous permute), rotary, attn_out (head
-                       merge, o projection, residual), ffn (fc1, GELU, fc2,
-                       residual), head (final and LM norms, lm_dense, logits,
-                       log-softmax, PLL)
+                       layer norm with its float32 casts), qkv (the three
+                       projections), rotary (their head-major layout, q
+                       scale and rotary: ``ops/rotary_fused``), attn_out
+                       (head merge, o projection, residual), ffn (fc1, GELU,
+                       fc2, residual), head (final and LM norms, lm_dense,
+                       logits, log-softmax, PLL)
   esm2.backward        ``torch.autograd.grad`` of the transformer term
   esm2.bwd.<kind>      inside it, the backward of each forward kind
   kernel.a, kernel.b,  inside each kernel wrapper, around its launch

@@ -75,9 +75,9 @@ import torch
 from ppde_tpu_torch import (codec, energy as energy_mod, profiling, runtime,
                             utils)
 from ppde_tpu_torch.models import cnn, esm2, potts
-# the three kernel wrappers declare their launch counters when imported
+# the kernel wrappers declare their launch counters when imported
 from ppde_tpu_torch.ops import (_build, attention_fused,  # noqa: F401
-                                cnn_fused, potts_fused)
+                                cnn_fused, potts_fused, rotary_fused)
 from ppde_tpu_torch.samplers.base import Draws
 from ppde_tpu_torch.samplers.mnist import ppde as mnist_ppde
 from ppde_tpu_torch.samplers.protein import ppde
@@ -114,7 +114,7 @@ DIFFERENCES = {
 }
 
 # every kernel's launch counter, by its name in ``profiling``'s registry
-# (the three wrappers declare theirs): the _f32 counters count the float32
+# (the wrappers declare theirs): the _f32 counters count the float32
 # launches among the others, _wide those of kernel B's wide kernel, _kt
 # those of the key-tiled kernels C and C'
 COUNTERS = tuple(profiling.counters())
@@ -326,8 +326,9 @@ def expected_launches(device, n_calls: int, dtype: str, cnn_pieces: int,
                       attention: int) -> dict:
     """Each kernel's launches in ``n_calls`` calls of a GFP energy's
     ``energy_and_grad``: kernel A once a call, B ``cnn_pieces`` times, C and
-    C' ``attention`` times each; none on the CPU, where the plain versions
-    run."""
+    C' ``attention`` times each, and with them (once an ESM2 layer) the
+    qkv / rotary kernel forward and backward; none on the CPU, where the
+    plain versions run."""
     if device.type == "cpu":
         return dict.fromkeys(COUNTERS, 0)
     b = n_calls * cnn_pieces
@@ -341,7 +342,9 @@ def expected_launches(device, n_calls: int, dtype: str, cnn_pieces: int,
             "cnn_ensemble_wide": 0, "cnn_ensemble_wide_f32": 0,
             "flash_attention_fwd": n_calls * attention,
             "flash_attention_bwd": n_calls * attention,
-            "flash_attention_fwd_kt": kt, "flash_attention_bwd_kt": kt}
+            "flash_attention_fwd_kt": kt, "flash_attention_bwd_kt": kt,
+            "qkv_rotary_fwd": n_calls * attention,
+            "qkv_rotary_bwd": n_calls * attention}
 
 
 def _finish_row(row, timing, steps, launches, expected, checks):

@@ -295,9 +295,10 @@ def test_bench_torch_transformer_at_full_width():
 def test_expected_launches_on_the_card(dtype, attention):
     """The launch counts the bench demands of a CUDA run (a device object
     only: nothing runs): A once a call, B once a piece, C and C'
-    ``attention`` times a call; at GFP's T = 237 the key-tiled C and C'
-    take every float32 call and no bf16 one (the register kernels take
-    bf16 up to T = 256), B's wide kernel none; none at all on the CPU."""
+    ``attention`` times a call, the qkv / rotary kernel as often each way;
+    at GFP's T = 237 the key-tiled C and C' take every float32 call and no
+    bf16 one (the register kernels take bf16 up to T = 256), B's wide
+    kernel none; none at all on the CPU."""
     n, pieces = 7, 2
     got = bench.expected_launches(torch.device("cuda"), n, dtype, pieces,
                                   attention)
@@ -310,7 +311,9 @@ def test_expected_launches_on_the_card(dtype, attention):
                    "flash_attention_fwd": n * attention,
                    "flash_attention_bwd": n * attention,
                    "flash_attention_fwd_kt": n * attention * f32,
-                   "flash_attention_bwd_kt": n * attention * f32}
+                   "flash_attention_bwd_kt": n * attention * f32,
+                   "qkv_rotary_fwd": n * attention,
+                   "qkv_rotary_bwd": n * attention}
     assert not any(bench.expected_launches(torch.device("cpu"), n, dtype,
                                            pieces, attention).values())
 

@@ -1,4 +1,5 @@
-"""Kernels A, B, C and C' against their plain PyTorch versions, on the card.
+"""Kernels A, B, C and C' and the qkv / rotary kernels against their plain
+PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips where torch.cuda.is_available() is False
 (CUDA kernels have no CPU or interpret mode). On a machine with a GPU:
@@ -9,6 +10,7 @@ lacks). The cases are chip_smoke.py's at small sizes.
 import contextlib
 import io
 import json
+import math
 import re
 
 import numpy as np
@@ -16,7 +18,8 @@ import pytest
 import torch
 
 from ppde_tpu_torch.models import cnn, esm2
-from ppde_tpu_torch.ops import attention_fused, cnn_fused, potts_fused
+from ppde_tpu_torch.ops import (attention_fused, cnn_fused, potts_fused,
+                                rotary_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -607,6 +610,188 @@ def test_esm2_tiny_on_card_matches_cpu(dev, dtype, tol):
 
 
 # ---------------------------------------------------------------------------
+# the q scale, rotary and head-major layout between the projections and C
+# ---------------------------------------------------------------------------
+
+def _projections(B, T, H, hd, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [(torch.randn((B, T, H * hd), generator=g, device=dev) * 2.0).to(
+        dtype) for _ in range(3)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("H", [20, 10])
+@pytest.mark.parametrize("B", [1, 128])
+@pytest.mark.parametrize("T", [1, 237, 400, 1022])
+@pytest.mark.parametrize("hd", [24, 32, 64])
+def test_qkv_rotary_kernels_equal_the_composition(dev, hd, T, B, H, dtype):
+    """Transformer-S / -M / -L head widths, all heads and half of them (tp
+    2), GFP's length and longer, one sequence and the 128-chain piece: the
+    forward kernel's q', k', v and the backward kernel's gradients equal the
+    plain composition's bit for bit, one launch each."""
+    q, k, v = _projections(B, T, H, hd, dtype, dev, seed=T + hd + H)
+    cos, sin = esm2._rotary_tables(T, hd, dtype, q.device)
+    s = 1.0 / math.sqrt(hd)
+    n0 = (rotary_fused.launches_fwd, rotary_fused.launches_bwd)
+    got = rotary_fused.qkv_rotary(q, k, v, cos, sin, H, s)
+    cot = [t.reshape(B, H, T, hd) for t in _projections(
+        B, T, H, hd, dtype, dev, seed=B + T)]
+    got_b = rotary_fused.qkv_rotary_bwd(*cot, cos, sin, s)
+    assert (rotary_fused.launches_fwd, rotary_fused.launches_bwd) == (
+        n0[0] + 1, n0[1] + 1)
+    torch.cuda.synchronize()
+    want = rotary_fused.qkv_rotary_plain(q, k, v, cos, sin, H, s)
+    for a, b, name in zip(got, want, "qkv"):
+        assert a.shape == (B, H, T, hd) and a.is_contiguous()
+        assert torch.equal(a, b), name
+    del got, want
+    want_b = rotary_fused.qkv_rotary_bwd_plain(*cot, cos, sin, s)
+    for a, b, name in zip(got_b, want_b, "qkv"):
+        assert a.shape == (B, T, H * hd) and a.is_contiguous()
+        assert torch.equal(a, b), f"d{name}"
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("hd", [8, 24, 40, 48])
+def test_qkv_rotary_function_is_autograd_of_the_composition(dev, dtype, hd):
+    """The autograd.Function (forward kernel, backward kernel) against
+    autograd through the plain composition, bit for bit, at the head widths
+    whose halves are not whole 16-byte vectors in bf16 (8, 24, 40) and one
+    that is (48)."""
+    B, T, H = 3, 37, 4
+    ins = _projections(B, T, H, hd, dtype, dev, seed=hd)
+    cos, sin = esm2._rotary_tables(T, hd, dtype, ins[0].device)
+    cot = [t.reshape(B, H, T, hd)
+           for t in _projections(B, T, H, hd, dtype, dev, seed=hd + 1)]
+
+    def grads(fn):
+        xs = [t.clone().requires_grad_(True) for t in ins]
+        out = fn(*xs, cos, sin, H, 1.0 / math.sqrt(hd))
+        return out, torch.autograd.grad(out, xs, cot)
+
+    n0 = rotary_fused.launches_bwd
+    out, got = grads(rotary_fused.qkv_rotary)
+    assert rotary_fused.launches_bwd == n0 + 1
+    out0, want = grads(rotary_fused.qkv_rotary_plain)
+    for a, b in zip((*out, *got), (*out0, *want)):
+        assert torch.equal(a, b)
+
+
+def _plain_glue(monkeypatch):
+    """ESM2's attention with the plain composition in place of the
+    kernels, as it ran before them."""
+    monkeypatch.setattr(rotary_fused, "qkv_rotary",
+                        rotary_fused.qkv_rotary_plain)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name,dim", [("S", 480), ("M", 640), ("L", 1280)])
+def test_esm2_layer_input_gradient_equals_the_composition(
+        dev, monkeypatch, name, dim, dtype, remat):
+    """One whole ESM2 layer at transformer-S / -M / -L widths, 16 sequences
+    of GFP's length: the pseudo-log-likelihood and its gradient to the
+    one-hot input through the kernels equal those through the composition
+    bit for bit (under remat too, which recomputes the forward)."""
+    monkeypatch.setitem(esm2.CONFIGS, "one", dict(layers=1, dim=dim,
+                                                  heads=20, ffn=4 * dim))
+    params = esm2.init(torch.Generator(device=dev).manual_seed(dim), "one",
+                       dtype=dtype, scale=0.05)
+    g = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(4, 24, (16, 237), generator=g, device=dev)
+    x = torch.nn.functional.one_hot(toks, esm2.ESM_VOCAB).float()
+
+    def pll_and_grad():
+        xg = x.clone().requires_grad_(True)
+        y = esm2.pseudo_log_likelihood(params, xg, 20, remat=remat)
+        (gx,) = torch.autograd.grad(y.sum(), xg)
+        return y, gx
+
+    n0 = (rotary_fused.launches_fwd, rotary_fused.launches_bwd)
+    y1, g1 = pll_and_grad()
+    assert (rotary_fused.launches_fwd, rotary_fused.launches_bwd) == (
+        n0[0] + 1 + remat, n0[1] + 1)
+    _plain_glue(monkeypatch)
+    y0, g0 = pll_and_grad()
+    assert (rotary_fused.launches_fwd, rotary_fused.launches_bwd) == (
+        n0[0] + 1 + remat, n0[1] + 1)
+    assert torch.equal(y1, y0)
+    assert torch.equal(g1, g0)
+
+
+def test_esm_cell_energy_and_gradient_equal_the_composition(dev,
+                                                            monkeypatch):
+    """The benchmark's ESM cell at its sizes: potts + CNN + ESM2-150M in
+    bf16 (30 layers, one piece) at GFP, 128 chains of the wild type with
+    random mutations: energy, fitness and gradient through the kernels equal
+    those through the composition bit for bit; the kernels run once a layer
+    each way."""
+    from ppde_tpu_torch import codec, energy
+    from ppde_tpu_torch.models import potts
+
+    wt = (
+        "SKGEELFTGVVPILVELDGDVNGHKFSVSGEGEGDATYGKLTLKFICTTGKLPVPWPTLVTTLSYGV"
+        "QCFSRYPDHMKQHDFFKSAMPEGYVQERTIFFKDDGNYKTRAEVKFEGDTLVNRIELKGIDFKEDGN"
+        "ILGHKLEYNYNSHNVYIMADKQKNGIKVNFKIRHNIEDGSVQLADHYQQNTPIGDGPVLLPDNHYLS"
+        "TQSALSKDPNEKRDHMVLLEFVTAAGITHGMDELYK")
+    L = len(wt)
+    tr = esm2.load_expert("transformer-M", wt, allow_random=True, dtype=BF16,
+                          device=dev)
+    ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(0), 3,
+                            input_size=L)
+    wt_oh = torch.from_numpy(codec.seqs_to_onehot([wt])).to(dev)
+    en = energy.protein_poe(potts.synthetic(wt, seed=0, device=dev), ens,
+                            1.0, wt_oh, transformer=tr)
+    rng = np.random.default_rng(2)
+    x = wt_oh.repeat(128, 1, 1)
+    for i in range(128):
+        pos = rng.choice(L, 4, replace=False)
+        x[i, pos] = torch.eye(20, device=dev)[rng.integers(0, 20, 4)]
+
+    def call():
+        with torch.no_grad():
+            return en.energy_and_grad(en.params, x)
+
+    n0 = (rotary_fused.launches_fwd, rotary_fused.launches_bwd)
+    got = call()
+    assert (rotary_fused.launches_fwd, rotary_fused.launches_bwd) == (
+        n0[0] + 30, n0[1] + 30)
+    _plain_glue(monkeypatch)
+    want = call()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_qkv_rotary_rejects_bad_input(dev):
+    B, T, H, hd = 2, 9, 4, 8
+    q, k, v = _projections(B, T, H, hd, F32, dev, seed=0)
+    cos, sin = esm2._rotary_tables(T, hd, F32, q.device)
+    s = 1.0 / math.sqrt(hd)
+    with pytest.raises(ValueError):  # tables on another device
+        rotary_fused.qkv_rotary(q, k, v, cos.cpu(), sin.cpu(), H, s)
+    with pytest.raises(TypeError):  # float16
+        rotary_fused.qkv_rotary(q.half(), k.half(), v.half(), cos.half(),
+                                sin.half(), H, s)
+    with pytest.raises(TypeError):  # mixed types
+        rotary_fused.qkv_rotary(q, k.to(BF16), v, cos, sin, H, s)
+    with pytest.raises(ValueError):  # not contiguous
+        rotary_fused.qkv_rotary(*(t.transpose(0, 1).contiguous().transpose(
+            0, 1) for t in (q, k, v)), cos, sin, H, s)
+    for n in (12, 72):  # hd not a multiple of 8, or above 64
+        qn, kn, vn = _projections(B, T, 1, n, F32, dev, seed=n)
+        cn, sn = esm2._rotary_tables(T, n, F32, q.device)
+        with pytest.raises(ValueError):
+            rotary_fused.qkv_rotary(qn, kn, vn, cn, sn, 1, s)
+    with pytest.raises(ValueError):  # heads that do not divide the width
+        rotary_fused.qkv_rotary(q, k, v, cos, sin, 3, s)
+    with pytest.raises(ValueError):  # cotangents of another width
+        rotary_fused.qkv_rotary_bwd(*(t.reshape(B, H, T, hd)[..., :4]
+                                      .contiguous() for t in (q, k, v)),
+                                    cos, sin, s)
+
+
+# ---------------------------------------------------------------------------
 # training: kernels C and C' at finetune_esm's shapes, one trainer step
 # ---------------------------------------------------------------------------
 
@@ -930,13 +1115,16 @@ def test_potts_block_rejects_what_it_does_not_take(dev):
 # the kernel wrappers' spans in a traced energy call
 # ---------------------------------------------------------------------------
 
-# the kernels each wrapper launches (csrc/*.cu), by name fragment
+# the kernels each wrapper launches (csrc/*.cu), by name fragment, under the
+# span that holds the launch
 WRAPPER_KERNELS = {
     "kernel.a": ("potts_grad_kernel_wgmma", "potts_finish"),
     "kernel.b": ("fit_grad_kernel", "cnn_member_reduce", "tokens_kernel",
                  "wide::fwd_", "wide::bwd_"),
     "kernel.c": ("attn_fwd_",),
     "kernel.c_bwd": ("attn_bwd_",),
+    "esm2.rotary": ("qkv_rotary_fwd",),
+    "esm2.bwd.rotary": ("qkv_rotary_bwd",),
 }
 
 
@@ -945,9 +1133,10 @@ def test_traced_energy_books_every_kernel_under_its_span(dev, tmp_path, L):
     """potts + CNN (C = L, float32: ``simt`` at 237, ``wide`` past 256) +
     a tiny bf16 ESM2 (C, C' ``rs`` at 237, ``kt`` past 256), 8 chains:
     every kernel of A, B, C and C' in the traced call was launched inside
-    its wrapper's span (no launch call lost), the trace holds each one's
-    launches, and the untraced call launched the same kernels and gave the
-    same bits."""
+    its wrapper's span, and the qkv / rotary kernels inside ``esm2.rotary``
+    and ``esm2.bwd.rotary`` (no launch call lost), the trace holds each
+    one's launches, and the untraced call launched the same kernels and
+    gave the same bits."""
     from ppde_tpu_torch import codec, energy, profiling
     from ppde_tpu_torch.models import potts
 
@@ -979,6 +1168,7 @@ def test_traced_energy_books_every_kernel_under_its_span(dev, tmp_path, L):
     assert n_off["potts_energy"] == n_off["cnn_ensemble"] == 1
     assert n_off["cnn_ensemble_wide"] == int(L > 256)
     assert n_off["flash_attention_fwd"] == n_off["flash_attention_bwd"] == 2
+    assert n_off["qkv_rotary_fwd"] == n_off["qkv_rotary_bwd"] == 2
     for a, b in zip(off, on):
         assert torch.equal(a, b)
 

@@ -13,7 +13,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from ppde_tpu_torch import codec, energy, profiling
 from ppde_tpu_torch.models import cnn, esm2, potts
-from ppde_tpu_torch.ops import attention_fused, cnn_fused, potts_fused
+from ppde_tpu_torch.ops import (attention_fused, cnn_fused, potts_fused,
+                                rotary_fused)
 from ppde_tpu_torch.samplers.protein import ppde
 
 WT = "ACDEFGHIKLMNPQRSTVWY"  # 20 residues
@@ -29,6 +30,8 @@ OLD_ATTRIBUTES = {
                       "launches_bwd": "flash_attention_bwd",
                       "launches_fwd_kt": "flash_attention_fwd_kt",
                       "launches_bwd_kt": "flash_attention_bwd_kt"},
+    rotary_fused: {"launches_fwd": "qkv_rotary_fwd",
+                   "launches_bwd": "qkv_rotary_bwd"},
 }
 
 

@@ -15,7 +15,8 @@ default types), runs a warm-up, then traces ``--steps`` sampler steps
 with torch.profiler and prints one JSON line per population: the step time,
 the device time by kernel name (top 12), the device time by the program's
 spans (``profiling.device_by_span``: the port's kernels by their wrappers'
-spans ``kernel.*``, ESM2 by block kind, the sampler's work), the device busy
+spans ``kernel.*``, ESM2 by block kind, the sampler's work) and the
+kernels a step by the same spans, the device busy
 share (the union of kernel intervals over the
 traced window) and the card's name and power limit. ``--transformer
 [NAME]`` adds the random-init ESM2 expert NAME at full width and depth
@@ -531,6 +532,8 @@ def main() -> int:
             "kernel_launches_per_step": len(kernels) / steps,
             "port_kernels_device_ms_per_step": own,
             "device_ms_per_step_by_span": spans,
+            "kernels_per_step_by_span": {
+                str(k): v["kernels"] / steps for k, v in by_span.items()},
             "unmatched_launches": unmatched,
             "device_ms_per_step_by_kernel": {
                 k[:80]: v / steps / 1e3 for k, v in top},
