@@ -35,24 +35,17 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from portbench import compare, proteins, reference, trace, yardstick
+from portbench import (compare, experts, program_spans, proteins, reference,
+                       trace, yardstick)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HERE = os.path.dirname(os.path.abspath(__file__))
 TRACE_SECONDS = 5.0   # longest traced window
 SIZING_SECONDS = 0.25  # least length of the call that sizes the window
 WINDOW_SPAN = "window.ppde_run"
-# chains a block of the reference's autograd: ESM2 in float32 keeps ~0.3 GB
-# of activations a chain at GFP's length
-REFERENCE_BLOCK_ESM = 16
+# chains a block of the reference's autograd (an expert's module may ask
+# for fewer)
 REFERENCE_BLOCK = 256
-# the wrappers' launch counters (module, attribute)
-COUNTERS = {
-    "kernel_a": ("ppde_tpu_torch.ops.potts_fused", "launches"),
-    "kernel_b": ("ppde_tpu_torch.ops.cnn_fused", "launches"),
-    "kernel_c": ("ppde_tpu_torch.ops.attention_fused", "launches_fwd"),
-    "kernel_c_bwd": ("ppde_tpu_torch.ops.attention_fused", "launches_bwd"),
-}
 FORBIDDEN = ("jax", "jaxlib", "flax", "ppde_tpu")
 
 
@@ -106,10 +99,9 @@ def reader(name: str):
 
 
 def counters() -> dict:
-    out = {}
-    for k, (mod, attr) in COUNTERS.items():
-        out[k] = getattr(importlib.import_module(mod), attr)
-    return out
+    """Every kernel's launch counter (``trace.kernels()``), by key."""
+    return {k: getattr(importlib.import_module(mod), attr)
+            for k, (mod, _, attr) in trace.kernels().items()}
 
 
 class Capture:
@@ -133,9 +125,8 @@ def _sync(device):
 
 
 # the CLI's ``--compute_dtype`` of the Potts and CNN terms, by the
-# configuration's ``dtype``; ESM2 is served in the one type its loader has
+# configuration's ``dtype``; each expert checks its own
 COMPUTE_DTYPES = {"float32": "f32", "bfloat16": "bf16"}
-ESM_DTYPE = "bfloat16"
 SAMPLER = "PPDE-PAS"
 
 
@@ -150,10 +141,8 @@ def cli_settings(config: dict) -> dict:
     if len(dts) != 1 or not dts <= set(COMPUTE_DTYPES):
         raise ValueError(f"Potts and CNN dtypes {sorted(dts)}: the CLI runs "
                          f"both in one of {sorted(COMPUTE_DTYPES)}")
-    esm = config.get("esm2")
-    if esm is not None and esm["dtype"] != ESM_DTYPE:
-        raise ValueError(f"ESM2 dtype {esm['dtype']!r}: the program serves "
-                         f"ESM2 in {ESM_DTYPE} only")
+    for _, mod, cfg in experts.of(config):
+        mod.check_dtype(cfg)
     return {"compute_dtype": COMPUTE_DTYPES[dts.pop()],
             "pas_length": int(s["pas_length"]),
             "nmut_threshold": int(s["nmut_threshold"]),
@@ -164,24 +153,27 @@ def build(config: dict, traffic: dict, seed: int, tmp: str, device,
           log=None):
     """The protein directory from the seed and the energy the CLI
     assembles from it; returns (paths, energy, population). The program
-    decides, as for the CLI's defaults, ESM2's pieces, B's chunks and the
-    max-pool's backward; the configuration states the compute type."""
+    decides, as for the CLI's defaults, B's chunks and the max-pool's
+    backward; each expert's module gives its own CLI term and arguments;
+    the configuration states the compute type."""
     from ppde_tpu_torch import runtime
 
     name = traffic["protein"]
     t0 = time.perf_counter()
     paths = proteins.write(tmp, name, config, traffic, seed, device)
     t1 = time.perf_counter()
-    esm = config.get("esm2")
-    experts = "potts" + (f"+{esm['program_name']}" if esm else "")
+    terms, extra = ["potts"], {}
+    for key, mod, cfg in experts.of(config):
+        terms.append(mod.cli_term(cfg))
+        extra.update(mod.cli_args(cfg, paths["experts"][key]))
     args = SimpleNamespace(
         protein_weights=tmp, protein=name,
-        energy_function="product_of_experts", unsupervised_expert=experts,
+        energy_function="product_of_experts",
+        unsupervised_expert="+".join(terms),
         energy_lamda=float(config["energy_lamda"]),
         n_chains=int(traffic["n_chains"]), potts_npz=paths["potts"],
-        esm_weights=paths["esm"], allow_random_esm=False,
         compute_dtype=cli_settings(config)["compute_dtype"], cnn_chunk=0,
-        pool_bwd="split", esm_chunk=0)
+        pool_bwd="split", **extra)
     energy, _, _, _ = runtime.build_protein_energy(args, device)
     pop = runtime.make_initial_protein_population(paths["dir"],
                                                   args.n_chains, device)
@@ -334,17 +326,14 @@ def _run(cell_name, spec, config, traffic, seed, seconds, traced, device,
         run_ok, why = False, str(exc)
 
     t_ref = time.perf_counter()
-    esm = config.get("esm2")
-    raw = reference.load(paths["dir"], "potts.npz",
-                         "esm2.npz" if esm else None, device)
-    block = REFERENCE_BLOCK_ESM if esm else REFERENCE_BLOCK
+    exps = experts.of(config)
+    raw = reference.load(paths["dir"], "potts.npz", exps, device)
+    block = min([REFERENCE_BLOCK]
+                + [mod.REFERENCE_BLOCK for _, mod, _ in exps])
 
     def values(precision):
-        ref = reference.Reference(
-            raw, float(config["energy_lamda"]),
-            esm_layers=esm["layers"] if esm else None,
-            esm_heads=esm["attention_heads"] if esm else 20,
-            precision=precision)
+        ref = reference.Reference(raw, float(config["energy_lamda"]),
+                                  precision=precision)
         return compare.evaluate(ref, x_last, res.best_x, res.final_x, block)
 
     ref_vals = values("reference")
@@ -391,6 +380,7 @@ def _run(cell_name, spec, config, traffic, seed, seconds, traced, device,
             "unmatched_launches": attr.unmatched,
         }
         log("trace: " + json.dumps(run_rec["trace"]))
+        run_rec["trace"]["program"] = program_spans.read(attr, w0, w1)
         out["breakdown"] = {"device_ops": attr.top_ops(),
                             "idle_gaps": attr.idle_gaps(w0, w1)}
     metrics = {}

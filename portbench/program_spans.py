@@ -1,8 +1,9 @@
 """The program's own spans in a traced window.
 
 The program opens named spans where its work happens (``sampler.*``,
-``ppde.*``, ``energy`` and ``energy.*``, ``esm2.*``, ``kernel.*``) while a
-profiler records. ``read`` takes them from the window's
+``ppde.*``, ``energy`` and ``energy.*``, ``kernel.*``, and inside each
+expert the prefix its module gives, ``SPAN_PREFIX``) while a profiler
+records. ``read`` takes them from the window's
 ``trace.Attribution`` (its host events, device activities and launch calls)
 and gives:
 
@@ -19,34 +20,35 @@ Time outside every program span goes under ``OUTSIDE``. A trace of a
 program without these spans gives empty tables.
 
 ``of_run`` gives the readers of ``metrics/`` these tables for a traced
-run: ``run["trace"]["program"]`` where the harness stores them there; the
-harness as it stands does not (that takes one line in ``harness._run``'s
-traced block: ``run_rec["trace"]["program"] = program_spans.read(attr, w0,
-w1)``), so they are read here from the traced window's ``Attribution``
-and window that ``harness._run``, which calls the readers, holds as
-``attr``, ``w0`` and ``w1``, and kept in the run for the next reader.
+run: ``run["trace"]["program"]``, which ``harness._run`` stores there.
 """
 from __future__ import annotations
 
 import bisect
-import sys
 
-from portbench import trace
+from portbench import experts
 
-PREFIXES = ("sampler.", "ppde.", "energy.", "esm2.", "kernel.")
+PREFIXES = ("sampler.", "ppde.", "energy.", "kernel.")
 OUTSIDE = "outside"
 
 
-def is_program(name: str) -> bool:
-    return name == "energy" or name.startswith(PREFIXES)
+def prefixes() -> tuple[str, ...]:
+    """The program's span prefixes: the sampler's, the energy's, the
+    kernels', and every expert module's."""
+    return PREFIXES + tuple(m.SPAN_PREFIX for m in experts.modules())
+
+
+def is_program(name: str, pre: tuple[str, ...]) -> bool:
+    return name == "energy" or name.startswith(pre)
 
 
 class _Spans:
     """Program spans, nested by time across threads."""
 
     def __init__(self, host):
+        pre = prefixes()
         self.spans = [e for e in host if e.get("cat") == "user_annotation"
-                      and is_program(e.get("name", ""))]  # sorted by start
+                      and is_program(e.get("name", ""), pre)]  # by start
         self.starts = [s["ts"] for s in self.spans]
         self.parent: list[int | None] = []
         stack: list[int] = []
@@ -66,23 +68,9 @@ class _Spans:
 
 
 def of_run(run: dict) -> dict | None:
-    """The program's tables of a traced run, or None (no trace, or no
-    traced window in the calling harness)."""
+    """The program's tables of a traced run, or None (no trace)."""
     t = run.get("trace")
-    if not t:
-        return None
-    if "program" not in t:
-        frame = sys._getframe(1)
-        while frame is not None:
-            loc = frame.f_locals
-            if isinstance(loc.get("attr"), trace.Attribution) \
-                    and "w0" in loc and "w1" in loc:
-                t["program"] = read(loc["attr"], loc["w0"], loc["w1"])
-                break
-            frame = frame.f_back
-        else:
-            return None
-    return t["program"]
+    return t.get("program") if t else None
 
 
 def read(attr, w0: float, w1: float) -> dict:

@@ -13,10 +13,8 @@
     init bounds;
   * the 20 linear oracle heads' pickles (the run assembly loads them; the
     window never calls the oracle);
-  * ``esm2.npz`` for a configuration with ESM2: every leaf in the native
-    checkpoint's order (dict keys sorted, lists in order), weights and the
-    linear biases rounded to bfloat16, the layer norms and the LM bias in
-    float32.
+  * each expert's files (``experts/<key>.py``'s ``write``), drawn from the
+    same generator after the CNN's, in the configuration's order.
 
 The program and the plain reference both read these files.
 """
@@ -29,9 +27,10 @@ import pickle
 import numpy as np
 import torch
 
+from portbench import experts
+
 ALPHABET = "ACDEFGHIKLMNPQRSTVWY"
 V = 20
-ESM_VOCAB = 33
 
 
 def wild_type(traffic: dict, seed: int) -> str:
@@ -85,50 +84,6 @@ def cnn_members(gen, L: int, cfg: dict, device) -> list[dict]:
     return out
 
 
-def esm_leaves(cfg: dict) -> list[tuple[str, tuple]]:
-    """(kind, shape) of every leaf of an ESM2 tree in the native
-    checkpoint's order; kind: weight, bias, ln_g, ln_b, lm_bias."""
-    D, Fd, N = cfg["embed_dim"], cfg["ffn_embed_dim"], cfg["layers"]
-
-    def lin(i, o):
-        return [("bias", (o,)), ("weight", (i, o))]
-
-    def ln(d):
-        return [("ln_b", (d,)), ("ln_g", (d,))]
-
-    layer = (ln(D) + lin(D, Fd) + lin(Fd, D) + ln(D)      # attn_ln fc1 fc2
-             + lin(D, D) + lin(D, D) + lin(D, D) + lin(D, D))  # ffn_ln k o q v
-    return ([("weight", (ESM_VOCAB, D))] + ln(D) + layer * N
-            + [("lm_bias", (ESM_VOCAB,))] + lin(D, D) + ln(D))
-
-
-def esm_arrays(gen, cfg: dict, device) -> list[np.ndarray]:
-    """Every leaf, drawn as one normal vector and scaled per leaf: weights
-    N(0, 1/fan_in) (the embedding N(0, init_embed_std^2)), biases, layer-norm
-    offsets and the LM bias N(0, init_bias_std^2), layer-norm gains 1 +
-    N(0, init_bias_std^2); weights and linear biases rounded to bfloat16."""
-    leaves = esm_leaves(cfg)
-    sizes = [math.prod(s) for _, s in leaves]
-    z = _normal(gen, sum(sizes), device)
-    out, off = [], 0
-    bstd = cfg["init_bias_std"]
-    for (kind, shape), n in zip(leaves, sizes):
-        a = z[off:off + n].reshape(shape)
-        off += n
-        if kind == "weight":
-            std = (cfg["init_embed_std"] if shape[0] == ESM_VOCAB
-                   else 1.0 / math.sqrt(shape[0]))
-            a = (a * std).to(torch.bfloat16).float()
-        elif kind == "bias":
-            a = (a * bstd).to(torch.bfloat16).float()
-        elif kind == "ln_g":
-            a = 1.0 + a * bstd
-        else:
-            a = a * bstd
-        out.append(a.cpu().numpy())
-    return out
-
-
 def write(root: str, name: str, config: dict, traffic: dict, seed: int,
           device) -> dict:
     """Write the directory ``root/name``; returns its paths."""
@@ -154,10 +109,6 @@ def write(root: str, name: str, config: dict, traffic: dict, seed: int,
             pickle.dump({"coef_": rng.normal(0.0, 0.01, d),
                          "intercept_": float(rng.normal(0.0, 0.1)),
                          "reg_coef": float(rng.uniform(0.5, 2.0))}, f)
-    esm_file = None
-    if config.get("esm2") is not None:
-        esm_file = os.path.join(path, "esm2.npz")
-        leaves = esm_arrays(gen, config["esm2"], device)
-        np.savez(esm_file, step=0, **{f"p{i}": a for i, a in
-                                      enumerate(leaves)})
-    return {"dir": path, "wt": wt, "potts": potts_file, "esm": esm_file}
+    files = {key: mod.write(gen, cfg, path, wt, device)
+             for key, mod, cfg in experts.of(config)}
+    return {"dir": path, "wt": wt, "potts": potts_file, "experts": files}

@@ -32,6 +32,7 @@ def test_a_run_loads_no_jax():
 
 def test_the_reference_and_yardstick_import_nothing_of_the_program():
     files = glob.glob(os.path.join(harness.HERE, "reference", "*.py"))
+    files += glob.glob(os.path.join(harness.HERE, "experts", "*.py"))
     files.append(os.path.join(harness.HERE, "yardstick.py"))
     for f in files:
         tree = ast.parse(open(f).read())

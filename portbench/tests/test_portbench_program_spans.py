@@ -121,14 +121,10 @@ def test_readers_give_nothing_without_the_programs_spans(name):
     assert harness.reader(name)({"trace": None, "steps": 1}) is None
 
 
-def test_of_run_reads_the_callers_window_once():
-    """Where the harness does not store the tables, they are read from the
-    calling frame's traced window, and kept in the run."""
-    attr, w0, w1 = trace.Attribution(recorded()), 0, 200  # noqa: F841
-    run = {"trace": {"device_s": {}}, "steps": 2}
-    got = harness.reader("esm2_fwd_ms_per_step")(run)
-    assert got == pytest.approx(3e-3)
-    assert run["trace"]["program"] == program_spans.read(attr, w0, w1)
+def test_of_run_gives_the_tables_the_harness_stored():
+    run = {"trace": {"device_s": {}, "program": tables()}, "steps": 2}
+    assert program_spans.of_run(run) is run["trace"]["program"]
+    assert harness.reader("esm2_fwd_ms_per_step")(run) == pytest.approx(3e-3)
 
 
 def test_of_run_without_a_traced_window_gives_nothing():

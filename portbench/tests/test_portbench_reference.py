@@ -4,7 +4,8 @@ import numpy as np
 import pytest
 import torch
 
-from portbench import harness, proteins, reference
+from portbench import experts, harness, reference
+from portbench.experts import esm2 as esm2_expert
 
 TINY_ESM = {"program_name": "transformer-T", "layers": 2, "embed_dim": 32,
             "attention_heads": 4, "ffn_embed_dim": 64, "vocab": 33,
@@ -29,7 +30,7 @@ def test_esm_leaf_order_is_the_programs():
     cfg = harness.load_json(
         f"{harness.HERE}/configs/poe-potts-cnn-esm2-150m.json")["esm2"]
     want = [tuple(s) for s in esm2._flatten(esm2._shapes("transformer-M"))]
-    assert [s for _, s in proteins.esm_leaves(cfg)] == want
+    assert [s for _, s in esm2_expert.esm_leaves(cfg)] == want
 
 
 def test_reference_esm_against_the_program_in_float32(monkeypatch, tmp_path):
@@ -37,17 +38,17 @@ def test_reference_esm_against_the_program_in_float32(monkeypatch, tmp_path):
 
     monkeypatch.setitem(esm2.CONFIGS, "transformer-T",
                         dict(layers=2, dim=32, heads=4, ffn=64))
-    leaves = proteins.esm_arrays(torch.Generator().manual_seed(3), TINY_ESM,
-                                 "cpu")
+    leaves = esm2_expert.esm_arrays(torch.Generator().manual_seed(3),
+                                    TINY_ESM, "cpu")
     path = str(tmp_path / "esm.npz")
     np.savez(path, step=0, **{f"p{i}": a for i, a in enumerate(leaves)})
     prog = esm2.load_npz_checkpoint(path, "transformer-T", torch.float32,
                                     "cpu")
-    ref = reference.esm_tree([torch.from_numpy(a) for a in leaves], 2)
-    x = random_onehots(3, 9, 0) @ reference.esm_perm("cpu")
+    ref = esm2_expert.esm_tree([torch.from_numpy(a) for a in leaves], 2)
+    x = random_onehots(3, 9, 0) @ esm2_expert.esm_perm("cpu")
     xa, xb = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
     pa = esm2.pseudo_log_likelihood(prog, xa, heads=4)
-    pb = reference.esm_pll(ref, xb, 4, reference.Precision("reference"))
+    pb = esm2_expert.esm_pll(ref, xb, 4, lambda t: t)
     torch.testing.assert_close(pb, pa, rtol=1e-5, atol=1e-4)
     (ga,) = torch.autograd.grad(pa.sum(), xa)
     (gb,) = torch.autograd.grad(pb.sum(), xb)
@@ -71,10 +72,8 @@ def test_reference_energy_against_the_programs_assembly(esm, monkeypatch,
     paths, en, pop = harness.build(cfg, traffic, 12345, str(tmp_path), dev)
     x = random_onehots(6, 14, 1)
     e, fit, grad = en.energy_and_grad(en.params, x)
-    raw = reference.load(paths["dir"], "potts.npz",
-                         "esm2.npz" if esm else None, dev)
-    ref = reference.Reference(raw, cfg["energy_lamda"], esm_layers=2,
-                              esm_heads=4)
+    raw = reference.load(paths["dir"], "potts.npz", experts.of(cfg), dev)
+    ref = reference.Reference(raw, cfg["energy_lamda"])
     re, rfit, rgrad = ref.energy_and_grad(x, block=4)
     torch.testing.assert_close(rfit, fit, rtol=1e-5, atol=1e-5)
     if esm is None:
@@ -94,11 +93,12 @@ def test_control_roundings():
     assert reference.round_tf32(one).tolist() == [1.0 + 2.0 ** -10, 1.0,
                                                   -3.0]
     t = torch.tensor([448.0, 1.0, 0.3])
-    q = reference.round_fp8(t)
+    q = esm2_expert.round_fp8(t)
     assert q[0] == 448.0 and q[1] == 1.0 and q[2] != 0.3
     assert abs(q[2] - 0.3) <= 0.3 * 2.0 ** -4
     # straight through: the gradient of a rounded operand is the identity
     p = reference.Precision("control")
     x = torch.tensor([0.3, 0.7], requires_grad=True)
-    (g,) = torch.autograd.grad(p.bf16(x).sum(), x)
+    (g,) = torch.autograd.grad(p.rounding(esm2_expert.control_round)(x)
+                               .sum(), x)
     assert g.tolist() == [1.0, 1.0]

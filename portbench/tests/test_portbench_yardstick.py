@@ -3,6 +3,7 @@ PERF.md recorded for the same shapes (NVIDIA H100 peaks)."""
 import pytest
 
 from portbench import yardstick as y
+from portbench.experts import esm2
 
 
 def test_potts_counts_at_gfp_by_hand():
@@ -56,7 +57,8 @@ def test_attention_and_esm_counts():
                                                               abs=1e-4)
     # transformer-M, 128 chains, forward and backward to the input: 19.00
     # TFLOP a step (PERF.md section 5)
-    f = y.esm_forward_flops(30, 640, 2560, 237)
+    f = esm2.forward_flops({"layers": 30, "embed_dim": 640,
+                            "ffn_embed_dim": 2560, "vocab": 33}, 237)
     assert f == 30 * (8 * 237 * 640 ** 2 + 4 * 237 * 640 * 2560
                       + 4 * 237 ** 2 * 640) + 4 * 237 * 640 * 33
     assert 2 * 128 * f / 1e12 == pytest.approx(19.00, abs=0.005)

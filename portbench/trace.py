@@ -1,13 +1,12 @@
 """Spans by launch site, and the reading of a profiler trace.
 
 ``spans()`` opens a named span (``torch.profiler.record_function``) around
-each entry of the program's three kernel wrappers: kernel A
+each entry of the program's kernel wrappers: kernel A
 (``potts_fused.energy_and_grad``), kernel B
-(``cnn_fused.ensemble_apply_and_grad``), kernel C (``attention_fused``'s
-``_fwd_cuda``) and C' (``_bwd_cuda``, which autograd's backward calls on its
-own thread). The harness opens ``ENERGY`` around the energy's
-``energy_and_grad``. They are installed from here, for a traced run only,
-and taken out after it.
+(``cnn_fused.ensemble_apply_and_grad``) and each expert module's
+``KERNELS`` (``kernels()``), on whichever host thread calls them. The
+harness opens ``ENERGY`` around the energy's ``energy_and_grad``. They are
+installed from here, for a traced run only, and taken out after it.
 
 ``Attribution`` reads a Chrome trace of ``torch.profiler``: each device
 activity (kernel, memcpy, memset) belongs to the innermost span that was
@@ -24,20 +23,29 @@ import json
 
 import torch
 
+from portbench import experts
+
 PREFIX = "portbench."
 ENERGY = PREFIX + "energy"
-KERNEL_SPANS = {  # span -> (wrapper module, attribute)
-    PREFIX + "kernel_a": ("ppde_tpu_torch.ops.potts_fused",
-                          "energy_and_grad"),
-    PREFIX + "kernel_b": ("ppde_tpu_torch.ops.cnn_fused",
-                          "ensemble_apply_and_grad"),
-    PREFIX + "kernel_c": ("ppde_tpu_torch.ops.attention_fused", "_fwd_cuda"),
-    PREFIX + "kernel_c_bwd": ("ppde_tpu_torch.ops.attention_fused",
-                              "_bwd_cuda"),
+# key -> (wrapper module, wrapper attribute, launch counter attribute); the
+# key's span is PREFIX + key
+KERNELS = {
+    "kernel_a": ("ppde_tpu_torch.ops.potts_fused", "energy_and_grad",
+                 "launches"),
+    "kernel_b": ("ppde_tpu_torch.ops.cnn_fused", "ensemble_apply_and_grad",
+                 "launches"),
 }
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 HOST_CATS = ("cpu_op", "user_annotation", "python_function")
+
+
+def kernels() -> dict:
+    """A's and B's entries, then every expert module's, by key."""
+    out = dict(KERNELS)
+    for mod in experts.modules():
+        out.update(mod.KERNELS)
+    return out
 
 
 def _spanned(name, fn):
@@ -55,11 +63,11 @@ def spans():
 
     saved = []
     try:
-        for name, (mod_name, attr) in KERNEL_SPANS.items():
+        for key, (mod_name, attr, _) in kernels().items():
             mod = importlib.import_module(mod_name)
             fn = getattr(mod, attr)
             saved.append((mod, attr, fn))
-            setattr(mod, attr, _spanned(name, fn))
+            setattr(mod, attr, _spanned(PREFIX + key, fn))
         yield
     finally:
         for mod, attr, fn in saved:
@@ -80,7 +88,7 @@ class Attribution:
              and e.get("name", "").startswith(PREFIX)),
             key=lambda e: e["ts"])
         self.starts = [s["ts"] for s in self.spans]
-        # the spans nest (a wrapper's span lies inside the energy's, C''s on
+        # the spans nest (a wrapper's span lies inside the energy's, on
         # autograd's thread too): each span's parent is the innermost span
         # that was open when it started
         self.parent: list[int | None] = []

@@ -11,7 +11,6 @@ program cannot move it:
     ``chip_smoke.py:636``, ``:664``, counted from the shapes of a one-hot
     input (a patch of K one-hot rows has K nonzeros);
   * ``attention_bytes_ops``: kernels C and C''s, ``chip_smoke.py:899-906``;
-  * ``esm_forward_flops``: ``chip_smoke.py:2401``;
   * ``check_run``: ``ppde_tpu_torch/scripts/bench.py::check_run``, without
     its fresh evaluation of the best states (the plain reference does that
     here, ``compare.py``).
@@ -81,16 +80,6 @@ def attention_bytes_ops(Z: int, T: int, hd: int, dtype: str,
     if backward:
         return 7 * n * s, 10 * n * T
     return 4 * n * s, 4 * n * T
-
-
-def esm_forward_flops(layers: int, dim: int, ffn: int, T: int,
-                      vocab: int = 33) -> int:
-    """FLOPs of one ESM2 forward over T tokens: a layer's q, k, v, o
-    projections 8 T D^2, its FFN 4 T D F, its scores and values 4 T^2 D,
-    and the embedding and LM head 4 T D V."""
-    D = dim
-    return layers * (8 * T * D * D + 4 * T * D * ffn + 4 * T * T * D) \
-        + 4 * T * D * vocab
 
 
 class CheckFailed(AssertionError):
