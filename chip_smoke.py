@@ -34,7 +34,14 @@ no result line):
      (the head-major layout, q scale and rotary between ESM2's
      projections and kernel C, forward and backward) at ROTARY_CASES,
      float32 and bfloat16, bit for bit against the plain composition,
-     timed beside it and against their bytes bound;
+     timed beside it and against their bytes bound; then kernels T and T'
+     (the MSA Transformer's tied row attention, forward and backward)
+     against their plain versions at the msa-1b cell's launch (ROW_CASES:
+     bf16, and float32 at 4 chains), run twice, held as C and C', timed
+     beside the plain versions and one scaled_dot_product_attention over
+     the [N, H, C, R hd] view; and one potts + msa-1b energy_and_grad at
+     128 chains and 32 rows (counters as in 4: T, T', C and C' 12 x the
+     pieces each, A once, the qkv / rotary kernels never);
   6. the same sampler with the potts + transformer-S product of experts
      (random-init ESM2 at full width and depth, bf16, lambda=1): 128 chains
      with the transformer's gradient in chain chunks of 16 and in one
@@ -210,9 +217,10 @@ no result line):
      and C' in one traced energy_and_grad, and at 1022 the one-piece
      transformer gradient's peak memory against runtime.ESM_GRAD_MEMORY.
      Output: chiprun_out/chip_smoke_long.log.
-Wherever a phase holds kernels C and C' to a launch count, it holds the
-qkv / rotary kernels to the same count (ESM2 launches one of each a layer
-beside C and C'; ``with_rotary``).
+Wherever a phase holds ESM2's kernels C and C' to a launch count, it
+holds the qkv / rotary kernels to the same count (ESM2 launches one of each
+a layer beside C and C'; ``with_rotary``); the MSA Transformer's column
+attention launches C and C' without them (phase 5's energy call).
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -296,6 +304,13 @@ ATTN_CASES += LONG_ATTN_CASES
 ROTARY_CASES = ((128, 237, 20, 32), (128, 237, 20, 24), (16, 237, 20, 24),
                 (128, 237, 20, 64), (128, 237, 10, 32), (128, 1022, 20, 24),
                 (1, 237, 20, 32), (7, 33, 4, 8))
+# phase 5: (N, R, C, H, hd, dtype) of kernels T and T' (tied row
+# attention): the msa-1b cell's launch (a piece of 26 of 128 chains, 32
+# rows, GFP's 238 columns with <cls>, 12 heads of 64; the kernels line's
+# headline), and float32 at the same layer (the SIMT kernels), 4 chains
+ROW_CASES = ((26, 32, 238, 12, 64, "bfloat16"),
+             (4, 32, 238, 12, 64, "float32"))
+ROW_ENERGY = ("msa-1b", 128, 32)  # expert, chains, rows of the energy call
 # phase 3: kernel B's wide kernel at the reference width (C = L) of
 # wild types of these lengths
 LONG_CNN_LENGTHS = (400, 1022)
@@ -1002,6 +1017,169 @@ def phase_rotary(torch, esm2, rotary_fused, dev, cases=ROTARY_CASES):
             out.append(r)
             print("qkv / rotary", json.dumps(r), flush=True)
     return out
+
+
+def phase_row_attention(torch, row_attention_fused, counters, dev, card,
+                        cases=ROW_CASES, run=ROW_ENERGY):
+    """Kernels T and T' (tied row attention) against their plain versions
+    (forward and backward, each run twice: bit-for-bit repeatable), held
+    elementwise and by the relative norm of the difference, timed beside
+    the plain versions, one scaled_dot_product_attention over the
+    [N, H, C, R hd] view (the layout copies made before the clock) and the
+    bound; then one potts + msa-1b energy_and_grad at the cell's size
+    (ROW_ENERGY, GFP, bf16, its context rows 1.. of the tracked synthetic
+    alignment, the pieces runtime.resolve_msa_grad gives): T, T', C and C'
+    launched 12 x pieces each, A once, the qkv / rotary kernels never."""
+    from ppde_tpu_torch import (codec, energy as energy_mod, io as pio,
+                                runtime)
+    from ppde_tpu_torch.models import cnn, msa_transformer as msat, potts
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = []
+    for N, R, C, H, hd, dn in cases:
+        dtype = getattr(torch, dn)
+        s = 2 if dtype == torch.bfloat16 else 4
+        scale = 1.0 / (np.sqrt(hd) * np.sqrt(R))
+        gen = torch.Generator(device=dev).manual_seed(N + R + C + H + hd)
+        q, k, v, dout = ((torch.randn((N, R, C, H, hd), generator=gen,
+                                      device=dev) * 0.5).to(dtype)
+                         for _ in range(4))
+        o = row_attention_fused.tied_row_attention(q, k, v, scale)
+        grads = row_attention_fused.tied_row_attention_bwd(q, k, v, dout,
+                                                           scale)
+        torch.cuda.synchronize()
+        o0 = row_attention_fused.tied_row_attention_plain(q, k, v, scale)
+        grads0 = row_attention_fused.tied_row_attention_bwd_plain(
+            q, k, v, dout, scale)
+        # float32: sums over R hd and the columns in another order; bf16:
+        # one rounding of w and ds and the bf16 outputs, against the
+        # largest output (weights ~1 / C); and over a whole output a few
+        # last-bit flips, which a kernel that shifted weight or summed in a
+        # lower precision everywhere would exceed
+        rel_tol = 1e-5 if dtype == torch.float32 else 1e-2
+        errs = {}
+        for name, g, g0 in (("o", o, o0), *zip(("dq", "dk", "dv"), grads,
+                                               grads0)):
+            big = max(float(g0.float().abs().max()), 1e-3)
+            tol = (dict(rtol=1e-4, atol=1e-5 * max(big, 1.0))
+                   if dtype == torch.float32
+                   else dict(rtol=3e-2, atol=2e-2 * big))
+            e = (g.float() - g0.float()).abs().max().item()
+            rel = rel_norm(g, g0)
+            errs[name] = (e, rel)
+            kernel = "T" if name == "o" else "T'"
+            check(torch.allclose(g.float(), g0.float(), **tol)
+                  and rel <= rel_tol,
+                  f"kernel {kernel} {name} {(N, R, C, H, hd)} {dn}: max "
+                  f"abs err {e}, relative norm {rel}")
+        check(torch.equal(o, row_attention_fused.tied_row_attention(
+            q, k, v, scale)), "kernel T is not deterministic")
+        again = row_attention_fused.tied_row_attention_bwd(q, k, v, dout,
+                                                           scale)
+        check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+              "kernel T' is not deterministic")
+        del o0, grads0, again
+        # the library: one attention over [N, H, C, R hd], the R rows of a
+        # head side by side (the row sum of the scores is their product)
+        qp, kp, vp, dp = (t.permute(0, 3, 2, 1, 4).reshape(N, H, C, R * hd)
+                          for t in (q, k, v, dout))
+        lib_o = sdpa(qp, kp, vp, scale=scale).reshape(
+            N, H, C, R, hd).permute(0, 3, 2, 1, 4)
+        lib_rel = rel_norm(lib_o, o)
+        check(lib_rel <= 2e-2, f"sdpa over the [N, H, C, R hd] view is not "
+              f"tied row attention: relative norm {lib_rel}")
+        del lib_o
+        leaves = [t.clone().requires_grad_(True) for t in (qp, kp, vp)]
+
+        def lib_fwd_bwd():
+            torch.autograd.grad(sdpa(*leaves, scale=scale), leaves, dp)
+
+        lib_f = time_ms(lambda: sdpa(qp, kp, vp, scale=scale))
+        r = {"N": N, "R": R, "C": C, "heads": H, "hd": hd, "dtype": dn,
+             "max_abs_err_fwd": errs["o"][0],
+             "rel_norm_err_fwd": errs["o"][1],
+             "max_abs_err_bwd": max(errs[n][0] for n in ("dq", "dk", "dv")),
+             "rel_norm_err_bwd": max(errs[n][1] for n in ("dq", "dk", "dv")),
+             "rel_norm_library_vs_t": lib_rel,
+             "fwd_ms": time_ms(lambda: row_attention_fused.tied_row_attention(
+                 q, k, v, scale)),
+             "fwd_plain_ms": time_ms(
+                 lambda: row_attention_fused.tied_row_attention_plain(
+                     q, k, v, scale)),
+             "fwd_library_ms_sdpa": lib_f,
+             "bwd_ms": time_ms(
+                 lambda: row_attention_fused.tied_row_attention_bwd(
+                     q, k, v, dout, scale)),
+             "bwd_plain_ms": time_ms(
+                 lambda: row_attention_fused.tied_row_attention_bwd_plain(
+                     q, k, v, dout, scale)),
+             # forward plus backward of the library call less its forward
+             "bwd_library_ms_sdpa": time_ms(lib_fwd_bwd) - lib_f}
+        del qp, kp, vp, dp, leaves
+        # bytes: q, k, v read and o written once (backward: q, k, v, dout
+        # read, dq, dk, dv written); operations: 2 (backward 5) products of
+        # 2 N H C^2 R hd
+        n = N * R * C * H * hd
+        r["fwd_bound_ms"], r["fwd_bound_by"] = bound_ms(4 * n * s,
+                                                        4 * n * C, dn)
+        r["bwd_bound_ms"], r["bwd_bound_by"] = bound_ms(7 * n * s,
+                                                        10 * n * C, dn)
+        out.append(r)
+        print("kernels T, T'", json.dumps(r), flush=True)
+    del q, k, v, dout, o, grads
+    torch.cuda.empty_cache()
+
+    name, n_chains, rows = run
+    msa = [s for _, s in pio.load_msa(os.path.join(ROOT, EVAL_MSA))]
+    check(msa[0] == GFP_WT, "the tracked alignment's first row is not GFP")
+    tr = msat.load_expert(name, GFP_WT, msa[1:rows], allow_random=True,
+                          dtype=torch.bfloat16, device=dev)
+    n_layers = msat.CONFIGS[name]["layers"]
+    pp = potts.synthetic(GFP_WT, seed=0, dtype=torch.bfloat16, device=dev)
+    ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(0), 3,
+                            input_size=len(GFP_WT))
+    wt_oh = torch.from_numpy(codec.seqs_to_onehot([GFP_WT])).to(dev)
+    chunk, remat = runtime.resolve_msa_grad(
+        0, n_chains, name, rows * (len(GFP_WT) + 1),
+        torch.cuda.get_device_properties(dev).total_memory)
+    en = energy_mod.protein_poe(pp, ens, 1.0, wt_oh, transformer=tr,
+                                chunk_size=chunk,
+                                compute_dtype=torch.bfloat16)
+    x = random_onehot(torch, torch.Generator(device=dev).manual_seed(2),
+                      n_chains, len(GFP_WT), dev)
+    with torch.no_grad():
+        wt_term = float(tr[1](tr[0], wt_oh)[0])
+        en.energy_and_grad(en.params, x)  # a warm-up call
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counters(counters)
+        t0 = time.perf_counter()
+        e, _, g = en.energy_and_grad(en.params, x)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+    got = read_counters(counters)
+    pieces = -(-n_chains // chunk) if chunk else 1
+    need = n_layers * pieces
+    check(abs(wt_term) <= 1e-3,
+          f"{name} expert term of the wild type is {wt_term}, not 0")
+    check(torch.isfinite(e).all().item() and torch.isfinite(g).all().item(),
+          f"{name} energy or gradient not finite")
+    check(got["row_attention_fwd"] == got["row_attention_bwd"] == need
+          and got["flash_attention_fwd"] == got["flash_attention_bwd"]
+          == need and got["qkv_rotary_fwd"] == got["qkv_rotary_bwd"] == 0
+          and got["potts_energy"] == 1 and got["cnn_ensemble"] >= 1,
+          f"{name}, {n_chains} chains in {pieces} pieces: launches {got}; "
+          f"T, T', C and C' want {need} each, A 1, the qkv / rotary "
+          f"kernels 0")
+    energy_call = {"expert": name, "n_chains": n_chains, "rows": rows,
+                   "chunk_size": chunk, "remat": remat, "pieces": pieces,
+                   "call_s": call_s, "expert_term_of_wild_type": wt_term,
+                   "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+                   "launches": got, "card": card}
+    print(f"{name} energy call", json.dumps(energy_call), flush=True)
+    del en, tr, e, g, x
+    torch.cuda.empty_cache()
+    return {"cases": out, "energy_call": energy_call}, got
 
 
 def phase_transformer(torch, codec, energy_mod, potts, cnn, esm2, ppde,
@@ -2567,7 +2745,8 @@ def cell_launches(args, steps, pieces=1, L=len(GFP_WT)):
     Potts nor transformer term. A wild type of L > 256 residues (the
     reference-width CNN, C = L; the bf16 expert at T = L) runs B's wide
     kernel and the key-tiled kernels C and C'. The qkv / rotary kernels run
-    as often as C and C'."""
+    as often as C and C'; every other kernel (T, T': the MSA Transformer
+    expert's) never."""
     from ppde_tpu_torch.models import esm2
 
     poe = args.energy_function == "product_of_experts"
@@ -2578,7 +2757,8 @@ def cell_launches(args, steps, pieces=1, L=len(GFP_WT)):
     calls = (steps + 1) * grad
     potts = "potts" in experts
     f32 = args.compute_dtype == "f32"
-    want = {"potts_energy": calls * potts, "potts_energy_f32": calls * potts,
+    want = {**dict.fromkeys(COUNTERS, 0),
+            "potts_energy": calls * potts, "potts_energy_f32": calls * potts,
             "cnn_ensemble": calls, "cnn_ensemble_f32": calls * f32,
             "cnn_ensemble_wide": calls * (L > 256),
             "cnn_ensemble_wide_f32": calls * f32 * (L > 256),
@@ -3530,11 +3710,32 @@ def rotary_row(rows, way, launches):
             "cases": [numbers(r) for r in rows if r is not head]}
 
 
+def row_attention_row(rows, way, launches):
+    """The kernels line's row of kernel T (way "fwd") or T' ("bwd"): the
+    msa-1b cell's launch in bf16 (ROW_CASES[0]) as the headline, the
+    float32 case beside it."""
+    def numbers(r):
+        return {"shape": [r["N"], r["R"], r["C"], r["heads"], r["hd"]],
+                "dtype": r["dtype"], "max_abs_err": r[f"max_abs_err_{way}"],
+                "ms": r[f"{way}_ms"], "plain_ms": r[f"{way}_plain_ms"],
+                "bound_ms": r[f"{way}_bound_ms"],
+                "bound_by": r[f"{way}_bound_by"],
+                "library_ms": r[f"{way}_library_ms_sdpa"]}
+
+    head, *more = rows
+    return {"name": f"row_attention_{way}", "route": "cuda",
+            "source": "ppde_tpu_torch/csrc/row_attention.cu",
+            "replaces": "no TPU kernel (ppde_tpu/models/msa_transformer.py:"
+                        " two einsums)",
+            "launches": launches, **numbers(head),
+            "cases": [numbers(r) for r in more]}
+
+
 def kernel_rows(counts):
     """The launches of each row of the kernels line from the counters: A's
     bf16 and float32 launches; B's tc (bf16), simt (float32) and wide (each
     type) kernels; the register (rs) and key-tiled kernels of C and C';
-    the qkv / rotary kernels."""
+    the qkv / rotary kernels; kernels T and T'."""
     wide32 = counts["cnn_ensemble_wide_f32"]
     wide16 = counts["cnn_ensemble_wide"] - wide32
     return {
@@ -3549,6 +3750,8 @@ def kernel_rows(counts):
         **{f"flash_attention_{w}_kt": counts[f"flash_attention_{w}_kt"]
            for w in ("fwd", "bwd")},
         **{f"qkv_rotary_{w}": counts[f"qkv_rotary_{w}"]
+           for w in ("fwd", "bwd")},
+        **{f"row_attention_{w}": counts[f"row_attention_{w}"]
            for w in ("fwd", "bwd")}}
 
 
@@ -3565,7 +3768,8 @@ def main() -> int:
     from ppde_tpu_torch import codec, energy as energy_mod, utils
     from ppde_tpu_torch.models import cnn, esm2, potts
     from ppde_tpu_torch.ops import (_build, attention_fused, cnn_fused,
-                                    potts_fused, rotary_fused)
+                                    potts_fused, rotary_fused,
+                                    row_attention_fused)
     from ppde_tpu_torch.samplers.protein import ppde
 
     card = subprocess.run(
@@ -3592,6 +3796,8 @@ def main() -> int:
                                          card),
         "attention": lambda: phase_attention(torch, attention_fused, dev),
         "rotary": lambda: phase_rotary(torch, esm2, rotary_fused, dev),
+        "row_attention": lambda: phase_row_attention(
+            torch, row_attention_fused, counters, dev, card),
         "transformer": lambda: phase_transformer(
             torch, codec, energy_mod, potts, cnn, esm2, ppde, counters, dev,
             card),
@@ -3622,6 +3828,7 @@ def main() -> int:
         got["rotary"]
     runs, launches = got["sampler"]
     tr_runs, tr_launches = got["transformer"]
+    row_runs, row_launches = got["row_attention"]
     cli_runs, cli_launches = got["cli"]
     eval_runs, eval_launches = got["eval"]
     train_runs, train_launches = got["training"]
@@ -3630,9 +3837,9 @@ def main() -> int:
     large_runs, large_launches = got["large"]
     evid_runs, evid_launches = got["evidence"]
     long_runs, long_launches = got["long"]
-    for more in (tr_launches, cli_launches, eval_launches, train_launches,
-                 mesh_launches, bench_launches, large_launches,
-                 evid_launches, long_launches):
+    for more in (tr_launches, row_launches, cli_launches, eval_launches,
+                 train_launches, mesh_launches, bench_launches,
+                 large_launches, evid_launches, long_launches):
         for name, n in more.items():
             launches[name] += n
 
@@ -3705,10 +3912,15 @@ def main() -> int:
                            99), name="flash_attention_bwd_kt"),
         *(rotary_row(pr, way, by_row[f"qkv_rotary_{way}"])
           for way in ("fwd", "bwd")),
+        *(row_attention_row(row_runs["cases"], way,
+                            by_row[f"row_attention_{way}"])
+          for way in ("fwd", "bwd")),
     ]}
     # the key-tiled kernels also run every float32 call: GFP's chunk-16 and
     # one-piece shapes beside the library call
-    for row in kernels["kernels"][-2:]:
+    for row in kernels["kernels"]:
+        if not row["name"].endswith("_kt"):
+            continue
         way = row["name"].split("_")[2]
         row["float32"] = {
             label: attention_numbers(next(
@@ -3775,7 +3987,7 @@ def main() -> int:
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"card": card, "build_s": build_s, "kernel_a": pa,
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,
-                   "qkv_rotary": pr,
+                   "qkv_rotary": pr, "row_attention": row_runs,
                    "transformer_sampler": tr_runs, "cli": cli_runs,
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
                    "eval": eval_runs, "training": train_runs,

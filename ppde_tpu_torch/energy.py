@@ -14,11 +14,13 @@ JAX package's ``fused_cnn`` / ``interpret`` switches have no counterpart),
 from weights each energy prepares once, on CPU tensors their plain
 versions. ``energy``'s supervised term splits max-pool ties whatever
 ``pool_bwd`` says, as the JAX package's does: only ``energy_and_grad``
-honours the flag. The optional transformer term (an ESM2
-pseudo-log-likelihood delta, ``models/esm2.load_expert``) is differentiated
-by autograd, its attention through ``ops/attention_fused`` (kernels C and
-C' on CUDA). ``energy`` and ``fitness`` are plain, differentiable PyTorch
-apart from that attention.
+honours the flag. The optional transformer term (a pseudo-log-likelihood
+delta of ESM2, ``models/esm2.load_expert``, or of the MSA Transformer,
+``models/msa_transformer.load_expert``) is differentiated by autograd, its
+attention through ``ops/attention_fused`` (kernels C and C' on CUDA) and
+the MSA Transformer's tied row attention through
+``ops/row_attention_fused`` (kernels T and T'). ``energy`` and ``fitness``
+are plain, differentiable PyTorch apart from that attention.
 
 Under a mesh, ``runtime.apply_mesh`` builds the same energy anew on
 sharded parameters (``Energy.with_params``, so that each energy prepares
@@ -145,8 +147,11 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
                 pool_bwd: str = "split") -> Energy:
     """E(x) = unsup_delta(x) + lam * fitness(x) over [N, L_full, V] one-hots.
 
-    ``transformer``: optional (params, apply_fn) pair (``esm2.load_expert``)
-    adding an ESM2 pseudo-log-likelihood delta term. ``potts_params`` may be
+    ``transformer``: optional (params, apply_fn) pair (``esm2.load_expert``
+    or ``msa_transformer.load_expert``) adding its pseudo-log-likelihood
+    delta term, in the spans ``energy.<span>`` and ``<span>.backward`` that
+    apply_fn's ``span`` attribute names ("esm2" without one; the MSA
+    Transformer's is "msa"). ``potts_params`` may be
     None (transformer only, or the supervised term only). ``chunk_size``
     evaluates the transformer and its gradient over chain chunks of that
     size, one after another, which bounds the memory of the saved
@@ -162,6 +167,7 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
     if transformer is not None:
         params["tr"] = transformer[0]
         t_apply = transformer[1]
+    span = getattr(t_apply, "span", "esm2")
 
     def fit_fn(p, x):
         return _ensemble_fit(p["sup"], x, compute_dtype)
@@ -178,14 +184,14 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
     def transformer_score_and_grad(p, x):
         """(score [N], d sum(score) / dx), detached; the samplers call
         energy_and_grad under no_grad, so autograd is switched on here.
-        The backward runs in ``esm2.backward``, its kinds' work in
-        ``esm2.bwd.<kind>`` (``profiling.grad_spans``)."""
+        The backward runs in ``<span>.backward``, its kinds' work in
+        ``<span>.bwd.<kind>`` (``profiling.grad_spans``)."""
         def one_chunk(xc):
             with torch.enable_grad(), profiling.grad_spans():
                 xg = profiling.grad_span(xc.detach().requires_grad_(True),
                                          None)
                 y = t_apply(p["tr"], xg)
-                with profiling.span("esm2.backward"):
+                with profiling.span(span + ".backward"):
                     (g,) = torch.autograd.grad(y.sum(), xg)
             return y.detach(), g
 
@@ -214,7 +220,7 @@ def protein_poe(potts_params: potts_mod.PottsParams | None, sup_ensemble,
             e = e + pe
             grad = grad + pg
         if t_apply is not None:
-            with profiling.span("energy.esm2"):
+            with profiling.span("energy." + span):
                 te, tg = transformer_score_and_grad(p, x)
             e = e + te
             grad = grad + tg

@@ -19,14 +19,27 @@ scores in the compute type, softmax in float32 cast back (torch's softmax
 of bf16 scores computes in float32 and rounds once), exact (erf) GELU at
 every type, layer norms in float32.
 
-Every product is a plain PyTorch matrix product: the JAX module reaches no
-Pallas kernel. Weights come from a native ``.npz`` (``training.save_ckpt``'s
-layout), a fair-esm msa1b ``.pt``, or (pipeline checks only) a seeded random
-init.
+Every product of the scorer (``forward_logits``, ``masked_marginals``) is a
+plain PyTorch matrix product: the JAX module reaches no Pallas kernel.
+Weights come from a native ``.npz`` (``training.save_ckpt``'s layout), a
+fair-esm msa1b ``.pt``, or (pipeline checks only) a seeded random init.
 
 ``masked_marginals`` scores each masked wild-type column with one forward;
 a batch of columns is one forward of ``batch_cols`` alignments, and the LM
 head runs only at the masked position it reads.
+
+``load_expert`` makes the model a product-of-experts term of the protein
+sampler, as ``esm2.load_expert`` does ESM2: row 0 of an alignment carries
+the chain's one-hots (their product with the embedding, so that the
+gradient reaches them) and the context rows, embedded once, follow it; the
+score is the unmasked one-hot pseudo-log-likelihood of row 0. Its tied row
+attention runs in kernels T and T' (``ops/row_attention_fused``) and its
+column attention in kernels C and C' (``ops/attention_fused``, one
+head-major copy of q, k and v each way) on a CUDA tensor, their plain
+versions on a CPU tensor. Spans (``profiling``): the forward in
+``msa.<kind>`` (embed, norm, qkv, row, col, attn_out, ffn, head; the kernels
+in ``kernel.t`` and ``kernel.c``), inside ``profiling.grad_spans()`` the
+backward of each kind in ``msa.bwd.<kind>`` (T' and C' outside the kinds).
 """
 from __future__ import annotations
 
@@ -35,12 +48,14 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from ppde_tpu_torch import utils
+from ppde_tpu_torch import codec, profiling, utils
 from ppde_tpu_torch.models.esm2 import (CLS_IDX, ESM_TOK_TO_IDX, ESM_VOCAB,
                                         MASK_IDX, PAD_IDX, _flatten,
                                         _layer_norm, _linear, _map_leaves,
-                                        _unflatten)
+                                        _unflatten, potts_to_esm_perm)
+from ppde_tpu_torch.ops import attention_fused, row_attention_fused
 
 # "msa-1b" is fair-esm's esm_msa1b_t12_100M architecture (the reference's
 # scorer); the smaller entries are the JAX package's family-trained scorers
@@ -258,6 +273,156 @@ def masked_marginals(params, wt_window: str, msa_rows: list[str],
 
 
 # ---------------------------------------------------------------------------
+# the product-of-experts term: row 0 carries the chain
+# ---------------------------------------------------------------------------
+
+def _expert_qkv(p, y, H):
+    """q, k, v [N, R, C, H, hd] of y [N, R, C, D]: views of the projections'
+    contiguous outputs."""
+    with profiling.span("msa.qkv"):
+        q, k, v = _qkv(p, y, H)
+    return tuple(profiling.grad_span(t, "msa.bwd.qkv") for t in (q, k, v))
+
+
+def _attn_out(p, h, o):
+    """h plus the output projection of o [N, R, C, D]."""
+    with profiling.span("msa.attn_out"):
+        h = h + _linear(p, o)
+    return profiling.grad_span(h, "msa.bwd.attn_out")
+
+
+def _expert_row(p, h, y, H):
+    """h plus the tied row attention of y [N, R, C, D]: kernels T and T'
+    read q, k, v where the projections put them; the scale 1 / (sqrt(hd)
+    sqrt(R)) applies to the float32 scores."""
+    N, R, C, D = y.shape
+    hd = D // H
+    q, k, v = _expert_qkv(p, y, H)
+    with profiling.span("msa.row"):
+        o = row_attention_fused.tied_row_attention(
+            q, k, v, 1.0 / (math.sqrt(hd) * math.sqrt(R)))
+    o = profiling.grad_span(o, None)  # T' runs outside the kinds
+    return _attn_out(p["o"], h, o.reshape(N, R, C, D))
+
+
+def _expert_col(p, h, y, H):
+    """h plus the column attention of y [N, R, C, D]: q, k, v copied once
+    each into kernel C's [Z = N C H, T = R, hd], q divided by sqrt(hd) in
+    the compute type (fair-esm's order), the output copied back."""
+    N, R, C, D = y.shape
+    hd = D // H
+    q, k, v = _expert_qkv(p, y, H)
+    with profiling.span("msa.col"):
+        qc, kc, vc = (t.permute(0, 2, 3, 1, 4).contiguous().view(
+            N * C * H, R, hd) for t in (q, k, v))
+        qc = qc * (1.0 / math.sqrt(hd))
+    qc, kc, vc = (profiling.grad_span(t, "msa.bwd.col") for t in (qc, kc, vc))
+    o = profiling.grad_span(attention_fused.flash_attention(qc, kc, vc), None)
+    with profiling.span("msa.col"):
+        o = o.reshape(N, C, H, R, hd).permute(0, 3, 1, 2, 4).reshape(
+            N, R, C, D)
+    return _attn_out(p["o"], h, profiling.grad_span(o, "msa.bwd.col"))
+
+
+def expert_layer(layer, h, heads: int):
+    """One axial layer (tied row attention, column attention, FFN; each
+    pre-LN with a residual) on the residual stream h [N, R, C, D]."""
+    for kind, block in (("row", _expert_row), ("col", _expert_col)):
+        with profiling.span("msa.norm"):
+            y = _layer_norm(layer[kind + "_ln"], h)
+        h = block(layer[kind], h, profiling.grad_span(y, "msa.bwd.norm"),
+                  heads)
+    with profiling.span("msa.norm"):
+        y = _layer_norm(layer["ffn_ln"], h)
+    y = profiling.grad_span(y, "msa.bwd.norm")
+    with profiling.span("msa.ffn"):
+        y = F.gelu(_linear(layer["fc1"], y), approximate="none")
+        h = h + _linear(layer["fc2"], y)
+    return profiling.grad_span(h, "msa.bwd.ffn")
+
+
+def expert_score(params, x: torch.Tensor, heads: int,
+                 remat: bool = False) -> torch.Tensor:
+    """The pseudo-log-likelihood [N] of the chains x [N, L, 20] (PPDE's
+    one-hots) as row 0 of the alignment whose other rows ``params["ctx"]``
+    holds: sum_c x33_c . log_softmax(logits_{0, c}) over the L residue
+    columns. ``remat``: ``torch.utils.checkpoint`` around every layer when
+    autograd records (the layers' inputs kept, one layer recomputed at a
+    time in the backward)."""
+    with profiling.span("msa.embed"):
+        x33 = x.to(params["perm"].dtype) @ params["perm"]        # [N, L, 33]
+        N, L, _ = x33.shape
+        emb = params["embed"]
+        row0 = torch.cat([emb[CLS_IDX].expand(N, 1, -1), x33 @ emb], 1)
+        row0 = row0 + params["pos_embed"][:L + 1]
+        row0 = row0 + params["msa_pos_embed"][0]
+        row0 = _layer_norm(params["ln_before"], row0)
+        ctx = params["ctx"]                                      # [R-1, C, D]
+        h = torch.cat([row0[:, None], ctx.expand(N, *ctx.shape)], 1)
+    h = profiling.grad_span(h, "msa.bwd.embed")
+    remat = remat and torch.is_grad_enabled()
+    for layer in params["layers"]:
+        if remat:
+            h = checkpoint(expert_layer, layer, h, heads, use_reentrant=False)
+        else:
+            h = expert_layer(layer, h, heads)
+    with profiling.span("msa.head"):
+        y = _layer_norm(params["ln_after"], h[:, 0, 1:])
+        y = F.gelu(_linear(params["lm_dense"], y), approximate="none")
+        y = _layer_norm(params["lm_ln"], y)
+        logits = y.float() @ emb.float().T + params["lm_bias"]
+        return (x33.float() * torch.log_softmax(logits, -1)).sum((1, 2))
+
+
+def load_expert(name: str, wt_seq: str, context_rows: list[str],
+                weights_path: str | None = None, allow_random: bool = False,
+                dtype=torch.bfloat16, remat: bool | None = None,
+                device="cuda"):
+    """Build the MSA Transformer expert: (params, apply_fn) where
+    apply_fn(params, x_potts_onehot [N, L, 20]) -> score(x) - score(wt) [N].
+
+    ``context_rows``: the alignment's other rows, each of the wild type's
+    length (at least one: the model's column attention needs two rows),
+    tokenized, embedded and layer-normed once here (``params["ctx"]``) and
+    broadcast over the chains. Weights as ``load`` resolves them.
+    ``remat``: per-layer recomputation in the gradient (None: off).
+    ``params`` also holds ``perm``, ``ctx`` and ``wt_score``."""
+    device = utils.resolve_device(device)
+    L = len(wt_seq)
+    if not context_rows or any(len(r) != L for r in context_rows):
+        raise ValueError(f"the MSA expert needs at least one context row, "
+                         f"each of the wild type's length {L}; got "
+                         f"{sorted({len(r) for r in context_rows})}")
+    params = load(weights_path, allow_random, dtype, name, device)
+    R = len(context_rows) + 1
+    if R > params["msa_pos_embed"].shape[0] \
+            or L + 1 > params["pos_embed"].shape[0]:
+        raise ValueError(f"{R} rows of {L + 1} columns exceed the model's "
+                         f"position tables")
+    heads = CONFIGS[name]["heads"]
+    with torch.no_grad():
+        toks = torch.from_numpy(tokenize_msa(context_rows)).to(device,
+                                                               torch.long)
+        ctx = params["embed"][toks] + params["pos_embed"][:L + 1]
+        ctx = ctx + params["msa_pos_embed"][1:R, None]
+        params = dict(params, ctx=_layer_norm(params["ln_before"], ctx),
+                      perm=torch.from_numpy(potts_to_esm_perm()).to(device,
+                                                                    dtype))
+        wt = torch.from_numpy(codec.seqs_to_onehot([wt_seq])).to(device)
+        params["wt_score"] = expert_score(params, wt, heads)
+    remat = bool(remat)
+
+    def apply_fn(params, x):
+        score = expert_score(params, x, heads, remat)
+        with profiling.span("msa.head"):
+            score = score - params["wt_score"]
+        return profiling.grad_span(score, "msa.bwd.head")
+
+    apply_fn.span = "msa"  # energy.protein_poe's energy.msa, msa.backward
+    return params, apply_fn
+
+
+# ---------------------------------------------------------------------------
 # weights
 # ---------------------------------------------------------------------------
 
@@ -311,7 +476,10 @@ def load_torch_checkpoint(path: str, dtype=torch.bfloat16,
     """Convert a fair-esm msa1b state dict (.pt) to the port's layout: the
     ``encoder.`` and ``sentence_encoder.`` prefixes stripped, every linear
     weight transposed to [in, out], ``msa_position_embedding`` reshaped to
-    [-1, 768]."""
+    [-1, 768], the column positions' table without its first two rows (the
+    padding row and the one below it, which no column reads), so that
+    ``pos_embed[c]`` is column c's as fair-esm reads it. (The JAX package's
+    loader keeps all 1,026 rows, so its columns read two rows too low.)"""
     device = utils.resolve_device(device)
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
     sd = ckpt.get("model", ckpt)
@@ -348,7 +516,10 @@ def load_torch_checkpoint(path: str, dtype=torch.bfloat16,
         })
     return {
         "embed": arr(sd["embed_tokens.weight"], dtype),
-        "pos_embed": arr(sd["embed_positions.weight"], dtype),
+        # fair-esm's LearnedPositionalEmbedding has max_positions +
+        # padding_idx + 1 rows and reads column c at row c + padding_idx +
+        # 1 (padding_idx = 1): rows 2.. are the columns 0.. that _trunk reads
+        "pos_embed": arr(sd["embed_positions.weight"][PAD_IDX + 1:], dtype),
         "msa_pos_embed": arr(
             sd["msa_position_embedding"].reshape(-1, CFG["dim"]), dtype),
         "layers": layers,

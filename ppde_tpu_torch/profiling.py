@@ -29,8 +29,8 @@ The program's spans (``SPANS``), where the work happens:
   ppde.accept          the reverse path, MH, bests and the nmut reset
   energy               ``energy_and_grad`` of ``protein_poe`` and
                        ``protein_supervised``; inside it energy.cnn,
-                       energy.potts and energy.esm2 (the terms' sums stay in
-                       ``energy`` itself)
+                       energy.potts and energy.esm2 or energy.msa (the
+                       terms' sums stay in ``energy`` itself)
   esm2.<kind>          ESM2's forward (``models/esm2.py``): embed, norm (a
                        layer norm with its float32 casts), qkv (the three
                        projections), rotary (their head-major layout, q
@@ -40,8 +40,18 @@ The program's spans (``SPANS``), where the work happens:
                        logits, log-softmax, PLL)
   esm2.backward        ``torch.autograd.grad`` of the transformer term
   esm2.bwd.<kind>      inside it, the backward of each forward kind
+  msa.<kind>           the MSA Transformer expert's forward
+                       (``models/msa_transformer.py::expert_score``): embed
+                       (the chain's row 0 and the context rows), norm, qkv,
+                       row (tied row attention: ``ops/row_attention_fused``),
+                       col (column attention's head-major copies around
+                       kernel C), attn_out, ffn, head
+  msa.backward         ``torch.autograd.grad`` of its term
+  msa.bwd.<kind>       inside it, the backward of each forward kind but
+                       row, whose backward is kernel T' alone
   kernel.a, kernel.b,  inside each kernel wrapper, around its launch
-  kernel.c, kernel.c_bwd
+  kernel.c, kernel.c_bwd,
+  kernel.t, kernel.t_bwd
 
 Backward spans: autograd runs a node's backward just after the tensor
 hooks of the tensor it made. ``grad_span(t, name)`` hooks t so that, when
@@ -66,12 +76,17 @@ import torch.autograd.profiler as _autograd_profiler
 SPANS = frozenset({
     "sampler.setup", "sampler.step", "sampler.segment_end", "sampler.finish",
     "ppde.proposal", "ppde.accept",
-    "energy", "energy.cnn", "energy.potts", "energy.esm2",
+    "energy", "energy.cnn", "energy.potts", "energy.esm2", "energy.msa",
     "esm2.embed", "esm2.norm", "esm2.qkv", "esm2.rotary", "esm2.attn_out",
     "esm2.ffn", "esm2.head", "esm2.backward",
     "esm2.bwd.embed", "esm2.bwd.norm", "esm2.bwd.qkv", "esm2.bwd.rotary",
     "esm2.bwd.attn_out", "esm2.bwd.ffn", "esm2.bwd.head",
-    "kernel.a", "kernel.b", "kernel.c", "kernel.c_bwd",
+    "msa.embed", "msa.norm", "msa.qkv", "msa.row", "msa.col", "msa.attn_out",
+    "msa.ffn", "msa.head", "msa.backward",
+    "msa.bwd.embed", "msa.bwd.norm", "msa.bwd.qkv", "msa.bwd.col",
+    "msa.bwd.attn_out", "msa.bwd.ffn", "msa.bwd.head",
+    "kernel.a", "kernel.b", "kernel.c", "kernel.c_bwd", "kernel.t",
+    "kernel.t_bwd",
 })
 _OFF = contextlib.nullcontext()
 

@@ -103,6 +103,90 @@ def resolve_esm_chunk(esm_chunk: int, has_transformer: bool,
     return max(1, int((budget - base) // per_chain))
 
 
+# The MSA Transformer expert's gradient: peak memory (as ESM_GRAD_MEMORY:
+# bytes that do not grow with the chains, bytes per chain and alignment
+# token, over the bytes held before the gradient), without and with
+# per-layer recomputation (remat). Measured on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, bf16, random init, msa-1b's widths, GFP's 237 residues with 32
+# rows (7,616 tokens a chain), the term's gradient alone: 2.45, 4.72 and
+# 9.44 GB at 1, 2 and 4 chains without remat, 0.87, 1.74 and 3.48 GB at 2,
+# 4 and 8 with it (the lines through the ends). The smaller configs take
+# msa-1b's line (their tokens are narrower).
+MSA_GRAD_MEMORY = {
+    ("msa-1b", False): (116724053, 305987.9),
+    ("msa-1b", True): (3511296, 57109.8),
+}
+
+
+def resolve_msa_grad(msa_chunk: int, n_chains: int, name: str,
+                     tokens: int, card_bytes: int | None = None):
+    """(chunk_size, remat) of the MSA Transformer expert's gradient for the
+    --esm_chunk flag (also spelt --msa_expert_chunk): -1 one piece,
+    positive that many chains a piece, both without recomputation; 0 auto
+    from the card's memory (``card_bytes``; None, as on the CPU: one piece)
+    by ``MSA_GRAD_MEMORY`` at ``tokens`` (rows x columns) a chain: without
+    recomputation, the fewest pieces that fit in ``ESM_MEMORY_SHARE`` of
+    the card; per-layer recomputation only where one chain does not fit
+    without it. (On the
+    H100, msa-1b over GFP's 32-row alignments, the gradient of 128 chains
+    took 2.00 s without recomputation in pieces of 16 and 2.76 s with it in
+    one piece: recomputation costs a forward, and pieces of thousands of
+    tokens a chain cost nothing measurable.)"""
+    if msa_chunk < 0:
+        return None, False
+    if msa_chunk > 0:
+        return msa_chunk, False
+    if card_bytes is None:
+        return None, False
+    budget = ESM_MEMORY_SHARE * card_bytes
+    for remat in (False, True):
+        base, per = MSA_GRAD_MEMORY.get((name, remat),
+                                        MSA_GRAD_MEMORY["msa-1b", remat])
+        per_chain = per * tokens
+        fit = int((budget - base) // per_chain) if per_chain else n_chains
+        if fit >= n_chains:
+            return None, remat
+        if fit >= 1:
+            return -(-n_chains // -(-n_chains // fit)), remat
+    return 1, True
+
+
+def expert_terms(spec: str) -> dict:
+    """The terms of ``--unsupervised_expert`` ('+'-joined): {"potts": bool,
+    "esm": an ESM2 config (``transformer*``) or None, "msa": an
+    ``msa_transformer.CONFIGS`` key or None, "unknown": the other terms};
+    raises on ESM2 and the MSA Transformer together (the energy has one
+    transformer slot)."""
+    from ppde_tpu_torch.models import msa_transformer
+
+    terms = spec.split("+")
+    esm = [t for t in terms if t.startswith("transformer")]
+    msa = [t for t in terms if t in msa_transformer.CONFIGS]
+    if esm and msa:
+        raise ValueError(f"--unsupervised_expert {spec!r}: one transformer "
+                         f"expert at a time (ESM2 or the MSA Transformer)")
+    return {"potts": "potts" in terms, "esm": esm[0] if esm else None,
+            "msa": msa[0] if msa else None,
+            "unknown": [t for t in terms if t != "potts" and t not in esm
+                        and t not in msa]}
+
+
+def msa_context(path: str, wt_seq: str, rows: int) -> list[str]:
+    """The first ``rows - 1`` aligned rows of the a2m / FASTA ``path`` in
+    file order (``io.load_msa``'s focus columns), each of the wild type's
+    length: the MSA Transformer expert's context."""
+    if rows < 2:
+        raise ValueError(f"--msa_expert_rows {rows}: the query row and at "
+                         f"least one context row")
+    seqs = [s for _, s in pio.load_msa(path)][:rows - 1]
+    if len(seqs) < rows - 1 or any(len(s) != len(wt_seq) for s in seqs):
+        raise ValueError(
+            f"{path}: need {rows - 1} aligned rows of the wild type's "
+            f"length {len(wt_seq)}; got {len(seqs)} rows of lengths "
+            f"{sorted({len(s) for s in seqs})}")
+    return seqs
+
+
 def build_protein_energy(args, device="cuda"):
     """Construct (energy, oracle=(params, apply), potts_params,
     oracle_params) for a protein run.
@@ -110,7 +194,11 @@ def build_protein_energy(args, device="cuda"):
     args needs: protein_weights, protein, energy_function,
     unsupervised_expert, energy_lamda, n_chains, and optionally potts_npz,
     esm_weights, allow_random_esm, compute_dtype, cnn_chunk, pool_bwd,
-    esm_chunk.
+    esm_chunk, and for an MSA Transformer term msa_expert_context,
+    msa_expert_rows, msa_expert_weights (allow_random_esm and esm_chunk
+    serve the one transformer slot, ESM2's or the MSA Transformer's). A
+    term that is neither potts, ESM2 nor the MSA Transformer is left to the
+    caller, with a warning (the CLI refuses it).
     """
     device = utils.resolve_device(device)
     protein_dir = os.path.join(args.protein_weights, args.protein)
@@ -126,12 +214,17 @@ def build_protein_energy(args, device="cuda"):
     else:
         pp = load_potts(protein_dir, device=device)
 
-    # 'potts+transformer[-S/M/L]' composes PoE terms (reference
-    # energy.py:83-89); the esm2 config key is the transformer part alone
-    experts = args.unsupervised_expert.split("+")
-    esm_name = next((e for e in experts if e.startswith("transformer")),
-                    None)
-    transformer = None
+    # 'potts+transformer[-S/M/L]' or 'potts+msa-1b' composes PoE terms
+    # (reference energy.py:83-89); each model's config key is its term
+    terms = expert_terms(args.unsupervised_expert)
+    if terms["unknown"]:
+        warnings.warn(f"--unsupervised_expert {args.unsupervised_expert!r}: "
+                      f"no expert here answers to {terms['unknown']}; the "
+                      f"energy leaves them out")
+    esm_name, msa_name = terms["esm"], terms["msa"]
+    card = (torch.cuda.get_device_properties(device).total_memory
+            if device.type == "cuda" else None)
+    transformer, chunk = None, None
     if esm_name is not None:
         from ppde_tpu_torch.models import esm2
 
@@ -140,6 +233,22 @@ def build_protein_energy(args, device="cuda"):
             weights_path=getattr(args, "esm_weights", None),
             allow_random=getattr(args, "allow_random_esm", False),
             device=device)
+        chunk = resolve_esm_chunk(getattr(args, "esm_chunk", 0), True,
+                                  args.n_chains, esm_name, len(wt_seqs[0]),
+                                  card)
+    elif msa_name is not None:
+        from ppde_tpu_torch.models import msa_transformer
+
+        rows = getattr(args, "msa_expert_rows", 32)
+        context = msa_context(args.msa_expert_context, wt_seqs[0], rows)
+        chunk, remat = resolve_msa_grad(
+            getattr(args, "esm_chunk", 0), args.n_chains, msa_name,
+            rows * (len(wt_seqs[0]) + 1), card)
+        transformer = msa_transformer.load_expert(
+            msa_name, wt_seqs[0], context,
+            weights_path=getattr(args, "msa_expert_weights", None),
+            allow_random=getattr(args, "allow_random_esm", False),
+            remat=remat, device=device)
 
     cdt = (torch.bfloat16 if getattr(args, "compute_dtype", "f32") == "bf16"
            else None)
@@ -152,13 +261,8 @@ def build_protein_energy(args, device="cuda"):
                                            cnn_chunk=cnn_chunk,
                                            pool_bwd=pool_bwd)
     else:
-        card = (torch.cuda.get_device_properties(device).total_memory
-                if device.type == "cuda" else None)
-        chunk = resolve_esm_chunk(getattr(args, "esm_chunk", 0),
-                                  transformer is not None, args.n_chains,
-                                  esm_name, len(wt_seqs[0]), card)
         en = energy_mod.protein_poe(
-            pp if "potts" in experts else None, sup, args.energy_lamda,
+            pp if terms["potts"] else None, sup, args.energy_lamda,
             wt_onehot, transformer=transformer, chunk_size=chunk,
             compute_dtype=cdt, cnn_chunk=cnn_chunk, pool_bwd=pool_bwd)
 
@@ -266,6 +370,9 @@ def apply_mesh(energy: energy_mod.Energy, pop, dp: int | None, tp: int = 1,
     from ppde_tpu_torch.models import esm2
     from ppde_tpu_torch.parallel import mesh as pmesh
 
+    if "ctx" in energy.params.get("tr", {}) and (tp > 1 or sp > 1):
+        raise ValueError("the MSA Transformer expert runs whole on each "
+                         "rank: tp and sp must be 1")
     mesh = pmesh.make_mesh(dp=dp, ep=ep, tp=tp, sp=sp, device=pop.device)
     # set OR clear: a later apply_mesh (or a single-device energy) in the
     # same process must not inherit a hook over a stale mesh

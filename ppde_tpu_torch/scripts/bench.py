@@ -77,7 +77,8 @@ from ppde_tpu_torch import (codec, energy as energy_mod, profiling, runtime,
 from ppde_tpu_torch.models import cnn, esm2, potts
 # the kernel wrappers declare their launch counters when imported
 from ppde_tpu_torch.ops import (_build, attention_fused,  # noqa: F401
-                                cnn_fused, potts_fused, rotary_fused)
+                                cnn_fused, potts_fused, rotary_fused,
+                                row_attention_fused)
 from ppde_tpu_torch.samplers.base import Draws
 from ppde_tpu_torch.samplers.mnist import ppde as mnist_ppde
 from ppde_tpu_torch.samplers.protein import ppde
@@ -327,8 +328,9 @@ def expected_launches(device, n_calls: int, dtype: str, cnn_pieces: int,
     """Each kernel's launches in ``n_calls`` calls of a GFP energy's
     ``energy_and_grad``: kernel A once a call, B ``cnn_pieces`` times, C and
     C' ``attention`` times each, and with them (once an ESM2 layer) the
-    qkv / rotary kernel forward and backward; none on the CPU, where the
-    plain versions run."""
+    qkv / rotary kernel forward and backward, kernels T and T' (the MSA
+    Transformer expert's, which the bench does not run) never; none on the
+    CPU, where the plain versions run."""
     if device.type == "cpu":
         return dict.fromkeys(COUNTERS, 0)
     b = n_calls * cnn_pieces
@@ -344,7 +346,8 @@ def expected_launches(device, n_calls: int, dtype: str, cnn_pieces: int,
             "flash_attention_bwd": n_calls * attention,
             "flash_attention_fwd_kt": kt, "flash_attention_bwd_kt": kt,
             "qkv_rotary_fwd": n_calls * attention,
-            "qkv_rotary_bwd": n_calls * attention}
+            "qkv_rotary_bwd": n_calls * attention,
+            "row_attention_fwd": 0, "row_attention_bwd": 0}
 
 
 def _finish_row(row, timing, steps, launches, expected, checks):

@@ -103,6 +103,13 @@ def get_sampler_runner(args, device):
 
 def main(args):
     check_sampler(args)
+    unknown = runtime.expert_terms(args.unsupervised_expert)["unknown"]
+    if unknown:
+        raise ValueError(
+            f"--unsupervised_expert {args.unsupervised_expert!r}: unknown "
+            f"term(s) {unknown}; the terms are potts, an ESM2 config "
+            f"(transformer-S/M/L) and an MSA Transformer config (msa-1b, "
+            f"msa-S, msa-tiny)")
     device = args.device
     if uses_mesh(args):
         device = pmesh.init_distributed(device)
@@ -223,7 +230,9 @@ def build_parser():
                    help="product_of_experts, supervised")
     g.add_argument("--unsupervised_expert", type=str, default="potts",
                    help="potts, transformer-S, transformer-M, transformer-L, "
-                        "potts+transformer")
+                        "msa-1b, msa-S, msa-tiny, joined by '+' (e.g. "
+                        "potts+transformer, potts+msa-1b); another term "
+                        "raises")
     g.add_argument("--sampler", type=str, default="PPDE")
     g.add_argument("--nmut_threshold", type=int, default=0)
     g.add_argument("--disable_MSA_transformer_scoring", action="store_true")
@@ -242,8 +251,20 @@ def build_parser():
                         "family-trained .npz (scripts/finetune_msa.py)")
     g.add_argument("--msa_transformer_model", type=str, default="msa-1b",
                    help="msa_transformer.CONFIGS key the weights belong to")
-    g.add_argument("--allow_random_esm", action="store_true",
-                   help="use randomly-initialized ESM2 (smoke tests only)")
+    g.add_argument("--allow_random_esm", "--allow_random_msa",
+                   action="store_true",
+                   help="use a randomly-initialized transformer expert "
+                        "(ESM2 or the MSA Transformer; smoke tests only)")
+    g.add_argument("--msa_expert_weights", type=str, default=None,
+                   help="MSA Transformer expert (an msa-* term): a native "
+                        ".npz of its config or a fair-esm esm_msa1b .pt")
+    g.add_argument("--msa_expert_context", type=str, default=None,
+                   help="a2m / FASTA of aligned rows of the wild type's "
+                        "length: the MSA Transformer expert's context, its "
+                        "first msa_expert_rows - 1 rows in file order")
+    g.add_argument("--msa_expert_rows", type=int, default=32,
+                   help="rows of the MSA Transformer expert's alignment: "
+                        "the chain's and msa_expert_rows - 1 context rows")
     g.add_argument("--summary_json", type=str, default="",
                    help="also write the machine-readable cell summary to "
                         "this stable path (a summary.json is always written "
@@ -263,12 +284,13 @@ def build_parser():
                    help="max-pool backward: equal split on ties (default) "
                         "or torch.max first-argmax routing (reference "
                         "gradient parity)")
-    g.add_argument("--esm_chunk", type=int, default=0,
+    g.add_argument("--esm_chunk", "--msa_expert_chunk", type=int, default=0,
                    help="chunk the transformer energy over this many chains "
                         "(0 = auto: one piece where the one-piece gradient's "
                         "measured peak memory fits in 80%% of the card, else "
                         "the largest chunk that fits, runtime."
-                        "resolve_esm_chunk; -1 = one piece)")
+                        "resolve_esm_chunk, or for the MSA Transformer "
+                        "runtime.resolve_msa_grad; -1 = one piece)")
     g.add_argument("--mesh_dp", type=int, default=0,
                    help="shard chains over a dp-axis device mesh of this "
                         "size (0 = single device); chains must divide it")

@@ -313,7 +313,8 @@ def test_expected_launches_on_the_card(dtype, attention):
                    "flash_attention_fwd_kt": n * attention * f32,
                    "flash_attention_bwd_kt": n * attention * f32,
                    "qkv_rotary_fwd": n * attention,
-                   "qkv_rotary_bwd": n * attention}
+                   "qkv_rotary_bwd": n * attention,
+                   "row_attention_fwd": 0, "row_attention_bwd": 0}
     assert not any(bench.expected_launches(torch.device("cpu"), n, dtype,
                                            pieces, attention).values())
 

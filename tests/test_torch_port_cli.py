@@ -60,9 +60,19 @@ def _main(argv):
 
 def test_parser_defaults_match_jax():
     """Every flag of the JAX CLI, with its default; --device defaults to
-    cuda in the port (it is honoured there)."""
+    cuda in the port (it is honoured there); the MSA Transformer expert's
+    weights, context and rows are the port's own flags, and it takes
+    --allow_random_esm and --esm_chunk (also spelt --allow_random_msa and
+    --msa_expert_chunk)."""
     ours = vars(de.build_parser().parse_args([]))
     theirs = vars(_jax_cli().build_parser().parse_args([]))
+    assert {k: ours.pop(k) for k in (
+        "msa_expert_weights", "msa_expert_context", "msa_expert_rows")} == {
+        "msa_expert_weights": None, "msa_expert_context": None,
+        "msa_expert_rows": 32}
+    spelt = vars(de.build_parser().parse_args(
+        ["--allow_random_msa", "--msa_expert_chunk", "8"]))
+    assert (spelt["allow_random_esm"], spelt["esm_chunk"]) == (True, 8)
     assert ours.keys() == theirs.keys()
     assert ours.pop("device") == "cuda" and theirs.pop("device") == "tpu"
     assert ours == theirs

@@ -1,5 +1,6 @@
-"""Kernels A, B, C and C' and the qkv / rotary kernels against their plain
-PyTorch versions, on the card.
+"""Kernels A, B, C and C', the qkv / rotary kernels and kernels T and T'
+(the MSA Transformer's tied row attention) against their plain PyTorch
+versions, on the card.
 
 Marked ``cuda``: each test skips where torch.cuda.is_available() is False
 (CUDA kernels have no CPU or interpret mode). On a machine with a GPU:
@@ -19,7 +20,7 @@ import torch
 
 from ppde_tpu_torch.models import cnn, esm2
 from ppde_tpu_torch.ops import (attention_fused, cnn_fused, potts_fused,
-                                rotary_fused)
+                                rotary_fused, row_attention_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -1197,3 +1198,165 @@ def test_traced_energy_books_every_kernel_under_its_span(dev, tmp_path, L):
     assert by_span["unmatched"] == 0
     for span, n in found.items():
         assert by_span[span]["kernels"] >= n
+
+
+# ---------------------------------------------------------------------------
+# kernels T and T' (tied row attention) and the MSA Transformer expert
+# ---------------------------------------------------------------------------
+
+def _rows(shape, dtype, dev, seed=0, n=3):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(
+        (rng.standard_normal(shape) * 0.5).astype(np.float32)).to(dev, dtype)
+        for _ in range(n)]
+
+
+def _row_tol(dtype, ref):
+    # float32: sums over R hd and over the columns in another order; bf16:
+    # one rounding of w and ds, and the products' bf16 outputs, against
+    # the largest output (the sums run over C columns of weights ~1 / C)
+    big = float(ref.float().abs().max())
+    return (dict(rtol=1e-4, atol=1e-5 * max(big, 1.0)) if dtype == F32
+            else dict(rtol=3e-2, atol=2e-2 * max(big, 1e-3)))
+
+
+# (N, R, C, H, hd): the msa-1b cell's layer at 2 chains (the register
+# kernels at C = 238), strips and groups cut by odd C, the SIMT kernels
+# (hd 24, C past 256, and every float32 call)
+ROW_SHAPES = [(2, 32, 238, 12, 64), (3, 5, 37, 3, 16), (1, 3, 65, 2, 32),
+              (2, 2, 256, 1, 48), (2, 3, 9, 2, 24), (1, 2, 300, 2, 32)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", ROW_SHAPES, ids=str)
+def test_row_attention_kernels_match_plain(dev, dtype, shape):
+    q, k, v, dout = _rows(shape, dtype, dev, seed=shape[2], n=4)
+    scale = 1.0 / (math.sqrt(shape[4]) * math.sqrt(shape[1]))
+    n0 = (row_attention_fused.launches_fwd, row_attention_fused.launches_bwd)
+    o = row_attention_fused.tied_row_attention(q, k, v, scale)
+    got = row_attention_fused.tied_row_attention_bwd(q, k, v, dout, scale)
+    assert (row_attention_fused.launches_fwd,
+            row_attention_fused.launches_bwd) == (n0[0] + 1, n0[1] + 1)
+    torch.cuda.synchronize()
+    o0 = row_attention_fused.tied_row_attention_plain(q, k, v, scale)
+    torch.testing.assert_close(o.float(), o0.float(), **_row_tol(dtype, o0))
+    want = row_attention_fused.tied_row_attention_bwd_plain(q, k, v, dout,
+                                                            scale)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        torch.testing.assert_close(a.float(), b.float(), msg=lambda m: (
+            f"{name}: {m}"), **_row_tol(dtype, b))
+    # no atomics: both directions repeat bit for bit
+    assert torch.equal(o, row_attention_fused.tied_row_attention(q, k, v,
+                                                                 scale))
+    again = row_attention_fused.tied_row_attention_bwd(q, k, v, dout, scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_row_attention_function_is_autograd_of_plain(dev, dtype):
+    """The autograd Function's gradients are T''s, and close to autograd's
+    through the plain version."""
+    shape = (2, 4, 40, 2, 32)
+    q, k, v, dout = _rows(shape, dtype, dev, seed=7, n=4)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = row_attention_fused.tied_row_attention(*leaves, 0.2)
+    grads = torch.autograd.grad(o, leaves, dout)
+    bwd = row_attention_fused.tied_row_attention_bwd(q, k, v, dout, 0.2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, bwd))
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o0 = row_attention_fused.tied_row_attention_plain(*plain, 0.2)
+    for a, b in zip(grads, torch.autograd.grad(o0, plain, dout)):
+        torch.testing.assert_close(a.float(), b.float(), **_row_tol(dtype, b))
+
+
+def test_row_attention_rejects_bad_input(dev):
+    q = torch.zeros((1, 2, 8, 2, 16), device=dev, dtype=BF16)
+    f = row_attention_fused.tied_row_attention
+    with pytest.raises(ValueError):  # not contiguous
+        f(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2), 1.0)
+    with pytest.raises(TypeError):  # mixed types
+        f(q, q.float(), q, 1.0)
+    with pytest.raises(ValueError):  # hd past 64
+        z = torch.zeros((1, 2, 8, 1, 72), device=dev, dtype=BF16)
+        f(z, z, z, 1.0)
+    with pytest.raises(ValueError):  # C past 2,048
+        z = torch.zeros((1, 2, 2049, 1, 16), device=dev, dtype=BF16)
+        f(z, z, z, 1.0)
+    with pytest.raises(ValueError, match="scratch"):  # 9.4 GiB of scores
+        z = torch.zeros((1, 2, 2048, 600, 8), device=dev, dtype=F32)
+        f(z, z, z, 1.0)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_attention_kernels_at_the_msa_column_shape(dev, dtype):
+    """Kernels C and C' where the msa-1b cell's column attention runs them:
+    Z = 2 chains x 238 columns x 12 heads, T = 32 rows, hd 64."""
+    q, k, v, dout = _qkv(2 * 238 * 12, 32, 64, dtype, dev, seed=32, n=4)
+    o = attention_fused.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(o.float(), attention_fused.attention_plain(
+        q, k, v).float(), **_attn_tol(dtype))
+    got = attention_fused.flash_attention_bwd(q, k, v, dout)
+    want = attention_fused.attention_bwd_plain(q, k, v, dout)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **_attn_tol(dtype))
+
+
+def _msa_energy(dev, name, L, rows, n_chains, dtype=BF16, chunk=None,
+                remat=False):
+    from ppde_tpu_torch import codec, energy
+    from ppde_tpu_torch.models import msa_transformer as msat
+
+    rng = np.random.default_rng(L)
+    letters = np.array(list(codec.ALPHABET))
+    wt = "".join(letters[rng.integers(0, 20, L)])
+    ctx = ["".join(letters[rng.integers(0, 20, L)]) for _ in range(rows - 1)]
+    tr = msat.load_expert(name, wt, ctx, allow_random=True, dtype=dtype,
+                          remat=remat, device=dev)
+    ens = cnn.init_ensemble(torch.Generator(device=dev).manual_seed(L), 3,
+                            input_size=L)
+    wt_oh = torch.from_numpy(codec.seqs_to_onehot([wt])).to(dev)
+    en = energy.protein_poe(None, ens, 1.0, wt_oh, transformer=tr,
+                            chunk_size=chunk)
+    return en, _onehot(rng, n_chains, L, dev)
+
+
+@pytest.mark.parametrize("chunk", [None, 2])
+def test_msa_expert_counts_its_kernels_per_layer(dev, chunk):
+    """One energy call of an msa-S expert (4 layers, hd 32) over 5 chains:
+    kernels T, T', C and C' once a layer and a piece each way."""
+    from ppde_tpu_torch import profiling
+
+    en, x = _msa_energy(dev, "msa-S", 30, 4, 5, chunk=chunk)
+    before = profiling.counters()
+    with torch.no_grad():
+        e, _, g = en.energy_and_grad(en.params, x)
+    torch.cuda.synchronize()
+    n = {k: v - before[k] for k, v in profiling.counters().items()}
+    want = 4 * (1 if chunk is None else 3)
+    assert n["row_attention_fwd"] == n["row_attention_bwd"] == want
+    assert n["flash_attention_fwd"] == n["flash_attention_bwd"] == want
+    assert torch.isfinite(e).all() and torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_msa_expert_on_the_card_equals_its_plain_composition(
+        dev, monkeypatch, dtype, remat):
+    """The msa-S expert's energy and gradient with kernels T, T', C, C'
+    against the same energy with their plain versions monkeypatched in,
+    on the card (float32: the sums' order; bf16: the kernels' roundings
+    of w and ds against the largest value)."""
+    en, x = _msa_energy(dev, "msa-S", 40, 6, 3, dtype=dtype, remat=remat)
+    with torch.no_grad():
+        e, _, g = en.energy_and_grad(en.params, x)
+    monkeypatch.setattr(row_attention_fused, "tied_row_attention",
+                        row_attention_fused.tied_row_attention_plain)
+    monkeypatch.setattr(attention_fused, "flash_attention",
+                        attention_fused.attention_plain)
+    with torch.no_grad():
+        e0, _, g0 = en.energy_and_grad(en.params, x)
+    tol = 1e-4 if dtype == F32 else 3e-2
+    assert float((e - e0).abs().max()) <= tol * max(
+        1.0, float(e0.abs().max()))
+    assert float((g - g0).norm() / g0.norm()) <= tol

@@ -201,9 +201,17 @@ def test_load_without_weights_raises_the_jax_message():
     assert str(got.value) == str(want.value)
 
 
+def _fair_esm_positions(jparams):
+    """The JAX package's loaded leaves with the column positions' table
+    read as fair-esm reads it (column c at row c + 2): the JAX loader keeps
+    fair-esm's whole 1,026-row table, the port's loader its rows 2.."""
+    return dict(jparams, pos_embed=jparams["pos_embed"][2:])
+
+
 def test_load_torch_checkpoint_matches_jax(tmp_path):
     """A fair-esm msa1b state dict (the exact key manifest, both key
-    prefixes): the converted leaves equal the JAX package's, and one
+    prefixes): the converted leaves equal the JAX package's (the column
+    positions' table from its row 2 on, as fair-esm reads it), and one
     forward over a 3-row MSA matches at float32."""
     from tests.test_weight_manifests import make_msa1b_state_dict
 
@@ -212,12 +220,13 @@ def test_load_torch_checkpoint_matches_jax(tmp_path):
         path = tmp_path / "msa1b.pt"
         torch.save({"args": {"arch": "msa_transformer"},
                     "model": make_msa1b_state_dict(prefix=prefix)}, path)
-        want = jmsat.load_torch_checkpoint(str(path), dtype=jnp.float32)
+        want = _fair_esm_positions(
+            jmsat.load_torch_checkpoint(str(path), dtype=jnp.float32))
         got = msat.load_torch_checkpoint(str(path), torch.float32, "cpu")
         assert_same_leaves(got, want)
         del want
-    jl = np.asarray(jmsat.forward_logits(
-        jmsat.load_torch_checkpoint(str(path), dtype=jnp.float32),
+    jl = np.asarray(jmsat.forward_logits(_fair_esm_positions(
+        jmsat.load_torch_checkpoint(str(path), dtype=jnp.float32)),
         jnp.asarray(toks)[None]))
     with torch.no_grad():
         tl = msat.forward_logits(got, torch.from_numpy(toks)[None]).numpy()

@@ -14,7 +14,7 @@ from torch.profiler import ProfilerActivity, profile
 from ppde_tpu_torch import codec, energy, profiling
 from ppde_tpu_torch.models import cnn, esm2, potts
 from ppde_tpu_torch.ops import (attention_fused, cnn_fused, potts_fused,
-                                rotary_fused)
+                                rotary_fused, row_attention_fused)
 from ppde_tpu_torch.samplers.protein import ppde
 
 WT = "ACDEFGHIKLMNPQRSTVWY"  # 20 residues
@@ -32,6 +32,8 @@ OLD_ATTRIBUTES = {
                       "launches_bwd_kt": "flash_attention_bwd_kt"},
     rotary_fused: {"launches_fwd": "qkv_rotary_fwd",
                    "launches_bwd": "qkv_rotary_bwd"},
+    row_attention_fused: {"launches_fwd": "row_attention_fwd",
+                          "launches_bwd": "row_attention_bwd"},
 }
 
 
