@@ -41,7 +41,12 @@ no result line):
      beside the plain versions and one scaled_dot_product_attention over
      the [N, H, C, R hd] view; and one potts + msa-1b energy_and_grad at
      128 chains and 32 rows (counters as in 4: T, T', C and C' 12 x the
-     pieces each, A once, the qkv / rotary kernels never);
+     pieces each, the layer-norm kernels 3 x 12 + 3 x the pieces each way,
+     A once, the qkv / rotary kernels never); then the layer-norm kernels
+     at LN_CASES (the cells' norms), float32 and bfloat16, forward and
+     backward (and g's and b's gradients) against the plain composition,
+     timed beside it, against their bytes bound and beside F.layer_norm on
+     the bf16 tensor (the library's yardstick, which the port never calls);
   6. the same sampler with the potts + transformer-S product of experts
      (random-init ESM2 at full width and depth, bf16, lambda=1): 128 chains
      with the transformer's gradient in chain chunks of 16 and in one
@@ -201,7 +206,8 @@ no result line):
      sequences (EVID_QC_SWEEPS of 1,200 sweeps) with a finite QC r; (e)
      run_r4_scorer_eval.sh's msa-S correlations (random and the tracked
      scorer), two r4full mnist_sum runs and the EBM-scored summary of
-     them: finite values, no port kernel launched in (d) or (e). The
+     them: finite values, no port kernel launched in (d) or (e) but the
+     msa-S scorer's layer norms (a multiple of ``msa_norms``). The
      repository's results/ must be unchanged. From this run's rates, the
      drivers' predicted wall times at their real settings. Output:
      chiprun_out/chip_smoke_evidence.log.
@@ -220,7 +226,10 @@ no result line):
 Wherever a phase holds ESM2's kernels C and C' to a launch count, it
 holds the qkv / rotary kernels to the same count (ESM2 launches one of each
 a layer beside C and C'; ``with_rotary``); the MSA Transformer's column
-attention launches C and C' without them (phase 5's energy call).
+attention launches C and C' without them (phase 5's energy call). Where it
+holds a run's every counter, the layer-norm kernels too: 2 x layers + 2 a
+forward of ESM2 each way (the layers' twice under remat), 3 x layers + 3
+of the MSA Transformer (``esm_norms``, ``msa_norms``).
 Then one JSON line with every kernel's numbers, and as the last line
 {"ok": true, "device": {...}}. Needs a CUDA device; imports no JAX.
 Detailed results go to chiprun_out/chip_smoke.json. Phase 5 alone (the
@@ -310,6 +319,13 @@ ROTARY_CASES = ((128, 237, 20, 32), (128, 237, 20, 24), (16, 237, 20, 24),
 # headline), and float32 at the same layer (the SIMT kernels), 4 chains
 ROW_CASES = ((26, 32, 238, 12, 64, "bfloat16"),
              (4, 32, 238, 12, 64, "float32"))
+# phase 5: (rows, D) of the layer-norm kernels: the ESM2-150M cell's norm
+# (128 chains of GFP's 237 positions, 640; the kernels line's headline),
+# the 35M cell's (512 chains, 480), the msa-1b cell's (a piece of 26
+# chains, 32 rows, 238 columns, 768), transformer-L's (1280) and a row
+# count that is not a multiple of a block's 8 rows
+LN_CASES = ((128 * 237, 640), (512 * 237, 480), (26 * 32 * 238, 768),
+            (128 * 237, 1280), (1001, 640))
 ROW_ENERGY = ("msa-1b", 128, 32)  # expert, chains, rows of the energy call
 # phase 3: kernel B's wide kernel at the reference width (C = L) of
 # wild types of these lengths
@@ -814,6 +830,30 @@ def read_counters(counters):
             for name in counters}
 
 
+def esm_norms(layers, forwards, recomputed=0):
+    """ESM2's layer-norm launches (each way) in ``forwards`` forwards: two
+    a layer and two in the head; ``recomputed`` of them also run their
+    layers' forward again (remat's recompute in the backward)."""
+    return (2 * layers + 2) * forwards + 2 * layers * recomputed
+
+
+def msa_norms(layers, forwards):
+    """The MSA Transformer's: three a layer, the embedding's and the
+    head's two, in ``forwards`` forwards."""
+    return (3 * layers + 3) * forwards
+
+
+def scorer_norms_only(got, name):
+    """No port kernel in ``got`` but the MSA Transformer ``name``'s layer
+    norms as a scorer runs them: forwards of ``msa_norms`` launches (a
+    batch of masked columns each, their number the data's), no backward."""
+    from ppde_tpu_torch.models import msa_transformer as msat
+
+    n = got["layer_norm_fwd"]
+    return (not any(dict(got, layer_norm_fwd=0).values()) and n > 0
+            and n % msa_norms(msat.CONFIGS[name]["layers"], 1) == 0)
+
+
 def with_rotary(want):
     """``want`` with the qkv / rotary kernels' launches: ESM2 launches them
     once a layer beside kernel C (forward) and C' (backward), and nothing
@@ -1019,6 +1059,110 @@ def phase_rotary(torch, esm2, rotary_fused, dev, cases=ROTARY_CASES):
     return out
 
 
+def close_to(a, b, rtol, atol):
+    """|a - b| <= rtol max(|a|, |b|) + atol everywhere (float32), and the
+    largest difference."""
+    a, b = a.float(), b.float()
+    err = (a - b).abs()
+    return (bool((err <= rtol * a.abs().maximum(b.abs()) + atol).all()),
+            err.max().item())
+
+
+def phase_layer_norm(torch, layer_norm_fused, dev, cases=LN_CASES):
+    """The layer-norm kernels against the plain composition (x cast to
+    float32, F.layer_norm, the cast back) and autograd through it: y, dx,
+    and g's and b's gradients; run twice (bit-equal); timed beside the
+    composition (forward, and its autograd backward of x alone, as the
+    sampler takes it), against the bytes bound, and beside F.layer_norm on
+    x's own type with g, b in it (the library's norm, which the port never
+    calls; its backward timed as forward and backward less forward)."""
+    lnf = layer_norm_fused
+    F = torch.nn.functional
+    out = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        s = 2 if dtype == torch.bfloat16 else 4
+        # the float32 sums run in another order than F.layer_norm's (and
+        # its backward's): in bf16 a unit in the last place of the one
+        # rounding (2**-7 of the larger value), in float32 a few of its
+        # roundings; g's and b's gradients sum over every row in float32
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        for rows, D in cases:
+            gen = torch.Generator(device=dev).manual_seed(rows + D)
+            x = (torch.randn((rows, D), generator=gen, device=dev) * 2.0
+                 + torch.randn((rows, 1), generator=gen, device=dev)
+                 ).to(dtype)
+            dy = torch.randn((rows, D), generator=gen, device=dev).to(dtype)
+            g = 1.0 + 0.3 * torch.randn(D, generator=gen, device=dev)
+            b = 0.2 * torch.randn(D, generator=gen, device=dev)
+            y, st = lnf._fwd_cuda(x, g, b, 1e-5, True)
+            dx, _, _ = lnf._bwd_cuda(x, dy, g, st, False)
+            dx2, dg, db = lnf._bwd_cuda(x, dy, g, st, True)
+            again = (lnf._fwd_cuda(x, g, b, 1e-5, True)[0],
+                     *lnf._bwd_cuda(x, dy, g, st, True))
+            torch.cuda.synchronize()
+            check(all(torch.equal(p, q) for p, q in zip(
+                (y, dx, dx, dg, db), (again[0], dx2, *again[1:]))),
+                  f"layer norm {rows}x{D} {dn}: not bit-repeatable")
+            xs = [t.clone().requires_grad_(True) for t in (x, g, b)]
+            y0 = lnf.layer_norm_plain(*xs)
+            dx0, dg0, db0 = torch.autograd.grad(y0, xs, dy)
+            r = {"rows": rows, "D": D, "dtype": dn,
+                 "tol": f"rtol {rtol} of the larger, atol 1e-5 (y) and "
+                        f"1e-5 x max|ref| (dx); dg, db rtol 1e-4, atol "
+                        f"1e-4 x max|ref|"}
+            for name, got, ref, rt, at in (
+                    ("y", y, y0, rtol, 1e-5),
+                    ("dx", dx, dx0, rtol,
+                     1e-5 * dx0.float().abs().max().item()),
+                    ("dg", dg, dg0, 1e-4, 1e-4 * dg0.abs().max().item()),
+                    ("db", db, db0, 1e-4, 1e-4 * db0.abs().max().item())):
+                ok, err = close_to(got, ref, rt, at)
+                r[f"max_abs_err_{name}"] = err
+                r[f"rel_norm_err_{name}"] = rel_norm(got, ref)
+                check(ok, f"layer norm {name} {rows}x{D} {dn}: max abs err "
+                          f"{err}, relative norm {r[f'rel_norm_err_{name}']}")
+            del y0, dx0, xs, again, dx2
+            xr = x.clone().requires_grad_(True)
+            yr = lnf.layer_norm_plain(xr, g, b)
+            g16, b16 = g.to(dtype), b.to(dtype)
+            xl = x.clone().requires_grad_(True)
+
+            def lib_fwd():
+                return F.layer_norm(x, (D,), g16, b16, 1e-5)
+
+            def lib_fwd_bwd():
+                torch.autograd.grad(F.layer_norm(xl, (D,), g16, b16, 1e-5),
+                                    xl, dy)
+
+            lib_f = time_ms(lib_fwd)
+            r.update({
+                "fwd_ms": time_ms(lambda: lnf._fwd_cuda(x, g, b, 1e-5, True)),
+                "fwd_plain_ms": time_ms(
+                    lambda: lnf.layer_norm_plain(x, g, b)),
+                "fwd_library_ms": lib_f,
+                "bwd_ms": time_ms(lambda: lnf._bwd_cuda(x, dy, g, st, False)),
+                "bwd_affine_ms": time_ms(
+                    lambda: lnf._bwd_cuda(x, dy, g, st, True)),
+                "bwd_plain_ms": time_ms(lambda: torch.autograd.grad(
+                    yr, xr, dy, retain_graph=True)),
+                "bwd_library_ms": time_ms(lib_fwd_bwd) - lib_f})
+            del yr, xr, xl
+            # bytes: x read and y written (forward), x and dy read and dx
+            # written (backward), g and b, mu and rstd (8 bytes a row);
+            # operations: about 8 (forward) and 12 (backward) an element
+            n = rows * D
+            r["fwd_bound_ms"], r["fwd_bound_by"] = bound_ms(
+                2 * n * s + 8 * rows + 8 * D, 8 * n, dn)
+            r["bwd_bound_ms"], r["bwd_bound_by"] = bound_ms(
+                3 * n * s + 8 * rows + 4 * D, 12 * n, dn)
+            out.append(r)
+            print("layer norm", json.dumps(r), flush=True)
+            del x, dy, y, st, dx, dg, db
+            torch.cuda.empty_cache()
+    return out
+
+
 def phase_row_attention(torch, row_attention_fused, counters, dev, card,
                         cases=ROW_CASES, run=ROW_ENERGY):
     """Kernels T and T' (tied row attention) against their plain versions
@@ -1164,13 +1308,15 @@ def phase_row_attention(torch, row_attention_fused, counters, dev, card,
           f"{name} expert term of the wild type is {wt_term}, not 0")
     check(torch.isfinite(e).all().item() and torch.isfinite(g).all().item(),
           f"{name} energy or gradient not finite")
+    norms = msa_norms(n_layers, pieces)
     check(got["row_attention_fwd"] == got["row_attention_bwd"] == need
           and got["flash_attention_fwd"] == got["flash_attention_bwd"]
           == need and got["qkv_rotary_fwd"] == got["qkv_rotary_bwd"] == 0
+          and got["layer_norm_fwd"] == got["layer_norm_bwd"] == norms
           and got["potts_energy"] == 1 and got["cnn_ensemble"] >= 1,
           f"{name}, {n_chains} chains in {pieces} pieces: launches {got}; "
-          f"T, T', C and C' want {need} each, A 1, the qkv / rotary "
-          f"kernels 0")
+          f"T, T', C and C' want {need} each, the layer norms {norms} "
+          f"each way, A 1, the qkv / rotary kernels 0")
     energy_call = {"expert": name, "n_chains": n_chains, "rows": rows,
                    "chunk_size": chunk, "remat": remat, "pieces": pieces,
                    "call_s": call_s, "expert_term_of_wild_type": wt_term,
@@ -1225,6 +1371,11 @@ def phase_transformer(torch, codec, energy_mod, potts, cnn, esm2, ppde,
               f"qkv / rotary kernels' not C's and C''s")
         check(got["potts_energy"] >= steps and got["cnn_ensemble"] >= steps,
               f"chunk {chunk}: kernel launches {got} < {steps} steps")
+        check(all(got[f"layer_norm_{w}"] == esm_norms(
+            n_layers, got[f"flash_attention_{w}"] // n_layers)
+            for w in ("fwd", "bwd")),
+              f"chunk {chunk}: the layer norms' launches {got}, not 2 a "
+              f"layer and 2 a forward beside C (C')")
         r = checked(en, res, cfg, wt_oh, steps, n_chains, chunk, dev)
         r.update({"chunk_size": chunk, "log_every": log_every,
                   "transformer_term_of_wild_type": wt_term,
@@ -1768,7 +1919,7 @@ def phase_eval(torch, counters, dev, card):
               and summary["density_msa_size"] == EVAL_MSA_SIZE,
               f"eval_proteins: scores {scores.shape}, summary "
               f"{sorted(summary)}")
-        check(not any(got.values()),
+        check(scorer_norms_only(got, EVAL_MSAT),
               f"eval_proteins: a port kernel ran: {got}")
         check(tm["rows"] == EVAL_MSA_SIZE and tm["tokens"] == len(GFP_WT) + 1,
               f"eval_proteins: alignment {tm}")
@@ -2170,8 +2321,14 @@ def phase_training(torch, counters, dev, card):
         before, after = logged(r"held-out masked CE \w+: (\S+)", out)
         check(ce and np.isfinite(ce + [before, after]).all(),
               f"finetune_msa: losses {ce}, held-out {before} -> {after}")
-        check(not any(got.values()), f"finetune_msa: a port kernel ran: "
-              f"{got}")
+        # msa-S's norms alone: a forward and a backward a step, the
+        # held-out CE's 4 forwards before and after
+        want = dict(dict.fromkeys(COUNTERS, 0), layer_norm_fwd=msa_norms(
+            msat.CONFIGS["msa-S"]["layers"], TRAIN_MSA_STEPS + 2 * 4),
+            layer_norm_bwd=msa_norms(msat.CONFIGS["msa-S"]["layers"],
+                                     TRAIN_MSA_STEPS))
+        check(got == want, f"finetune_msa: kernel launches {got}, not "
+              f"{want}")
         m = msat.load(f"{out_m}_ckpt_{TRAIN_MSA_STEPS}.npz",
                       dtype=torch.bfloat16, name="msa-S", device=dev)
         check(len(m["layers"]) == msat.CONFIGS["msa-S"]["layers"],
@@ -2598,14 +2755,16 @@ def bench_expected(row, args, dev):
         return dict.fromkeys(COUNTERS, 0)
     steps = row["steps"]
     n_calls = 1 + (max(1, args.warmup // steps) + bench.REPS) * steps
-    attention = 0
+    attention = norms = 0
     if row["expert"] != "potts":
         chunk = bench.transformer_chunk(row["n_chains"], dev)
         check(row["chunk_size"] == chunk, f"the bench's transformer chunk "
               f"{row['chunk_size']}, expected {chunk}")
-        attention = (esm2.CONFIGS["transformer-S"]["layers"]
-                     * (-(-row["n_chains"] // chunk) if chunk else 1))
-    return bench.expected_launches(dev, n_calls, args.dtype, 1, attention)
+        layers = esm2.CONFIGS["transformer-S"]["layers"]
+        pieces = -(-row["n_chains"] // chunk) if chunk else 1
+        attention, norms = layers * pieces, esm_norms(layers, pieces)
+    return bench.expected_launches(dev, n_calls, args.dtype, 1, attention,
+                                   norms)
 
 
 def phase_bench(torch, dev, card, ppde_runs):
@@ -2741,8 +2900,9 @@ def cell_launches(args, steps, pieces=1, L=len(GFP_WT)):
     transformer expert, C' once a layer a piece each time and C as often
     (twice under remat: transformer-L), plus one forward a layer for the
     expert's wild-type score at load and one for the CLI's wild-type
-    energy (one piece each). ``--energy_function supervised`` has neither
-    Potts nor transformer term. A wild type of L > 256 residues (the
+    energy (one piece each); the layer norms (``esm_norms``) as often as
+    those forwards and backwards. ``--energy_function supervised`` has
+    neither Potts nor transformer term. A wild type of L > 256 residues (the
     reference-width CNN, C = L; the bf16 expert at T = L) runs B's wide
     kernel and the key-tiled kernels C and C'. The qkv / rotary kernels run
     as often as C and C'; every other kernel (T, T': the MSA Transformer
@@ -2773,7 +2933,24 @@ def cell_launches(args, steps, pieces=1, L=len(GFP_WT)):
         for way in ("fwd", "bwd"):
             want[f"flash_attention_{way}_kt"] = (
                 want[f"flash_attention_{way}"] * (L > 256))
+        want.update(layer_norm_fwd=esm_norms(layers, 2 + pieces * calls,
+                                             remat * pieces * calls),
+                    layer_norm_bwd=esm_norms(layers, pieces * calls))
     return with_rotary(want)
+
+
+def cell_launches_match(got, want, args):
+    """``got == want`` (``cell_launches``), but for the MSA Transformer
+    scorer after the run, when its scoring is on and finds weights: a
+    forward of ``msa_norms`` layer-norm launches a batch of masked
+    columns, whose number the run's mutations set."""
+    from ppde_tpu_torch.models import msa_transformer as msat
+
+    extra = got["layer_norm_fwd"] - want["layer_norm_fwd"]
+    per = msa_norms(msat.CONFIGS[args.msa_transformer_model]["layers"], 1)
+    return (dict(got, layer_norm_fwd=0) == dict(want, layer_norm_fwd=0)
+            and extra >= 0 and extra % per == 0
+            and (extra == 0 or not args.disable_MSA_transformer_scoring))
 
 
 def phase_large(torch, counters, dev, card):
@@ -2822,7 +2999,8 @@ def phase_large(torch, counters, dev, card):
                   f"{label}: {args.n_iters} steps of {args.n_chains}")
             run_dir, out, got, secs, tm = run(label, de, argv)
             want = cell_launches(args, steps, pieces)
-            check(got == want, f"{label}: kernel launches {got}, not {want}")
+            check(cell_launches_match(got, want, args),
+                  f"{label}: kernel launches {got}, not {want}")
             r = check_cli_run(torch, runtime, args, run_dir, steps, dev)
             flops = 2 * esm_forward_flops(name, T) * n_chains
             r.update({"run": label, "expert": args.unsupervised_expert,
@@ -2883,6 +3061,11 @@ def phase_large(torch, counters, dev, card):
             want.update(flash_attention_fwd=layers * ((1 + remat) * ft_steps
                                                       + 2 * 4),
                         flash_attention_bwd=layers * ft_steps)
+            # the norms likewise; LoRA freezes the first norm's input (the
+            # embedding) and its g, b: no backward there
+            want.update(layer_norm_fwd=esm_norms(layers, ft_steps + 2 * 4,
+                                                 remat * ft_steps),
+                        layer_norm_bwd=esm_norms(layers, ft_steps) - ft_steps)
             want = with_rotary(want)
             check(got == want, f"{label}: kernel launches {got}, not {want}")
             files = sorted(f for f in os.listdir(tmp) if f.startswith(name))
@@ -3098,7 +3281,8 @@ def phase_long(torch, counters, dev, card):
             captured.clear()
             run_dir, out, got, secs, tm = run(label, de, argv)
             want = cell_launches(args, steps, 1, L)
-            check(got == want, f"{label}: kernel launches {got}, not {want}")
+            check(cell_launches_match(got, want, args),
+                  f"{label}: kernel launches {got}, not {want}")
             r = check_cli_run(torch, runtime, args, run_dir, steps, dev)
             res = captured[-1]
             rate = float(res.n_accepted.sum()) / (steps * CLI_CHAINS)
@@ -3248,7 +3432,8 @@ def evidence_flags(torch, run, tree, dev, card):
         want = cell_launches(a, steps)
         # cell_launches: A (f32) and B once for the initial state and once
         # a step; A 0 without a Potts term (supervised); none for CMA-ES
-        check(got == want, f"{label}: kernel launches {got}, not {want}")
+        check(cell_launches_match(got, want, a),
+              f"{label}: kernel launches {got}, not {want}")
         r = check_cli_run(torch, runtime, a, run_dir, steps, dev)
         with open(a.summary_json) as f:
             summary = json.load(f)
@@ -3299,7 +3484,9 @@ def evidence_family(torch, counters, dev, card, run, log, launches, by_run,
     want = with_rotary(dict(
         dict.fromkeys(COUNTERS, 0),
         flash_attention_fwd=layers * (EVID_FT_STEPS + 2 * 4),
-        flash_attention_bwd=layers * EVID_FT_STEPS))
+        flash_attention_bwd=layers * EVID_FT_STEPS,
+        layer_norm_fwd=esm_norms(layers, EVID_FT_STEPS + 2 * 4),
+        layer_norm_bwd=esm_norms(layers, EVID_FT_STEPS)))
     check(got == want, f"{label}: kernel launches {got}, not {want}")
     n_held = int(re.search(r"\(\+(\d+) held out\)", out).group(1))
     ce = dict(re.findall(r"held-out masked CE (\w+): (\S+)", out))
@@ -3400,8 +3587,8 @@ def evidence_family(torch, counters, dev, card, run, log, launches, by_run,
         # state and once a step; C' 12 a step (and initial state); C as
         # C' plus 12 for the expert's wild-type score and 12 for the
         # CLI's wild-type energy
-        check(c["launches"] == want, f"{sp['name']}: kernel launches "
-              f"{c['launches']}, not {want}")
+        check(cell_launches_match(c["launches"], want, a),
+              f"{sp['name']}: kernel launches {c['launches']}, not {want}")
         r = check_cli_run(torch, runtime, a, c["run_dir"], EVID_CELL_STEPS,
                           dev)
         with open(a.summary_json) as f:
@@ -3486,7 +3673,8 @@ def evidence_family(torch, counters, dev, card, run, log, launches, by_run,
         res, out, got, secs, _ = run("eval_esm_heldout_ce", tool, tool_argv)
     name = os.path.basename(ckpt)
     want = with_rotary(dict(dict.fromkeys(COUNTERS, 0),
-                            flash_attention_fwd=2 * layers * 4))  # 4 a CE
+                            flash_attention_fwd=2 * layers * 4,  # 4 a CE
+                            layer_norm_fwd=esm_norms(layers, 2 * 4)))
     check(got == want, f"eval_esm_heldout_ce: launches {got}, not {want}")
     check(res["n_heldout"] == n_held and res["length"] == T,
           f"eval_esm_heldout_ce: {res['n_heldout']} held out of length "
@@ -3617,7 +3805,7 @@ def evidence_scorer_mnist(run, tree, card):
         rho = res["spearman_vs_oracle"]
         with open(argv[argv.index("--out_json") + 1]) as f:
             saved = json.load(f)["spearman_vs_oracle"]
-        check(got == zero,
+        check(scorer_norms_only(got, "msa-S"),
               f"eval_expert_correlation {mode}: kernel launches {got}")
         check(saved == rho and "msat_" in " ".join(rho)
               and all(np.isfinite(v) for v in rho.values()),
@@ -3710,6 +3898,30 @@ def rotary_row(rows, way, launches):
             "cases": [numbers(r) for r in rows if r is not head]}
 
 
+def layer_norm_row(rows, way, launches):
+    """The kernels line's row of the layer-norm kernel (way "fwd" or
+    "bwd"): the ESM2-150M cell's norm in bf16 (LN_CASES[0]) as the
+    headline, every other case of phase 5 beside it."""
+    def numbers(r):
+        err = (max(r["max_abs_err_dx"], r["max_abs_err_dg"],
+                   r["max_abs_err_db"]) if way == "bwd"
+               else r["max_abs_err_y"])
+        return {"shape": [r["rows"], r["D"]], "dtype": r["dtype"],
+                "max_abs_err": err, "ms": r[f"{way}_ms"],
+                "plain_ms": r[f"{way}_plain_ms"],
+                "bound_ms": r[f"{way}_bound_ms"],
+                "bound_by": r[f"{way}_bound_by"],
+                "library_ms": r[f"{way}_library_ms"]}
+
+    head = next(r for r in rows if (r["rows"], r["D"]) == LN_CASES[0]
+                and r["dtype"] == "bfloat16")
+    return {"name": f"layer_norm_{way}", "route": "cuda",
+            "source": "ppde_tpu_torch/csrc/layer_norm.cu",
+            "replaces": "no TPU kernel (ppde_tpu/models/esm2.py: jnp)",
+            "launches": launches, **numbers(head),
+            "cases": [numbers(r) for r in rows if r is not head]}
+
+
 def row_attention_row(rows, way, launches):
     """The kernels line's row of kernel T (way "fwd") or T' ("bwd"): the
     msa-1b cell's launch in bf16 (ROW_CASES[0]) as the headline, the
@@ -3735,7 +3947,7 @@ def kernel_rows(counts):
     """The launches of each row of the kernels line from the counters: A's
     bf16 and float32 launches; B's tc (bf16), simt (float32) and wide (each
     type) kernels; the register (rs) and key-tiled kernels of C and C';
-    the qkv / rotary kernels; kernels T and T'."""
+    the qkv / rotary kernels; kernels T and T'; the layer-norm kernels."""
     wide32 = counts["cnn_ensemble_wide_f32"]
     wide16 = counts["cnn_ensemble_wide"] - wide32
     return {
@@ -3752,6 +3964,8 @@ def kernel_rows(counts):
         **{f"qkv_rotary_{w}": counts[f"qkv_rotary_{w}"]
            for w in ("fwd", "bwd")},
         **{f"row_attention_{w}": counts[f"row_attention_{w}"]
+           for w in ("fwd", "bwd")},
+        **{f"layer_norm_{w}": counts[f"layer_norm_{w}"]
            for w in ("fwd", "bwd")}}
 
 
@@ -3768,8 +3982,8 @@ def main() -> int:
     from ppde_tpu_torch import codec, energy as energy_mod, utils
     from ppde_tpu_torch.models import cnn, esm2, potts
     from ppde_tpu_torch.ops import (_build, attention_fused, cnn_fused,
-                                    potts_fused, rotary_fused,
-                                    row_attention_fused)
+                                    layer_norm_fused, potts_fused,
+                                    rotary_fused, row_attention_fused)
     from ppde_tpu_torch.samplers.protein import ppde
 
     card = subprocess.run(
@@ -3798,6 +4012,8 @@ def main() -> int:
         "rotary": lambda: phase_rotary(torch, esm2, rotary_fused, dev),
         "row_attention": lambda: phase_row_attention(
             torch, row_attention_fused, counters, dev, card),
+        "layer_norm": lambda: phase_layer_norm(torch, layer_norm_fused,
+                                               dev),
         "transformer": lambda: phase_transformer(
             torch, codec, energy_mod, potts, cnn, esm2, ppde, counters, dev,
             card),
@@ -3824,8 +4040,8 @@ def main() -> int:
         print(f"phase {name} {time.perf_counter() - t:.1f} s", flush=True)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
-    pa, pb, pc, pr = got["potts"], got["cnn"], got["attention"], \
-        got["rotary"]
+    pa, pb, pc, pr, pn = got["potts"], got["cnn"], got["attention"], \
+        got["rotary"], got["layer_norm"]
     runs, launches = got["sampler"]
     tr_runs, tr_launches = got["transformer"]
     row_runs, row_launches = got["row_attention"]
@@ -3915,6 +4131,8 @@ def main() -> int:
         *(row_attention_row(row_runs["cases"], way,
                             by_row[f"row_attention_{way}"])
           for way in ("fwd", "bwd")),
+        *(layer_norm_row(pn, way, by_row[f"layer_norm_{way}"])
+          for way in ("fwd", "bwd")),
     ]}
     # the key-tiled kernels also run every float32 call: GFP's chunk-16 and
     # one-piece shapes beside the library call
@@ -3988,6 +4206,7 @@ def main() -> int:
         json.dump({"card": card, "build_s": build_s, "kernel_a": pa,
                    "kernel_b": pb, "sampler": runs, "kernels_c": pc,
                    "qkv_rotary": pr, "row_attention": row_runs,
+                   "layer_norm": pn,
                    "transformer_sampler": tr_runs, "cli": cli_runs,
                    "checkpoint": got["checkpoint"], "mnist": got["mnist"],
                    "eval": eval_runs, "training": train_runs,

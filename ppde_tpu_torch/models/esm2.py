@@ -24,8 +24,9 @@ kernels C and C' on a CUDA tensor (always: there is no switch and no einsum
 path on the card), their plain version on a CPU tensor; the glue between
 the q, k, v projections and it (head-major layout, q scale, rotary) through
 ``ops/rotary_fused.qkv_rotary``, one kernel in each direction on a CUDA
-tensor, the plain composition on a CPU tensor. The projections, the FFN,
-the embedding and the LM head are plain matrix products.
+tensor, the plain composition on a CPU tensor; the layer norms likewise
+through ``ops/layer_norm_fused.layer_norm``. The projections, the FFN, the
+embedding and the LM head are plain matrix products.
 
 Multi-device (``parallel/mesh.py``): parameters from ``shard_esm`` hold the
 rank's heads and hidden units (Megatron tensor parallelism over tp: kernels
@@ -50,7 +51,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ppde_tpu_torch import codec, profiling, utils
-from ppde_tpu_torch.ops import attention_fused, rotary_fused
+from ppde_tpu_torch.ops import attention_fused, layer_norm_fused, rotary_fused
 from ppde_tpu_torch.parallel import mesh as pmesh
 
 # Canonical ESM alphabet (fair-esm proteinseq_toks + specials), index order.
@@ -179,9 +180,10 @@ def init(generator: torch.Generator, name: str = "transformer-S",
 
 
 def _layer_norm(p, x, eps=1e-5):
-    """Layer norm in float32 (biased variance), cast back to x's type."""
-    y = F.layer_norm(x.float(), x.shape[-1:], p["g"], p["b"], eps)
-    return y.to(x.dtype)
+    """Layer norm in float32 (biased variance), rounded once to x's type:
+    ``ops/layer_norm_fused``'s kernels on a CUDA tensor, its plain
+    composition on a CPU tensor."""
+    return layer_norm_fused.layer_norm(x, p["g"], p["b"], eps)
 
 
 @functools.lru_cache(maxsize=16)

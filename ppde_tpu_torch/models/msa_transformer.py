@@ -35,11 +35,13 @@ gradient reaches them) and the context rows, embedded once, follow it; the
 score is the unmasked one-hot pseudo-log-likelihood of row 0. Its tied row
 attention runs in kernels T and T' (``ops/row_attention_fused``) and its
 column attention in kernels C and C' (``ops/attention_fused``, one
-head-major copy of q, k and v each way) on a CUDA tensor, their plain
-versions on a CPU tensor. Spans (``profiling``): the forward in
-``msa.<kind>`` (embed, norm, qkv, row, col, attn_out, ffn, head; the kernels
-in ``kernel.t`` and ``kernel.c``), inside ``profiling.grad_spans()`` the
-backward of each kind in ``msa.bwd.<kind>`` (T' and C' outside the kinds).
+head-major copy of q, k and v each way) and its layer norms in one kernel
+each way (``esm2._layer_norm``: ``ops/layer_norm_fused``) on a CUDA
+tensor, their plain versions on a CPU tensor. Spans (``profiling``): the
+forward in ``msa.<kind>`` (embed, norm, qkv, row, col, attn_out, ffn, head;
+the kernels in ``kernel.t`` and ``kernel.c``), inside
+``profiling.grad_spans()`` the backward of each kind in ``msa.bwd.<kind>``
+(T' and C' outside the kinds).
 """
 from __future__ import annotations
 

@@ -32,7 +32,7 @@ The program's spans (``SPANS``), where the work happens:
                        energy.potts and energy.esm2 or energy.msa (the
                        terms' sums stay in ``energy`` itself)
   esm2.<kind>          ESM2's forward (``models/esm2.py``): embed, norm (a
-                       layer norm with its float32 casts), qkv (the three
+                       layer norm: ``ops/layer_norm_fused``), qkv (the three
                        projections), rotary (their head-major layout, q
                        scale and rotary: ``ops/rotary_fused``), attn_out
                        (head merge, o projection, residual), ffn (fc1, GELU,

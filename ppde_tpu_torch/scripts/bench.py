@@ -324,13 +324,14 @@ def time_executions(step, ctx, state, draws, steps: int, warmup: int):
 
 
 def expected_launches(device, n_calls: int, dtype: str, cnn_pieces: int,
-                      attention: int) -> dict:
+                      attention: int, norms: int) -> dict:
     """Each kernel's launches in ``n_calls`` calls of a GFP energy's
     ``energy_and_grad``: kernel A once a call, B ``cnn_pieces`` times, C and
     C' ``attention`` times each, and with them (once an ESM2 layer) the
-    qkv / rotary kernel forward and backward, kernels T and T' (the MSA
-    Transformer expert's, which the bench does not run) never; none on the
-    CPU, where the plain versions run."""
+    qkv / rotary kernel forward and backward, the layer-norm kernels
+    ``norms`` times each way, kernels T and T' (the MSA Transformer
+    expert's, which the bench does not run) never; none on the CPU, where
+    the plain versions run."""
     if device.type == "cpu":
         return dict.fromkeys(COUNTERS, 0)
     b = n_calls * cnn_pieces
@@ -347,7 +348,9 @@ def expected_launches(device, n_calls: int, dtype: str, cnn_pieces: int,
             "flash_attention_fwd_kt": kt, "flash_attention_bwd_kt": kt,
             "qkv_rotary_fwd": n_calls * attention,
             "qkv_rotary_bwd": n_calls * attention,
-            "row_attention_fwd": 0, "row_attention_bwd": 0}
+            "row_attention_fwd": 0, "row_attention_bwd": 0,
+            "layer_norm_fwd": n_calls * norms,
+            "layer_norm_bwd": n_calls * norms}
 
 
 def _finish_row(row, timing, steps, launches, expected, checks):
@@ -393,8 +396,10 @@ def bench_torch(steps: int, warmup: int, dtype: str,
         after = launch_counts()
     launches = {k: after[k] - before[k] for k in after}
     n_calls = 1 + (timing["warmup_executions"] + REPS) * steps
+    # ESM2's norms: two a layer and two in the head, a piece each way
     expected = expected_launches(device, n_calls, dtype, cnn_pieces,
-                                 layers * pieces)
+                                 layers * pieces,
+                                 (2 * layers + 2) * pieces * transformer)
     final_x, (e, _, _), (best_e, _, best_x) = state
     check(np.isfinite(timing["chain0_energies"]).all(),
           "non-finite energies in the timed steps")

@@ -295,13 +295,15 @@ def test_bench_torch_transformer_at_full_width():
 def test_expected_launches_on_the_card(dtype, attention):
     """The launch counts the bench demands of a CUDA run (a device object
     only: nothing runs): A once a call, B once a piece, C and C'
-    ``attention`` times a call, the qkv / rotary kernel as often each way;
-    at GFP's T = 237 the key-tiled C and C' take every float32 call and no
-    bf16 one (the register kernels take bf16 up to T = 256), B's wide
-    kernel none; none at all on the CPU."""
+    ``attention`` times a call, the qkv / rotary kernel as often each way,
+    the layer-norm kernels ``norms`` times a call each way; at GFP's T =
+    237 the key-tiled C and C' take every float32 call and no bf16 one (the
+    register kernels take bf16 up to T = 256), B's wide kernel none; none
+    at all on the CPU."""
     n, pieces = 7, 2
+    norms = 2 * attention + 2 if attention else 0  # ESM2's, one piece
     got = bench.expected_launches(torch.device("cuda"), n, dtype, pieces,
-                                  attention)
+                                  attention, norms)
     f32 = dtype == "f32"
     assert set(got) == set(bench.COUNTERS)
     assert got == {"potts_energy": n, "potts_energy_f32": n * f32,
@@ -314,9 +316,11 @@ def test_expected_launches_on_the_card(dtype, attention):
                    "flash_attention_bwd_kt": n * attention * f32,
                    "qkv_rotary_fwd": n * attention,
                    "qkv_rotary_bwd": n * attention,
-                   "row_attention_fwd": 0, "row_attention_bwd": 0}
+                   "row_attention_fwd": 0, "row_attention_bwd": 0,
+                   "layer_norm_fwd": n * norms, "layer_norm_bwd": n * norms}
     assert not any(bench.expected_launches(torch.device("cpu"), n, dtype,
-                                           pieces, attention).values())
+                                           pieces, attention,
+                                           norms).values())
 
 
 def test_default_device_needs_a_gpu():

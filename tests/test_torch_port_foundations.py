@@ -125,8 +125,8 @@ def test_kernels_are_not_built_at_import():
     """Importing the wrappers builds nothing (this host has no nvcc); the
     CPU path runs the plain versions and counts no launch."""
     assert sorted(_build.sources()) == ["cnn_ensemble", "flash_attention",
-                                        "potts_energy", "qkv_rotary",
-                                        "row_attention"]
+                                        "layer_norm", "potts_energy",
+                                        "qkv_rotary", "row_attention"]
     assert not _build._libs
     n_a, n_b = potts_fused.launches, cnn_fused.launches
     W = torch.eye(128)

@@ -1,6 +1,6 @@
-"""Kernels A, B, C and C', the qkv / rotary kernels and kernels T and T'
-(the MSA Transformer's tied row attention) against their plain PyTorch
-versions, on the card.
+"""Kernels A, B, C and C', the qkv / rotary kernels, kernels T and T'
+(the MSA Transformer's tied row attention) and the layer-norm kernels
+against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: each test skips where torch.cuda.is_available() is False
 (CUDA kernels have no CPU or interpret mode). On a machine with a GPU:
@@ -19,8 +19,9 @@ import pytest
 import torch
 
 from ppde_tpu_torch.models import cnn, esm2
-from ppde_tpu_torch.ops import (attention_fused, cnn_fused, potts_fused,
-                                rotary_fused, row_attention_fused)
+from ppde_tpu_torch.ops import (attention_fused, cnn_fused,
+                                layer_norm_fused, potts_fused, rotary_fused,
+                                row_attention_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -754,9 +755,13 @@ def test_esm_cell_energy_and_gradient_equal_the_composition(dev,
             return en.energy_and_grad(en.params, x)
 
     n0 = (rotary_fused.launches_fwd, rotary_fused.launches_bwd)
+    m0 = (layer_norm_fused.launches_fwd, layer_norm_fused.launches_bwd)
     got = call()
     assert (rotary_fused.launches_fwd, rotary_fused.launches_bwd) == (
         n0[0] + 30, n0[1] + 30)
+    # the norms: two a layer and the head's two, each way
+    assert (layer_norm_fused.launches_fwd, layer_norm_fused.launches_bwd) \
+        == (m0[0] + 2 * 30 + 2, m0[1] + 2 * 30 + 2)
     _plain_glue(monkeypatch)
     want = call()
     assert len(got) == len(want)
@@ -1336,6 +1341,9 @@ def test_msa_expert_counts_its_kernels_per_layer(dev, chunk):
     want = 4 * (1 if chunk is None else 3)
     assert n["row_attention_fwd"] == n["row_attention_bwd"] == want
     assert n["flash_attention_fwd"] == n["flash_attention_bwd"] == want
+    # the norms: three a layer, row 0's embedding norm, the head's two
+    assert n["layer_norm_fwd"] == n["layer_norm_bwd"] == (3 * 4 + 3) * (
+        want // 4)
     assert torch.isfinite(e).all() and torch.isfinite(g).all()
 
 
@@ -1360,3 +1368,166 @@ def test_msa_expert_on_the_card_equals_its_plain_composition(
     assert float((e - e0).abs().max()) <= tol * max(
         1.0, float(e0.abs().max()))
     assert float((g - g0).norm() / g0.norm()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# the layer-norm kernels
+# ---------------------------------------------------------------------------
+
+# [..., D]: the ESM2-150M cell's norm (128 chains of GFP's 237 positions),
+# the 35M cell's (512 chains), a piece of the msa-1b cell's stream (26
+# chains, 32 rows, 238 columns), transformer-L's width, rows that are not
+# a multiple of a block's 8, ESM2-tiny's width
+LN_SHAPES = [(128, 237, 640), (512, 237, 480), (26, 32, 238, 768),
+             (128, 237, 1280), (1001, 640), (3, 5, 32)]
+
+
+def _ln_inputs(shape, dtype, dev, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    D = shape[-1]
+    x = (torch.randn(shape, generator=g, device=dev) * 2.0
+         + torch.randn(shape[:-1] + (1,), generator=g, device=dev)).to(dtype)
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    return (x, dy, 1.0 + 0.3 * torch.randn(D, generator=g, device=dev),
+            0.2 * torch.randn(D, generator=g, device=dev))
+
+
+def _ln_close(got, want, dtype, scale=1.0):
+    """The kernels sum in float32 in another order than F.layer_norm and
+    its backward, then round once to x's type as the composition does: in
+    bf16 at most a unit in the last place (2**-7 of the larger value), in
+    float32 a few float32 roundings; an absolute floor of 1e-5 of the
+    output's scale where the two land on either side of 0."""
+    rtol = 2.0 ** -7 if dtype == BF16 else 1e-5
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    assert bool((err <= rtol * a.abs().maximum(b.abs())
+                 + 1e-5 * scale).all()), float(err.max())
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", LN_SHAPES)
+def test_layer_norm_kernels_match_the_composition(dev, shape, dtype):
+    """y, dx, and g's and b's gradients (asked for, and not) against the
+    plain composition and autograd through it; one launch each way a
+    call."""
+    x, dy, g, b = _ln_inputs(shape, dtype, dev, seed=sum(shape))
+    xs = [t.clone().requires_grad_(True) for t in (x, g, b)]
+    n0 = (layer_norm_fused.launches_fwd, layer_norm_fused.launches_bwd)
+    y = layer_norm_fused.layer_norm(*xs)
+    got = torch.autograd.grad(y, xs, dy)
+    xg = x.clone().requires_grad_(True)
+    (gx,) = torch.autograd.grad(layer_norm_fused.layer_norm(xg, g, b), xg,
+                                dy)
+    assert (layer_norm_fused.launches_fwd, layer_norm_fused.launches_bwd) \
+        == (n0[0] + 2, n0[1] + 2)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == shape and y.is_contiguous()
+    assert torch.equal(gx, got[0])  # dx alone or beside dg, db: one kernel
+    xs0 = [t.clone().requires_grad_(True) for t in (x, g, b)]
+    y0 = layer_norm_fused.layer_norm_plain(*xs0)
+    want = torch.autograd.grad(y0, xs0, dy)
+    _ln_close(y, y0, dtype)
+    _ln_close(got[0], want[0], dtype, float(want[0].float().abs().max()))
+    for a, w in zip(got[1:], want[1:]):  # float32 sums over every row
+        assert a.dtype == F32
+        torch.testing.assert_close(a, w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["f32", "bf16"])
+def test_layer_norm_kernels_repeat_bit_for_bit(dev, dtype):
+    """The same inputs give the same bits, g's and b's gradients too (their
+    partial sums are added in a fixed order)."""
+    x, dy, g, b = _ln_inputs((4000, 640), dtype, dev, seed=1)
+
+    def run():
+        xs = [t.clone().requires_grad_(True) for t in (x, g, b)]
+        y = layer_norm_fused.layer_norm(*xs)
+        return (y, *torch.autograd.grad(y, xs, dy))
+
+    for a, c in zip(run(), run()):
+        assert torch.equal(a, c)
+
+
+def test_layer_norm_takes_the_heads_strided_view(dev):
+    """msa-1b's head normalizes row 0 of its stream, ``h[:, 0, 1:]``, a view
+    whose rows do not lie one after the other: the wrapper copies it, and
+    the gradient reaches h at those positions only."""
+    h, _, g, b = _ln_inputs((3, 4, 9, 768), BF16, dev, seed=2)
+    h.requires_grad_(True)
+    view = h[:, 0, 1:]
+    assert not view.is_contiguous()
+    y = layer_norm_fused.layer_norm(view, g, b)
+    assert torch.equal(y, layer_norm_fused.layer_norm(
+        view.detach().contiguous(), g, b))
+    _ln_close(y, layer_norm_fused.layer_norm_plain(view.detach(), g, b),
+              BF16)
+    (gh,) = torch.autograd.grad(y.float().square().sum(), h)
+    assert torch.count_nonzero(gh[:, 1:]) == 0
+    assert torch.count_nonzero(gh[:, 0, 0]) == 0
+    assert torch.count_nonzero(gh[:, 0, 1:]) > 0
+
+
+def test_layer_norm_rejects_bad_input(dev):
+    x, _, g, b = _ln_inputs((6, 64), BF16, dev, seed=3)
+    with pytest.raises(TypeError):  # float16
+        layer_norm_fused.layer_norm(x.half(), g, b)
+    with pytest.raises(TypeError):  # g, b not float32
+        layer_norm_fused.layer_norm(x, g.to(BF16), b.to(BF16))
+    with pytest.raises(ValueError):  # g, b on another device
+        layer_norm_fused.layer_norm(x, g.cpu(), b.cpu())
+    with pytest.raises(ValueError):  # D not a whole number of 16 bytes
+        layer_norm_fused.layer_norm(x[:, :12].contiguous(), g[:12], b[:12])
+    with pytest.raises(ValueError):  # past the widest row
+        layer_norm_fused.layer_norm(torch.zeros(2, 4104, dtype=BF16,
+                                                device=dev),
+                                    torch.ones(4104, device=dev),
+                                    torch.zeros(4104, device=dev))
+    with pytest.raises(ValueError):  # not on a 16-byte boundary
+        flat = torch.zeros(6 * 64 + 1, dtype=BF16, device=dev)
+        layer_norm_fused.layer_norm(flat[1:].view(6, 64), g, b)
+
+
+def test_traced_esm2_books_its_norms_where_the_norms_are_booked(dev,
+                                                                tmp_path):
+    """A tiny bf16 ESM2's energy term and its gradient under the profiler:
+    every forward launch of the layer-norm kernel lies in ``esm2.norm`` or
+    ``esm2.head``, every backward one in ``esm2.bwd.norm`` or
+    ``esm2.bwd.head`` (the kernel opens no span of its own), 2 x layers + 2
+    of each."""
+    from ppde_tpu_torch import profiling
+
+    esm2.CONFIGS["tiny"] = dict(layers=2, dim=32, heads=4, ffn=64)
+    wt = "ACDEFGHIKLMNPQRSTVWY" * 2
+    params, apply_fn = esm2.load_expert("tiny", wt, allow_random=True,
+                                        dtype=BF16, device=dev)
+    rng = np.random.default_rng(0)
+    x = _onehot(rng, 4, len(wt), dev)
+    # as energy.protein_poe's transformer term takes its gradient
+    with profiling.trace(str(tmp_path)), profiling.grad_spans():
+        xg = profiling.grad_span(x.requires_grad_(True), None)
+        y = apply_fn(params, xg)
+        with profiling.span("esm2.backward"):
+            torch.autograd.grad(y.sum(), xg)
+        torch.cuda.synchronize()
+    with open(tmp_path / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    launch = {e["args"]["correlation"]: e["ts"] for e in events
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in (e.get("args") or {})}
+    spans = [(e["name"], e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation"]
+    found = {"ln_fwd_kernel": [], "ln_bwd_kernel": []}
+    for e in events:
+        kind = next((k for k in found if k in e["name"]), None)
+        if e.get("cat") != "kernel" or kind is None:
+            continue
+        t = launch[e["args"]["correlation"]]
+        inner = min(((b - a, n) for n, a, b in spans if a <= t <= b),
+                    default=(0, None))[1]
+        found[kind].append(inner)
+    assert sorted(set(found["ln_fwd_kernel"])) == ["esm2.head", "esm2.norm"]
+    assert sorted(set(found["ln_bwd_kernel"])) == ["esm2.bwd.head",
+                                                   "esm2.bwd.norm"]
+    assert len(found["ln_fwd_kernel"]) == len(found["ln_bwd_kernel"]) == 6

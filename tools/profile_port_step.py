@@ -162,7 +162,9 @@ def trace_kernels(torch, dev, card) -> None:
 # classes of the MSA Transformer's kernels by name fragment (the first that
 # matches; "other" is the elementwise passes, casts and copies)
 MSAT_CLASSES = (("matmul", ("gemm", "cutlass", "xmma", "nvjet", "sm90_")),
-                ("softmax", ("softmax",)), ("layer_norm", ("layer_norm",)),
+                ("softmax", ("softmax",)),
+                ("layer_norm", ("layer_norm", "ln_fwd_", "ln_bwd_",
+                                "ln_affine")),
                 ("gelu", ("gelu",)))
 
 
@@ -407,7 +409,8 @@ TRAIN_CLASSES = (
                          "ampere", "splitk")),
     ("kernels C, C'", ("attn_",)),
     ("optimizer (foreach)", ("multi_tensor", "foreach")),
-    ("reductions, softmax, layer norm", ("reduce", "softmax", "norm")),
+    ("reductions, softmax, layer norm", ("reduce", "softmax", "norm",
+                                         "ln_fwd_", "ln_bwd_", "ln_affine")),
     ("elementwise, copies, casts", ("elementwise", "copy", "cat")),
 )
 
